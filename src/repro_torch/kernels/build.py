@@ -1,0 +1,126 @@
+"""Build the CUDA kernels at first use and bind them with ctypes.
+
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
+started together) into a shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
+
+into ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed
+by a hash of the sources and flags, so a checkout builds everything itself
+and an unchanged tree reuses its build.  ``-Xptxas -v``'s report of
+registers, shared memory and spills is kept beside each library
+(``<name>.log``).  Nothing is built when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("modmatmul", "coded_grad")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    # a, b, c, M, K, N, p, reduce_every, stream
+    "modmatmul_launch": [_P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_uint,
+                         _I, _P],
+    # x, wt, cbar, scratch, out, N, mk, d, c, r, p, reduce_every, stream
+    "coded_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          ctypes.c_uint, _I, _P],
+}
+
+
+def reduce_every(p: int) -> int:
+    """Largest R with (p-1) + R (p-1)^2 < 2^64: the uint64 accumulators of
+    both kernels are reduced mod p at least every R terms (16 for P30,
+    76921 for P).  Capped at 2^20 so the kernels' index arithmetic stays
+    small; reducing more often than needed is still exact."""
+    if not 2 < p < 1 << 30:
+        raise ValueError(f"the kernels need 2 < p < 2^30, got {p}")
+    return min((2 ** 64 - p) // (p - 1) ** 2, 1 << 20)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
+                       " the CUDA kernels are built on the machine with the GPU")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(repr(FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source that has no library yet, in parallel.
+
+    Returns {name: path of lib<name>.so}.  Raises with nvcc's output when a
+    build fails.
+    """
+    out_dir = BUILD_ROOT / source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    todo = [name for name in SOURCES if not libs[name].exists()]
+    if not todo:
+        return libs
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return libs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            path = build_all()[name]
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes = _ARGTYPES[f"{name}_launch"]
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

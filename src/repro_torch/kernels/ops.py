@@ -1,0 +1,40 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+A CPU tensor runs the plain PyTorch version (``ref.py``); a CUDA tensor
+launches the kernel or raises.  There is no fallback from a CUDA tensor to
+the plain version and no switch that turns the kernels off.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, ref
+from repro_torch.kernels import coded_grad as _cg
+from repro_torch.kernels import modmatmul as _mm
+
+__all__ = ["LAUNCHES", "coded_grad", "modmatmul", "reset_launches"]
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def modmatmul(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
+    """Exact (a @ b) mod p: a (M, K), b (K, N) int32 -> (M, N) int32."""
+    if _on_cpu(a, b):
+        return ref.modmatmul_ref(a, b, p)
+    return _mm.modmatmul(a.contiguous(), b.contiguous(), p)
+
+
+def coded_grad(x: torch.Tensor, w: torch.Tensor, cbar: torch.Tensor,
+               p: int) -> torch.Tensor:
+    """All N workers' f = X̃ᵀ ḡ(X̃ W̃) mod p: x (N, mk, d), w (N, d, c, r),
+    cbar (r+1,) -> (N, d, c) int32."""
+    if _on_cpu(x, w, cbar):
+        return ref.coded_grad_workers_ref(x, w, cbar, p)
+    return _cg.coded_grad(x.contiguous(), w, cbar, p)

@@ -1,0 +1,82 @@
+"""Plain PyTorch versions of the kernels; mirrors ``repro/kernels/ref.py``.
+
+They run on CPU and CUDA tensors alike.  The CPU path of the port uses
+them; on the card they are the oracle the kernels are held against
+(``chip_smoke.py``).  Nothing on the main path calls them for a CUDA tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import field, sigmoid_poly
+
+# Output columns per float64 limb product: bounds the float64 temporaries of
+# the full-width dataset encode to a few hundred MB on either device.
+COL_CHUNK = 1 << 17
+
+
+def modmatmul_ref(a: torch.Tensor, b: torch.Tensor, p: int = field.P
+                  ) -> torch.Tensor:
+    """Exact (a @ b) mod p: a (M, K), b (K, N) int32 in [0, p) -> (M, N).
+
+    Both operands are split into 8-bit limbs, and all nl x nl limb-pair
+    products come from ONE float64 matmul of the stacked limbs.  A limb
+    product is < 2^16, so every partial sum of K of them is an integer
+    < 2^16 · K, exact in float64's 53-bit mantissa while K < 2^37 whatever
+    the summation order.  Each limb-pair sum is reduced mod p, weighted by
+    2^{8(i+j)} mod p in int64 (< 2^60) and summed.
+    """
+    M, K = a.shape
+    N = b.shape[1]
+    if K >= 1 << 37:
+        raise ValueError(f"contraction {K} breaks float64 exactness")
+    nl = field.n_limbs(p)
+    dev = a.device
+    al = torch.cat(field.limbs(a, p), 0).to(torch.float64)      # (nl*M, K)
+    idx = torch.arange(nl, device=dev)
+    weights = torch.tensor([pow(2, field.LIMB_BITS * s, p)
+                            for s in range(2 * nl - 1)],
+                           dtype=torch.int64, device=dev)
+    wgt = weights[idx[:, None] + idx[None, :]][:, None, :, None]  # (nl,1,nl,1)
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    for start in range(0, N, COL_CHUNK):
+        bc = b[:, start:start + COL_CHUNK]
+        n = bc.shape[1]
+        bl = torch.cat(field.limbs(bc, p), 1).to(torch.float64)  # (K, nl*n)
+        prod = (al @ bl).to(torch.int64).reshape(nl, M, nl, n)
+        terms = torch.remainder(torch.remainder(prod, p) * wgt, p)
+        out[:, start:start + n] = torch.remainder(
+            terms.sum(dim=(0, 2)), p).to(torch.int32)
+    return out
+
+
+def coded_grad_ref(x: torch.Tensor, w: torch.Tensor, cbar: torch.Tensor,
+                   p: int = field.P) -> torch.Tensor:
+    """X̃ᵀ ḡ(X̃, W̃) mod p for one worker (paper Eq. 20).
+
+    x (mk, d), w (d, r), cbar (r+1,) -> (d,).
+    """
+    xw = modmatmul_ref(x, w, p)                          # (mk, r)
+    s = sigmoid_poly.gbar_field(xw, cbar, p)             # (mk,)
+    return modmatmul_ref(x.T, s[:, None], p)[:, 0]       # (d,)
+
+
+def coded_grad_mc_ref(x: torch.Tensor, w: torch.Tensor, cbar: torch.Tensor,
+                      p: int = field.P) -> torch.Tensor:
+    """Multi-head Eq. 20 for one worker: x (mk, d), w (d, c, r) -> (d, c).
+
+    Column cls*r + j of X̃ @ W̃.reshape(d, c*r) is head cls's degree-j
+    product, so one field matmul feeds all c polynomial heads.
+    """
+    d, c, r = w.shape
+    xw = modmatmul_ref(x, w.reshape(d, c * r), p).reshape(x.shape[0], c, r)
+    s = sigmoid_poly.gbar_field(xw, cbar, p)             # (mk, c)
+    return modmatmul_ref(x.T, s, p)                      # (d, c)
+
+
+def coded_grad_workers_ref(x: torch.Tensor, w: torch.Tensor,
+                           cbar: torch.Tensor, p: int = field.P
+                           ) -> torch.Tensor:
+    """All N workers: x (N, mk, d), w (N, d, c, r) -> (N, d, c)."""
+    return torch.stack([coded_grad_mc_ref(x[i], w[i], cbar, p)
+                        for i in range(x.shape[0])])
