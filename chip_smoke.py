@@ -7,19 +7,37 @@ Run from the repository root on a machine with one CUDA card.  It prints
 one JSON object per line, in phases, and fails (non-zero exit) if any
 phase fails:
 
-  build     builds both CUDA kernels from ``src/repro_torch/kernels/csrc``
-  kernels   holds each kernel bit for bit against its plain PyTorch version
-            on the card: the main path's shapes at the paper's Case 1
-            (N=40, K=13, T=1, m=12396, d=1568), both primes, all-(p-1)
-            inputs, odd shapes and the accumulator-reduction boundary; and
-            times each (CUDA events) beside its plain version and its bound
+  build     builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  kernels   holds each field kernel bit for bit against its plain PyTorch
+            version on the card: the main path's shapes at the paper's
+            Case 1 (N=40, K=13, T=1, m=12396, d=1568), both primes,
+            all-(p-1) inputs, odd shapes and the accumulator-reduction
+            boundary, and ``modmatmul`` at the coded LM head's shapes (P30);
+            the selective scan against its plain version within 1e-4 at the
+            serve shape (x bf16 and f32, non-zero h0), S = 1, S = 33,
+            di = 8200, n in {4, 16} and S = 8192; and times each (CUDA
+            events) beside its plain version and its bound
   train     ``repro_torch.launch.cpml_train`` at Case 1 for 25 rounds on
-            the card: both kernels launched (launch counts reset just
+            the card: both field kernels launched (launch counts reset just
             before, read just after), coded accuracy within 0.03 of the
             cleartext baseline
   teacher   3 rounds on the card and again on the CPU (plain versions)
             from the card's weights: shares and decoded parts bit-equal,
             weights within 1e-5; then the round's stages timed on the card
+  serve     ``repro_torch.launch.serve`` for falcon-mamba-7b at full width
+            and all 64 layers in bf16, batch 4, prompt 2048, 32 generated
+            tokens: ``selective_scan`` launched exactly once per layer,
+            tokens in range, logits finite; prefill seconds, decode
+            tokens/s, peak device memory
+  profile   one prefill at the serve shape and 8 decode steps under
+            torch.profiler: device time by kernel group, busy share
+  consistency  falcon-mamba-7b at full width, 2 layers, float32: prefill
+            on the card (kernel) against the CPU (plain version), and
+            prefill + 3 decode steps against ``backbone`` over S+3 on the
+            card, both within 1e-3
+  coded_head   ``serve --coded-head --kill-shard 2`` at full width, then
+            the decoded field values bit-equal to (h_q @ w_q) mod p from
+            the plain version
   summary   the {"kernels": [...]} line, then the card's name and power
             limit, then {"ok": true, "device": {...}} as the last line
 
@@ -28,6 +46,8 @@ of the repository beside it.  It imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -50,16 +70,31 @@ TRAIN_SEED = 1
 # scalar arithmetic (no integer-multiply rate is published).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# exp on the multi-function units: 16 per clock per SM (CUDA C programming
+# guide, arithmetic instruction throughput, compute capability 9.0) x 132
+# SMs x the 1.98 GHz boost clock of the SXM part (NVIDIA data sheet).
+SPECIAL_OPS_PER_S = 16 * 132 * 1.98e9
 WEIGHT_ATOL = 1e-5  # float32 summation order: cuBLAS vs CPU in xqᵀ·targets
+# The selective scan: the same float32 recurrence summed in another order
+# (the reference's kernel test uses 1e-4 too).
+SCAN_ATOL = 1e-4
+# falcon-mamba at full width, float32 parameters: card vs CPU and decode vs
+# the full forward, the reference model tests' own tolerance.
+MODEL_ATOL = 1e-3
+SERVE = dict(arch="falcon-mamba-7b", batch=4, prompt_len=2048, gen=32)
+CODED = dict(batch=4, prompt_len=16, gen=4, kill_shard=2)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, special: float = 0
+          ) -> tuple[float, str]:
+    """Least ms for the work: bytes at the memory rate against the scalar
+    operations and the special-function ops (exp), each at its rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = max(ops / SCALAR_OPS_PER_S, special / SPECIAL_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -92,7 +127,7 @@ class Checks:
 
     def __init__(self, torch):
         self.torch = torch
-        self.max_err = {"modmatmul": 0, "coded_grad": 0}
+        self.max_err = {"modmatmul": 0, "coded_grad": 0, "selective_scan": 0.0}
 
     def compare(self, kernel: str, case: str, got, want, **info) -> None:
         torch = self.torch
@@ -104,6 +139,24 @@ class Checks:
         if err != 0 or got.shape != want.shape:
             raise AssertionError(f"{kernel} {case}: kernel != plain version "
                                  f"(max abs err {err})")
+
+    def close(self, kernel: str, case: str, got, want, atol: float,
+              **info) -> None:
+        """Float outputs (tuples of tensors) within ``atol``."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                raise AssertionError(f"{kernel} {case}: shapes {g.shape} vs "
+                                     f"{w.shape}")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        self.max_err[kernel] = max(self.max_err[kernel], err)
+        emit({"phase": "kernels", "kernel": kernel, "case": case,
+              "max_abs_err": err, "tolerance": atol, **info})
+        if not err <= atol:
+            raise AssertionError(f"{kernel} {case}: kernel != plain version "
+                                 f"(max abs err {err} > {atol})")
 
 
 def phase_kernels(torch, checks: Checks) -> list[dict]:
@@ -205,6 +258,94 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
     for t in timings:
         emit({"phase": "kernels", "timing": t})
     return timings
+
+
+def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
+    """``modmatmul`` at the coded LM head's shapes, P30: one shard's
+    product (4 x 4096)·(4096 x 16256) and the head encode
+    (6 x 5)·(5 x 4096·16256).  Bit-equal, then timed."""
+    from repro_torch.core import field
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import modmatmul as mm
+
+    p = field.P30
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rand = lambda shape: torch.randint(0, p, shape, generator=gen,  # noqa: E731
+                                       dtype=torch.int32, device="cuda")
+    timings = []
+    for case, a, b in (("coded_head_shard", rand((4, 4096)), rand((4096, 16256))),
+                       ("coded_head_encode", rand((6, 5)),
+                        rand((5, 4096 * 16256)))):
+        checks.compare("modmatmul", case, mm.modmatmul(a, b, p),
+                       ref.modmatmul_ref(a, b, p), p=p,
+                       shape=[a.shape[0], a.shape[1], b.shape[1]])
+        M, KK = a.shape
+        NN = b.shape[1]
+        b_ms, b_by = bound(4 * (M * KK + KK * NN + M * NN), 2 * M * KK * NN)
+        timings.append({
+            "kernel": "modmatmul", "case": case, "shape": [M, KK, NN],
+            "ms": time_ms(torch, lambda: mm.modmatmul(a, b, p), 10),
+            "plain_ms": time_ms(torch, lambda: ref.modmatmul_ref(a, b, p), 1),
+            "bound_ms": b_ms, "bound_by": b_by})
+        emit({"phase": "kernels", "timing": timings[-1]})
+    return timings
+
+
+def scan_inputs(torch, gen, B, S, di, n, x_dtype, h0_scale):
+    """The reference kernel test's distributions, on the card."""
+    F = torch.nn.functional
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = (randn(B, S, di) * 0.5).to(x_dtype)
+    dt = F.softplus(randn(B, S, di))
+    a_log = torch.log(torch.rand((di, n), generator=gen, device="cuda") * 1.7
+                      + 0.3)
+    return (x, dt, randn(B, S, n) * 0.5, randn(B, S, n) * 0.5, a_log,
+            randn(di), randn(B, di, n) * h0_scale)
+
+
+def phase_kernels_scan(torch, checks: Checks) -> dict:
+    """The selective-scan kernel against its plain version on the card,
+    then timed at the serve shape (x bf16, h0 = 0, as the serve path
+    calls it)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import mamba_scan as ms
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, S, di, n = SERVE["batch"], SERVE["prompt_len"], 8192, 16
+    cases = [
+        ("serve_x_bf16", (B, S, di, n), bf16, 0.0),
+        ("serve_x_bf16_h0", (B, S, di, n), bf16, 0.5),
+        ("serve_x_f32_h0", (B, S, di, n), f32, 0.5),
+        ("S1", (B, 1, di, n), bf16, 0.5),
+        ("S33", (2, 33, di, n), f32, 0.5),
+        ("di8200_n4", (2, 33, 8200, 4), f32, 0.5),
+        ("di8200_n16", (2, 70, 8200, 16), bf16, 0.5),
+        ("long_S8192", (1, 8192, di, n), bf16, 0.5),
+    ]
+    for case, shape, x_dtype, h0_scale in cases:
+        args = scan_inputs(torch, gen, *shape, x_dtype, h0_scale)
+        checks.close("selective_scan", case, ms.selective_scan(*args),
+                     ref.selective_scan_ref(*args), SCAN_ATOL,
+                     shape=list(shape), x_dtype=str(x_dtype))
+    args = scan_inputs(torch, gen, B, S, di, n, bf16, 0.0)
+    # each input read once (x bf16, dt/Bm/Cm/A_log/D/h0 f32), each output
+    # written once (y, h_last f32); one exp and ~6 flops per (b, t, i, j)
+    nbytes = (B * S * di * (2 + 4) + 2 * B * S * n * 4 + (di * n + di) * 4
+              + B * di * n * 4 + B * S * di * 4 + B * di * n * 4)
+    b_ms, b_by = bound(nbytes, 6 * B * S * di * n, B * S * di * n + di * n)
+    timing = {
+        "kernel": "selective_scan", "case": "serve_x_bf16",
+        "shape": [B, S, di, n],
+        "ms": time_ms(torch, lambda: ms.selective_scan(*args), 10),
+        "plain_ms": time_ms(torch, lambda: ref.selective_scan_ref(*args), 1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "exp_ms": (B * S * di * n + di * n) / SPECIAL_OPS_PER_S * 1e3}
+    emit({"phase": "kernels", "timing": timing})
+    return timing
 
 
 def phase_train(torch, out_dir: Path) -> dict:
@@ -313,6 +454,253 @@ def phase_teacher(torch) -> dict:
     return info
 
 
+def _read_serve(out: Path, batch: int, gen: int, vocab: int) -> dict:
+    res = json.loads(out.read_text())
+    toks = res["tokens"]
+    if (len(toks) != batch or any(len(t) != gen for t in toks)
+            or not all(0 <= x < vocab for t in toks for x in t)):
+        raise AssertionError(f"generated tokens out of shape or range: {toks}")
+    if not res["logits_finite"]:
+        raise AssertionError("non-finite logits while serving")
+    return res
+
+
+def phase_serve(torch, out_dir: Path) -> dict:
+    """``repro_torch.launch.serve`` at full width and depth on the card."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = registry.get_config(SERVE["arch"])
+    out = out_dir / "serve.json"
+    argv = ["--arch", SERVE["arch"], "--batch", str(SERVE["batch"]),
+            "--prompt-len", str(SERVE["prompt_len"]), "--gen",
+            str(SERVE["gen"]), "--seed", "0", "--device", "cuda",
+            "--json-out", str(out)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rc = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc}")
+    res = _read_serve(out, SERVE["batch"], SERVE["gen"], cfg.vocab_size)
+    info = {"phase": "serve", "argv": argv, "launches": launches,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "decode_tok_per_s": res["decode_tok_per_s"],
+            "prefill_tok_per_s": SERVE["batch"] * SERVE["prompt_len"]
+            / res["prefill_s"],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "logits_finite": res["logits_finite"],
+            "sample": res["tokens"][0][:8]}
+    emit(info)
+    # one selective_scan launch per layer, all in the prefill; no field
+    # kernel on the plain head
+    if launches != {"modmatmul": 0, "coded_grad": 0,
+                    "selective_scan": cfg.num_layers}:
+        raise AssertionError(f"kernel launches while serving: {launches}")
+    return info
+
+
+def _kernel_group(name: str) -> str:
+    if "scan_kernel" in name:
+        return "selective_scan"
+    if "modmatmul" in name or "coded_grad" in name:
+        return "field kernels"
+    if any(k in name.lower() for k in ("gemm", "gemv", "nvjet", "cutlass",
+                                       "xmma", "cublas")):
+        return "matmul (cuBLAS)"
+    return "elementwise and other"
+
+
+def phase_profile(torch) -> dict:
+    """Where the serve path's time goes: one prefill at the serve shape and
+    8 decode steps under ``torch.profiler``: device time by kernel group,
+    and the device's busy share of the host-clock time (the profiler's own
+    host cost included, so the idle share is an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = registry.get_config(SERVE["arch"])
+    rc = RunConfig()
+    dev = torch.device("cuda")
+    B, S, steps = SERVE["batch"], SERVE["prompt_len"], 8
+    info: dict = {"phase": "profile", "batch": B, "prompt_len": S,
+                  "decode_steps": steps}
+    with torch.inference_mode():
+        model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        prompt = serve.make_prompt(cfg, B, S, 0, dev)
+        state: dict = {}
+
+        def prefill():
+            state["logits"], state["cache"] = M.prefill(
+                cfg, rc, model, {"tokens": prompt}, cache_len=S + steps)
+
+        def decode():
+            logits, cache = state["logits"], state["cache"]
+            for _ in range(steps):
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                logits, cache = M.decode_step(cfg, rc, model, cache,
+                                              {"tokens": tok})
+
+        for name, fn in (("prefill", prefill), ("decode", decode)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            by_name: dict[str, float] = {}
+            launches = 0
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = (by_name.get(e.name, 0.0)
+                                       + e.device_time_total / 1e3)
+                    launches += 1
+            groups: dict[str, float] = {}
+            for k, ms in by_name.items():
+                groups[_kernel_group(k)] = groups.get(_kernel_group(k), 0) + ms
+            busy = sum(groups.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            info[name] = {"host_ms": wall_ms, "device_ms": busy,
+                          "device_ms_by_group": groups,
+                          "device_busy_share": busy / wall_ms,
+                          "kernel_launches": launches,
+                          "top_kernels_ms": {k[:80]: v for k, v in top}}
+    emit(info)
+    return info
+
+
+def phase_consistency(torch) -> dict:
+    """falcon-mamba at full width, 2 layers, float32: the card against the
+    CPU, and decode against the full forward on the card."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(registry.get_config(SERVE["arch"]), num_layers=2,
+                              block_pattern=(("mamba", 2),))
+    rc = RunConfig()
+    gpu = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
+    cpu = M.Model(cfg, dtype=torch.float32, device="cpu", seed=None)
+    cpu.load_state_dict(gpu.state_dict())
+    B, S, extra = 2, 32, 3
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + extra), generator=gen,
+                         dtype=torch.int32, device="cuda")
+
+    def err(a, b):
+        return float((a.cpu().float() - b.cpu().float()).abs().max())
+
+    with torch.inference_mode():
+        lg, cg = M.prefill(cfg, rc, gpu, {"tokens": toks[:, :S]},
+                           cache_len=S + extra)
+        lc, cc = M.prefill(cfg, rc, cpu, {"tokens": toks[:, :S].cpu()},
+                           cache_len=S + extra)
+        errs = {"prefill_logits": err(lg, lc),
+                "prefill_ssm": err(cg["seg0"]["ssm"], cc["seg0"]["ssm"]),
+                "prefill_conv": err(cg["seg0"]["conv"], cc["seg0"]["conv"])}
+        h, _ = M.backbone(cfg, rc, gpu, {"tokens": toks})
+        want = M.lm_head(cfg, gpu, h[:, -1:])
+        logits, cache = lg, cg
+        for t in range(extra):
+            logits, cache = M.decode_step(cfg, rc, gpu, cache,
+                                          {"tokens": toks[:, S + t: S + t + 1]})
+        errs["decode3_vs_backbone"] = err(logits, want)
+    info = {"phase": "consistency", "layers": 2, "d_model": cfg.d_model,
+            "batch": B, "prompt_len": S, "max_abs_err": errs,
+            "tolerance": MODEL_ATOL}
+    emit(info)
+    bad = {k: v for k, v in errs.items() if not v <= MODEL_ATOL}
+    if bad:
+        raise AssertionError(f"consistency beyond {MODEL_ATOL}: {bad}")
+    return info
+
+
+def phase_coded_head(torch, out_dir: Path) -> dict:
+    """``serve --coded-head --kill-shard 2`` at full width, then the decoded
+    field values of the same head, prompt and survivors against the direct
+    product (h_q @ w_q) mod p from the plain version."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import coded_linear as CL
+    from repro_torch.core import quantize
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = registry.get_config(SERVE["arch"])
+    out = out_dir / "serve_coded.json"
+    argv = ["--arch", SERVE["arch"], "--batch", str(CODED["batch"]),
+            "--prompt-len", str(CODED["prompt_len"]), "--gen",
+            str(CODED["gen"]), "--coded-head", "--kill-shard",
+            str(CODED["kill_shard"]), "--seed", "0", "--device", "cuda",
+            "--json-out", str(out)]
+    ops.reset_launches()
+    rc = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"serve --coded-head exited {rc}")
+    res = _read_serve(out, CODED["batch"], CODED["gen"], cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI's head, prompt and masks again, from the same seeds
+    ccfg = CL.CodedLinearConfig(N=6, K=4, T=1)
+    survivors = np.array([i for i in range(ccfg.N) if i != CODED["kill_shard"]])
+    with torch.inference_mode():
+        model = M.Model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+        prompt = serve.make_prompt(cfg, CODED["batch"], CODED["prompt_len"], 0,
+                                   torch.device("cuda"))
+        w, shares = serve.encode_head(cfg, model, ccfg, 0)
+        _, _, h = M.prefill(cfg, RunConfig(), model, {"tokens": prompt},
+                            cache_len=CODED["prompt_len"] + 1,
+                            return_hidden=True)
+        del model
+        h = h[:, -1].float()
+        results, used = CL.shard_results(ccfg, h, shares, survivors)
+        got = CL.decode_field(ccfg, results, used)
+        want = ref.modmatmul_ref(quantize.quantize_data(h, ccfg.lh, ccfg.p),
+                                 quantize.quantize_data(w, ccfg.lw, ccfg.p),
+                                 ccfg.p)
+        torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(got, want))
+        check = serve.coded_head_check(ccfg, h, w, shares, survivors)
+    info = {"phase": "coded_head", "argv": argv, "launches": launches,
+            "survivors_used": used.tolist(), "field_shape": list(got.shape),
+            "field_bit_equal_to_direct_product": bit_equal,
+            "rel_err": check["rel_err"],
+            "argmax_agreement": check["argmax_agreement"],
+            "cli_rel_err": res["coded_head"]["rel_err"],
+            "cli_argmax_agreement": res["coded_head"]["argmax_agreement"],
+            "decode_tok_per_s": res["decode_tok_per_s"]}
+    emit(info)
+    if not bit_equal:
+        raise AssertionError("coded head: decoded field values != (h_q @ w_q)"
+                             " mod p")
+    if launches["modmatmul"] == 0:
+        raise AssertionError(f"coded head ran no modmatmul: {launches}")
+    return info
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase; print its seconds.  A failure propagates."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": name, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -332,6 +720,7 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     libs = build.build_all()
     for name in build.SOURCES:
@@ -344,30 +733,60 @@ def main() -> int:
                     if (v.parent / f"{name}.log").exists()}})
 
     checks = Checks(torch)
-    timings = phase_kernels(torch, checks)
+    timings = run_phase("kernels", phase_kernels, torch, checks)
+    timings += run_phase("kernels_coded_head", phase_kernels_coded_head, torch,
+                         checks)
+    timings.append(run_phase("kernels_scan", phase_kernels_scan, torch, checks))
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    train = phase_train(torch, out_dir)
-    phase_teacher(torch)
+    train = run_phase("train", phase_train, torch, out_dir)
+    run_phase("teacher", phase_teacher, torch)
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+    serve = run_phase("serve", phase_serve, torch, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("profile", phase_profile, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("consistency", phase_consistency, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    coded = run_phase("coded_head", phase_coded_head, torch, out_dir)
 
-    main_case = {"modmatmul": "dataset_encode", "coded_grad": "case1_c1_r1"}
+    # each kernel's main path: the training round for the field kernels,
+    # serving for the scan; launches counted on that path's run
+    main_case = {"modmatmul": "dataset_encode", "coded_grad": "case1_c1_r1",
+                 "selective_scan": "serve_x_bf16"}
+    launches = {"modmatmul": train["launches"]["modmatmul"],
+                "coded_grad": train["launches"]["coded_grad"],
+                "selective_scan": serve["launches"]["selective_scan"]}
     replaces = {
         "modmatmul": "src/repro/kernels/modmatmul.py:94",
         "coded_grad": "src/repro/kernels/coded_grad.py:117",
+        "selective_scan": "src/repro/kernels/mamba_scan.py:83",
     }
+    source = {"modmatmul": "modmatmul.cu", "coded_grad": "coded_grad.cu",
+              "selective_scan": "mamba_scan.cu"}
     kernels = []
-    for name in ("coded_grad", "modmatmul"):
+    for name in ("coded_grad", "modmatmul", "selective_scan"):
         t = next(x for x in timings
                  if x["kernel"] == name and x["case"] == main_case[name])
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": train["launches"][name],
+            "source": f"src/repro_torch/kernels/csrc/{source[name]}",
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": checks.max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "shape": t["shape"]})
+            "shape": t["shape"],
+            "launches_by_path": {
+                "train": train["launches"][name],
+                "serve": serve["launches"][name],
+                "serve_coded_head": coded["launches"][name]}})
     emit({"kernels": kernels})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 The reference's objects never cross directly (the port imports nothing of
 ``repro``): the caller flattens them to plain python and numpy first,
 ``dataclasses.asdict(cfg)`` for a config and the ``CPMLState`` fields as
-numpy arrays for a state.
+numpy arrays for a state, ``jax.tree.map(np.asarray, params)`` for a
+model's parameter pytree.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.protocol.config import CPMLConfig
 from repro_torch.core.protocol.engine import CPMLState
 
@@ -42,3 +44,63 @@ def state_from_reference(arrays: dict[str, np.ndarray],
         else:
             fields[f.name] = torch.as_tensor(np.array(v), device=device)
     return CPMLState(**fields)
+
+
+def run_config_from_reference(d: dict) -> RunConfig:
+    """``dataclasses.asdict`` of a reference RunConfig -> the port's."""
+    unknown = set(d) - {f.name for f in dataclasses.fields(RunConfig)}
+    if unknown:
+        raise ValueError(f"reference run-config fields with no counterpart: "
+                         f"{sorted(unknown)}")
+    return RunConfig(**d)
+
+
+def _tensor(a, device: str | torch.device) -> torch.Tensor:
+    """numpy -> torch, dtype kept (bfloat16 arrives as ml_dtypes'
+    bfloat16, which torch cannot read directly: its bits are reinterpreted)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a.copy(), device=device)
+
+
+def _flatten(tree: dict, prefix: str, layer: int | None):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.", layer)
+        else:
+            yield f"{prefix}{k}", (v if layer is None else v[layer])
+
+
+def params_from_reference(cfg: ModelConfig, tree: dict,
+                          device: str | torch.device = "cpu"):
+    """The reference's ``init_params`` pytree (numpy leaves) -> the port's
+    ``models.model.Model`` on ``device``, dtypes kept.
+
+    A segment with count > 1 stacks its layers on a leading axis in the
+    reference (``repro/models/model.py``); here each layer is its own
+    module, so that axis is unstacked.
+    """
+    from repro_torch.models import model as M
+
+    state = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
+             if k in tree}
+    for si, (_, count) in enumerate(cfg.block_pattern):
+        seg = tree[f"seg{si}"]["params"]
+        for li in range(count):
+            state.update(_flatten(seg, f"segments.{si}.{li}.",
+                                  li if count > 1 else None))
+    state = {k: _tensor(v, device) for k, v in state.items()}
+    model = M.Model(cfg, dtype=state["embed"].dtype, device=device, seed=None)
+    own = model.state_dict()
+    if set(own) != set(state):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(own) - set(state))}, extra "
+                         f"{sorted(set(state) - set(own))}")
+    for k, t in own.items():
+        if t.shape != state[k].shape or t.dtype != state[k].dtype:
+            raise ValueError(f"{k}: reference {tuple(state[k].shape)} "
+                             f"{state[k].dtype}, port {tuple(t.shape)} {t.dtype}")
+    model.load_state_dict(state)
+    return model

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("modmatmul", "coded_grad")
+SOURCES = ("modmatmul", "coded_grad", "mamba_scan")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
@@ -41,6 +41,9 @@ _ARGTYPES = {
     # x, wt, cbar, scratch, out, N, mk, d, c, r, p, reduce_every, stream
     "coded_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           ctypes.c_uint, _I, _P],
+    # x, dt, bm, cm, a_log, d, h0, y, h_last, B, S, di, n, x_bf16, stream
+    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P],
 }
 
 

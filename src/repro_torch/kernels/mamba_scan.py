@@ -1,0 +1,67 @@
+"""Wrapper of the ``selective_scan`` CUDA kernel (``csrc/mamba_scan.cu``).
+
+Replaces ``repro/kernels/mamba_scan.py::selective_scan``: the fused
+Mamba-1 selective scan, h in registers across the whole sequence.  Takes
+CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
+version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import build
+
+MAX_STATE = 16   # lanes per channel in the kernel: n <= 16
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
+                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x, dt (B, S, di); bm, cm (B, S, n); a_log (di, n); d (di,);
+    h0 (B, di, n), on one CUDA device -> (y (B, S, di), h_last (B, di, n)),
+    both float32.  Launches on the current stream.
+
+    x is read in its own dtype when it is float32 or bfloat16 (any other
+    float is cast to float32 first); the other operands are cast to
+    float32.  Non-contiguous operands (Bm and Cm are slices of one
+    projection) are made contiguous here.
+    """
+    named = (("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
+             ("d", d), ("h0", h0))
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"selective_scan kernel needs CUDA tensors; {name}"
+                             f" is on {t.device}")
+        if not t.is_floating_point() or t.device != x.device:
+            raise ValueError(f"selective_scan kernel needs float tensors on one"
+                             f" device; {name} is {t.dtype} on {t.device}")
+    if x.ndim != 3:
+        raise ValueError(f"selective_scan x must be (B, S, di), got "
+                         f"{tuple(x.shape)}")
+    B, S, di = x.shape
+    n = bm.shape[-1]
+    want = {"dt": (B, S, di), "bm": (B, S, n), "cm": (B, S, n),
+            "a_log": (di, n), "d": (di,), "h0": (B, di, n)}
+    for name, t in named[1:]:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"selective_scan {name} {tuple(t.shape)}, expected "
+                             f"{want[name]} for x {tuple(x.shape)}")
+    if min(B, S, di, n) < 1 or n > MAX_STATE or B > 65535:
+        raise ValueError(f"selective_scan needs B, S, di >= 1, 1 <= n <= "
+                         f"{MAX_STATE} and B <= 65535; got B={B} S={S} di={di} "
+                         f"n={n}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    x = x.contiguous()
+    f32 = [t.float().contiguous() for t in (dt, bm, cm, a_log, d, h0)]
+    y = torch.empty((B, S, di), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((B, di, n), dtype=torch.float32, device=x.device)
+    lib = build.library("mamba_scan")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.mamba_scan_launch(x.data_ptr(), *(t.data_ptr() for t in f32),
+                                y.data_ptr(), h_last.data_ptr(), B, S, di, n,
+                                int(x.dtype == torch.bfloat16), stream)
+    build.check(err, "selective_scan")
+    kernels.LAUNCHES["selective_scan"] += 1
+    return y, h_last

@@ -10,9 +10,11 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, ref
 from repro_torch.kernels import coded_grad as _cg
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import modmatmul as _mm
 
-__all__ = ["LAUNCHES", "coded_grad", "modmatmul", "reset_launches"]
+__all__ = ["LAUNCHES", "coded_grad", "modmatmul", "reset_launches",
+           "selective_scan"]
 
 
 def reset_launches() -> None:
@@ -38,3 +40,14 @@ def coded_grad(x: torch.Tensor, w: torch.Tensor, cbar: torch.Tensor,
     if _on_cpu(x, w, cbar):
         return ref.coded_grad_workers_ref(x, w, cbar, p)
     return _cg.coded_grad(x.contiguous(), w, cbar, p)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                   cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
+                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan: x, dt (B, S, di); bm, cm (B, S, n);
+    a_log (di, n); d (di,); h0 (B, di, n) -> (y (B, S, di) float32,
+    h_last (B, di, n) float32)."""
+    if _on_cpu(x, dt, bm, cm, a_log, d, h0):
+        return ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0)
+    return _ms.selective_scan(x, dt, bm, cm, a_log, d, h0)

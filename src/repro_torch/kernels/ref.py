@@ -80,3 +80,24 @@ def coded_grad_workers_ref(x: torch.Tensor, w: torch.Tensor,
     """All N workers: x (N, mk, d), w (N, d, c, r) -> (N, d, c)."""
     return torch.stack([coded_grad_mc_ref(x[i], w[i], cbar, p)
                         for i in range(x.shape[0])])
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                       cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
+                       h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequential float32 recurrence of the Mamba-1 selective scan
+    (``repro/kernels/mamba_scan.py::ref_selective_scan``).
+
+    x, dt (B, S, di); bm, cm (B, S, n); a_log (di, n); d (di,);
+    h0 (B, di, n) -> (y (B, S, di), h_last (B, di, n)), both float32.
+    """
+    A = -torch.exp(a_log.float())
+    d = d.float()
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        x_t, dt_t = x[:, t].float(), dt[:, t].float()
+        a_t = torch.exp(dt_t[:, :, None] * A[None])
+        h = a_t * h + (dt_t * x_t)[:, :, None] * bm[:, t, None, :].float()
+        ys.append((h * cm[:, t, None, :].float()).sum(-1) + d * x_t)
+    return torch.stack(ys, 1), h

@@ -162,6 +162,11 @@ def test_launch_counts_only_kernel_launches():
     ops.coded_grad(torch.ones((1, 2, 3), dtype=torch.int32),
                    torch.ones((1, 3, 1, 1), dtype=torch.int32),
                    torch.ones(2, dtype=torch.int32), jf.P)
+    f = torch.ones((1, 2, 3))
+    ops.selective_scan(f, f, torch.ones((1, 2, 4)), torch.ones((1, 2, 4)),
+                       torch.zeros((3, 4)), torch.ones(3),
+                       torch.zeros((1, 3, 4)))
     with pytest.raises(ValueError):
         tmm.modmatmul(a, a.T.contiguous(), jf.P)
-    assert ops.LAUNCHES == {"modmatmul": 0, "coded_grad": 0}
+    assert ops.LAUNCHES == {"modmatmul": 0, "coded_grad": 0,
+                            "selective_scan": 0}
