@@ -11,12 +11,19 @@ phase fails:
   kernels   holds each field kernel bit for bit against its plain PyTorch
             version on the card: the main path's shapes at the paper's
             Case 1 (N=40, K=13, T=1, m=12396, d=1568), both primes,
-            all-(p-1) inputs, odd shapes and the accumulator-reduction
-            boundary, and ``modmatmul`` at the coded LM head's shapes (P30);
-            the selective scan against its plain version within 1e-4 at the
-            serve shape (x bf16 and f32, non-zero h0), S = 1, S = 33,
-            di = 8200, n in {4, 16} and S = 8192; and times each (CUDA
-            events) beside its plain version and its bound
+            all-(p-1) inputs, odd shapes, the accumulator-reduction
+            boundary, ``modmatmul``'s row templates (M = 1, 4, 6, 17, 40),
+            fold interval (K = L, L+1, 2L+1, also in one K-slice) and K-split
+            edges (K = 4096, N = 1, 255, 16256), and ``modmatmul`` at the
+            coded LM head's shapes (P30); the selective scan against its
+            plain version within 1e-4 at the serve shape (x and dt bf16 as
+            served, dt f32, x f32, non-zero h0), S = 1, S = 33, di = 8200,
+            n in {1, 3, 4, 16} with di not a multiple of the block's
+            channels (and rows not 16-byte aligned), B 1 x di 96 and
+            S = 8192; and times each main-path shape (CUDA events; the
+            field kernels also replayed from a CUDA graph, the device's time
+            without the host's launch cost) beside its plain version and
+            its bound
   train     ``repro_torch.launch.cpml_train`` at Case 1 for 25 rounds on
             the card: both field kernels launched (launch counts reset just
             before, read just after), coded accuracy within 0.03 of the
@@ -30,7 +37,8 @@ phase fails:
             tokens in range, logits finite; prefill seconds, decode
             tokens/s, peak device memory
   profile   one prefill at the serve shape and 8 decode steps under
-            torch.profiler: device time by kernel group, busy share
+            torch.profiler: device time by kernel group, the scan's share
+            of it, busy share
   consistency  falcon-mamba-7b at full width, 2 layers, float32: prefill
             on the card (kernel) against the CPU (plain version), and
             prefill + 3 decode steps against ``backbone`` over S+3 on the
@@ -115,6 +123,22 @@ def time_ms(torch, fn, reps: int, trials: int = 3) -> float:
     return statistics.median(out)
 
 
+def graph_ms(torch, fn, reps: int) -> float:
+    """ms per call of `reps` calls captured in one CUDA graph and replayed:
+    the device's time without the host's cost of each launch, which an
+    eager loop of small launches measures instead (``time_ms``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # warm-up off the capture: builds, allocator pools
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(torch, graph.replay, 3) / reps
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -195,11 +219,34 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
         for kk in (R, R + 1, 2 * R + 1):
             mm_cases.append((f"reduce_bound_K={kk}", p, full((5, kk), p),
                              full((kk, 257), p)))
+        # each row template (M = 1, 4, 6 -> 8, 17 -> 3 x 8, 40 -> 5 x 8)
+        for M in (1, 4, 6, 17, 40):
+            mm_cases.append((f"rows_M={M}", p, rand((M, 37), p),
+                             rand((37, 1001), p)))
+            mm_cases.append((f"rows_M={M}_vec", p, rand((M, 9), p),
+                             rand((9, 1 << 20), p)))
+        # the fold interval L, worst-case inputs
+        L = build.fold_every(p)
+        for kk in (L, L + 1, 2 * L + 1):
+            mm_cases.append((f"fold_bound_K={kk}", p, full((5, kk), p),
+                             full((kk, 257), p)))
+        # the K-split's edges: one column, a ragged block, the shard's width
+        for NN in (1, 255, 16256):
+            mm_cases.append((f"ksplit_K=4096_N={NN}", p, rand((4, 4096), p),
+                             rand((4096, NN), p)))
     for case, p, a, b in mm_cases:
         got = mm.modmatmul(a, b, p)
         want = ref.modmatmul_ref(a, b, p)
-        checks.compare("modmatmul", case, got, want, p=p,
-                       shape=[a.shape[0], a.shape[1], b.shape[1]])
+        M, KK, NN = a.shape[0], a.shape[1], b.shape[1]
+        pl = mm.plan(M, KK, NN)
+        checks.compare("modmatmul", case, got, want, p=p, shape=[M, KK, NN],
+                       plan=[pl.rows, pl.cols, pl.threads, pl.splits])
+        if case.startswith("fold_bound") and pl.splits > 1:
+            # the plan's K-slices stay below L at P: fold in one slice too
+            one = dataclasses.replace(pl, threads=32, splits=1, slice=KK)
+            checks.compare("modmatmul", case + "_one_slice",
+                           mm.run(a, b, p, one), want, p=p, shape=[M, KK, NN],
+                           plan=[one.rows, one.cols, one.threads, one.splits])
 
     # -- coded_grad: main-path shapes, both primes, extremes, odd shapes --
     cg_cases = []
@@ -240,6 +287,7 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
         timings.append({
             "kernel": "modmatmul", "case": case, "shape": [M, KK, NN],
             "ms": time_ms(torch, lambda: mm.modmatmul(a, b, p), 20),
+            "graph_ms": graph_ms(torch, lambda: mm.modmatmul(a, b, p), 20),
             "plain_ms": time_ms(torch, lambda: ref.modmatmul_ref(a, b, p), 3),
             "bound_ms": b_ms, "bound_by": b_by})
     for c, r in ((1, 1), (10, 2)):
@@ -252,6 +300,8 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
             "kernel": "coded_grad", "case": f"case1_c{c}_r{r}",
             "shape": [N, mk, d, c, r],
             "ms": time_ms(torch, lambda: cg.coded_grad(x, w, cbar, p), 20),
+            "graph_ms": graph_ms(torch, lambda: cg.coded_grad(x, w, cbar, p),
+                                 20),
             "plain_ms": time_ms(
                 torch, lambda: ref.coded_grad_workers_ref(x, w, cbar, p), 3),
             "bound_ms": b_ms, "bound_by": b_by})
@@ -285,30 +335,33 @@ def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
         timings.append({
             "kernel": "modmatmul", "case": case, "shape": [M, KK, NN],
             "ms": time_ms(torch, lambda: mm.modmatmul(a, b, p), 10),
+            "graph_ms": graph_ms(torch, lambda: mm.modmatmul(a, b, p), 4),
             "plain_ms": time_ms(torch, lambda: ref.modmatmul_ref(a, b, p), 1),
             "bound_ms": b_ms, "bound_by": b_by})
         emit({"phase": "kernels", "timing": timings[-1]})
     return timings
 
 
-def scan_inputs(torch, gen, B, S, di, n, x_dtype, h0_scale):
-    """The reference kernel test's distributions, on the card."""
+def scan_inputs(torch, gen, B, S, di, n, x_dtype, h0_scale,
+                dt_dtype=None):
+    """The reference kernel test's distributions, on the card; dt in
+    float32 unless ``dt_dtype`` says otherwise (bf16 on the serve path)."""
     F = torch.nn.functional
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     x = (randn(B, S, di) * 0.5).to(x_dtype)
-    dt = F.softplus(randn(B, S, di))
+    dt = F.softplus(randn(B, S, di)).to(dt_dtype or torch.float32)
     a_log = torch.log(torch.rand((di, n), generator=gen, device="cuda") * 1.7
                       + 0.3)
     return (x, dt, randn(B, S, n) * 0.5, randn(B, S, n) * 0.5, a_log,
             randn(di), randn(B, di, n) * h0_scale)
 
 
-def phase_kernels_scan(torch, checks: Checks) -> dict:
+def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
     """The selective-scan kernel against its plain version on the card,
-    then timed at the serve shape (x bf16, h0 = 0, as the serve path
-    calls it)."""
+    then timed at the serve shape as the serve path calls it (x and dt
+    bf16, h0 = 0), and with dt float32 as the first kernel was timed."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import mamba_scan as ms
 
@@ -316,36 +369,51 @@ def phase_kernels_scan(torch, checks: Checks) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     B, S, di, n = SERVE["batch"], SERVE["prompt_len"], 8192, 16
     cases = [
-        ("serve_x_bf16", (B, S, di, n), bf16, 0.0),
-        ("serve_x_bf16_h0", (B, S, di, n), bf16, 0.5),
-        ("serve_x_f32_h0", (B, S, di, n), f32, 0.5),
-        ("S1", (B, 1, di, n), bf16, 0.5),
-        ("S33", (2, 33, di, n), f32, 0.5),
-        ("di8200_n4", (2, 33, 8200, 4), f32, 0.5),
-        ("di8200_n16", (2, 70, 8200, 16), bf16, 0.5),
-        ("long_S8192", (1, 8192, di, n), bf16, 0.5),
+        ("serve_x_dt_bf16", (B, S, di, n), bf16, 0.0, bf16),
+        ("serve_x_bf16", (B, S, di, n), bf16, 0.0, f32),
+        ("serve_x_bf16_h0", (B, S, di, n), bf16, 0.5, f32),
+        ("serve_x_dt_bf16_h0", (B, S, di, n), bf16, 0.5, bf16),
+        ("serve_x_f32_h0", (B, S, di, n), f32, 0.5, f32),
+        ("S1", (B, 1, di, n), bf16, 0.5, f32),
+        ("S33", (2, 33, di, n), f32, 0.5, f32),
+        ("di8200_n4", (2, 33, 8200, 4), f32, 0.5, f32),
+        ("di8200_n16", (2, 70, 8200, 16), bf16, 0.5, bf16),
+        # n below the register tile, di not a multiple of the block's 64
+        # channels, and (di 1001) rows that are not 16-byte aligned
+        ("di1000_n1", (2, 45, 1000, 1), bf16, 0.5, bf16),
+        ("di1001_n3", (2, 45, 1001, 3), f32, 0.5, bf16),
+        ("di1001_n16_x_bf16", (3, 40, 1001, 16), bf16, 0.5, f32),
+        ("B1_di96", (1, 300, 96, 16), bf16, 0.5, bf16),
+        ("long_S8192", (1, 8192, di, n), bf16, 0.5, f32),
     ]
-    for case, shape, x_dtype, h0_scale in cases:
-        args = scan_inputs(torch, gen, *shape, x_dtype, h0_scale)
+    for case, shape, x_dtype, h0_scale, dt_dtype in cases:
+        args = scan_inputs(torch, gen, *shape, x_dtype, h0_scale, dt_dtype)
         checks.close("selective_scan", case, ms.selective_scan(*args),
                      ref.selective_scan_ref(*args), SCAN_ATOL,
-                     shape=list(shape), x_dtype=str(x_dtype))
-    args = scan_inputs(torch, gen, B, S, di, n, bf16, 0.0)
-    # each input read once (x bf16, dt/Bm/Cm/A_log/D/h0 f32), each output
-    # written once (y, h_last f32); one exp and ~6 flops per (b, t, i, j)
-    nbytes = (B * S * di * (2 + 4) + 2 * B * S * n * 4 + (di * n + di) * 4
-              + B * di * n * 4 + B * S * di * 4 + B * di * n * 4)
-    b_ms, b_by = bound(nbytes, 6 * B * S * di * n, B * S * di * n + di * n)
-    timing = {
-        "kernel": "selective_scan", "case": "serve_x_bf16",
-        "shape": [B, S, di, n],
-        "ms": time_ms(torch, lambda: ms.selective_scan(*args), 10),
-        "plain_ms": time_ms(torch, lambda: ref.selective_scan_ref(*args), 1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "exp_ms": (B * S * di * n + di * n) / SPECIAL_OPS_PER_S * 1e3}
-    emit({"phase": "kernels", "timing": timing})
-    return timing
+                     shape=list(shape), x_dtype=str(x_dtype),
+                     dt_dtype=str(dt_dtype))
+    timings = []
+    for case, dt_dtype in (("serve_x_dt_bf16", bf16), ("serve_x_bf16", f32)):
+        args = scan_inputs(torch, gen, B, S, di, n, bf16, 0.0, dt_dtype)
+        # each input read once in its dtype (x, dt; Bm/Cm/A_log/D/h0 f32),
+        # each output written once (y, h_last f32); one exp and ~6 flops
+        # per (b, t, i, j)
+        nbytes = (B * S * di * (2 + args[1].element_size())
+                  + 2 * B * S * n * 4 + (di * n + di) * 4 + B * di * n * 4
+                  + B * S * di * 4 + B * di * n * 4)
+        b_ms, b_by = bound(nbytes, 6 * B * S * di * n,
+                           B * S * di * n + di * n)
+        timings.append({
+            "kernel": "selective_scan", "case": case,
+            "shape": [B, S, di, n], "dt_dtype": str(dt_dtype),
+            "ms": time_ms(torch, lambda: ms.selective_scan(*args), 10),
+            "plain_ms": time_ms(torch, lambda: ref.selective_scan_ref(*args),
+                                1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "exp_ms": (B * S * di * n + di * n) / SPECIAL_OPS_PER_S * 1e3})
+        emit({"phase": "kernels", "timing": timings[-1]})
+    return timings
 
 
 def phase_train(torch, out_dir: Path) -> dict:
@@ -571,6 +639,8 @@ def phase_profile(torch) -> dict:
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
             info[name] = {"host_ms": wall_ms, "device_ms": busy,
                           "device_ms_by_group": groups,
+                          "selective_scan_share_of_device_ms":
+                              groups.get("selective_scan", 0.0) / busy,
                           "device_busy_share": busy / wall_ms,
                           "kernel_launches": launches,
                           "top_kernels_ms": {k[:80]: v for k, v in top}}
@@ -727,8 +797,10 @@ def main() -> int:
         build.library(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
-          "ptxas": {name: [ln for ln in (v.parent / f"{name}.log").read_text()
-                           .splitlines() if "registers" in ln or "spill" in ln]
+          "ptxas": {name: [ln.strip() for ln in (v.parent / f"{name}.log")
+                           .read_text().splitlines()
+                           if any(k in ln for k in ("entry function",
+                                                    "registers", "spill"))]
                     for name, v in libs.items()
                     if (v.parent / f"{name}.log").exists()}})
 
@@ -736,7 +808,7 @@ def main() -> int:
     timings = run_phase("kernels", phase_kernels, torch, checks)
     timings += run_phase("kernels_coded_head", phase_kernels_coded_head, torch,
                          checks)
-    timings.append(run_phase("kernels_scan", phase_kernels_scan, torch, checks))
+    timings += run_phase("kernels_scan", phase_kernels_scan, torch, checks)
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     train = run_phase("train", phase_train, torch, out_dir)
@@ -758,7 +830,7 @@ def main() -> int:
     # each kernel's main path: the training round for the field kernels,
     # serving for the scan; launches counted on that path's run
     main_case = {"modmatmul": "dataset_encode", "coded_grad": "case1_c1_r1",
-                 "selective_scan": "serve_x_bf16"}
+                 "selective_scan": "serve_x_dt_bf16"}
     launches = {"modmatmul": train["launches"]["modmatmul"],
                 "coded_grad": train["launches"]["coded_grad"],
                 "selective_scan": serve["launches"]["selective_scan"]}

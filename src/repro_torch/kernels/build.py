@@ -34,27 +34,53 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class ModmatmulParams(ctypes.Structure):
+    """``MatmulParams`` of csrc/modmatmul.cu: the shapes, the launch plan and
+    the field constants, built once per (shape, p) so that a call passes
+    six arguments (ctypes converts each argument on every call)."""
+    _fields_ = [("M", _I), ("K", _I), ("N", ctypes.c_longlong), ("rows", _I),
+                ("cols", _I), ("threads", _I), ("splits", _I), ("slice", _I),
+                ("p", ctypes.c_uint), ("fold_every", _I), ("c32", ctypes.c_uint),
+                ("bm", ctypes.c_ulonglong)]
+
+
 _ARGTYPES = {
-    # a, b, c, M, K, N, p, reduce_every, stream
-    "modmatmul_launch": [_P, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_uint,
-                         _I, _P],
+    # a, b, c, partial, params, stream
+    "modmatmul_launch": [_P, _P, _P, _P, ctypes.POINTER(ModmatmulParams), _P],
     # x, wt, cbar, scratch, out, N, mk, d, c, r, p, reduce_every, stream
     "coded_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           ctypes.c_uint, _I, _P],
-    # x, dt, bm, cm, a_log, d, h0, y, h_last, B, S, di, n, x_bf16, stream
-    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _P],
+    # x, dt, bc, a_log, d, h0, y, h_last, B, S, di, n, ns, x_bf16, dt_bf16,
+    # vec, stream
+    "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
 }
 
 
-def reduce_every(p: int) -> int:
-    """Largest R with (p-1) + R (p-1)^2 < 2^64: the uint64 accumulators of
-    both kernels are reduced mod p at least every R terms (16 for P30,
-    76921 for P).  Capped at 2^20 so the kernels' index arithmetic stays
-    small; reducing more often than needed is still exact."""
+def _check_prime(p: int) -> None:
     if not 2 < p < 1 << 30:
         raise ValueError(f"the kernels need 2 < p < 2^30, got {p}")
+
+
+def reduce_every(p: int) -> int:
+    """Largest R with (p-1) + R (p-1)^2 < 2^64: ``coded_grad``'s uint64
+    accumulators are reduced mod p at least every R terms (16 for P30,
+    76921 for P).  Capped at 2^20 so the kernel's index arithmetic stays
+    small; reducing more often than needed is still exact."""
+    _check_prime(p)
     return min((2 ** 64 - p) // (p - 1) ** 2, 1 << 20)
+
+
+def fold_every(p: int) -> int:
+    """Largest L with (2^32-1)(c+1) + L (p-1)^2 < 2^64, c = 2^32 mod p:
+    ``modmatmul`` folds each uint64 accumulator to lo + hi c (at most
+    (2^32-1)(c+1), field.cuh) at least every L products (16 for P30, 76825
+    for P).  Capped at 2^30 to fit a C int; folding more often is exact."""
+    _check_prime(p)
+    c = (1 << 32) % p
+    return min((2 ** 64 - 1 - (2 ** 32 - 1) * (c + 1)) // (p - 1) ** 2, 1 << 30)
 
 
 def nvcc_path() -> str:

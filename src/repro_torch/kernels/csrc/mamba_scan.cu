@@ -4,132 +4,256 @@
 // channel i, state j):
 //     h_t = exp(dt_t[i] * A[i,j]) * h_{t-1} + (dt_t[i] * x_t[i]) * B_t[j]
 //     y_t[i] = sum_j h_t[i,j] * C_t[j] + D[i] * x_t[i],   A = -exp(A_log)
-// x (B,S,di) float32 or bfloat16, dt (B,S,di) float32, Bm, Cm (B,S,n)
-// float32, A_log (di,n), D (di,), h0 (B,di,n) float32, all contiguous;
-// y (B,S,di) and h_last (B,di,n) float32.  Any B, S >= 1, di, and n <= 16.
+// x and dt (B,S,di) float32 or bfloat16 each, read in their own dtype (the
+// TPU kernel casts them inside too); bc (B,S,2,NS) float32 holds B_t and C_t
+// zero-padded to NS in {4, 8, 16} states; A_log (di,n), D (di,), h0 (B,di,n)
+// float32; y (B,S,di) and h_last (B,di,n) float32.  Any B, S >= 1, di and
+// 1 <= n <= 16.
 //
 // What bounds it on an H100: the exp.  At the serve shape (B 4, S 2048,
 // di 8192, n 16) the scan needs B*S*di*n = 1.07e9 exp, one multi-function
-// unit op each (16 per clock per SM), against 0.68 GB of operands and
-// results; the exp takes longer than the bytes.  This first version is the
-// simple one: one thread per (b, i, j), 16 lanes per channel, h in a
-// register for the whole sequence, the sequence walked in order, y_t a
-// shuffle-sum over the channel's lanes.  x and dt tiles of kTile steps x
-// kChannels channels are staged through shared memory so that their loads
-// and the stores of y coalesce across channels; B_t and C_t are staged
-// beside them.  The TPU kernel carried h across a sequential grid axis in
-// VMEM scratch; here the time loop inside the block takes that axis' place.
-// Lanes j >= n and channels i >= di compute on zeros and store nothing.
+// unit (MUFU) op each at 16 per clock per SM: 0.26 ms, against 0.16 ms for
+// its bytes.  A thread per (b, i, j) would spend shuffles and shared-memory
+// loads on every state of every step, and the MIO pipe, not the exp, would
+// bound it.  This design:
+//
+//  * One thread per (b, channel), all NS states in registers (h[NS] and
+//    A2[j] = -exp(A_log[i,j]) log2 e), so a step is NS ex2.approx (one MUFU
+//    op each), about 4 FP32 ops per state and an in-thread sum for y_t in
+//    two chains: no shuffles.  The NS state chains are independent, which
+//    feeds the MUFU pipe from the 8 warps per SM that the serve shape has
+//    (B * di = 32,768 threads).  There it runs at 1.7x the exp bound: two
+//    threads per channel (more warps, a shuffle per step) and a polynomial
+//    exp2 on the FMA pipe for some states (fewer MUFU ops, more
+//    instructions) were both slower on the H100, so the instruction rate
+//    and latency at 8 warps per SM, not the MUFU rate alone, are what is
+//    left.
+//  * B_t and C_t are shared by the block's channels: read as broadcast
+//    128-bit loads from shared memory, 2 NS / 4 loads for NS states.
+//  * x and dt tiles (kT steps x kCh channels, coalesced across channels)
+//    and the bc tile come through a kStages-deep ring in shared memory,
+//    filled by cp.async while earlier tiles compute: one barrier per tile
+//    of kT steps, none per step.  y_t is stored every step, coalesced
+//    across the block's channels.  Shapes whose rows are not 16-byte
+//    aligned (di % 8 != 0) fill the same ring with plain loads.
+//  * dt in bfloat16 is read as such: the serve path no longer writes and
+//    reads a float32 copy of it per layer.
+// The TPU kernel carried h across a sequential grid axis in VMEM scratch;
+// here the time loop inside the block takes that axis' place.  Channels
+// i >= di compute on zeros and store nothing.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 16;                    // state lanes per channel: n <= 16
-constexpr int kChannels = 16;                 // channels per block
-constexpr int kThreads = kLanes * kChannels;  // 256
-constexpr int kTile = 64;                     // time steps staged per pass
+constexpr int kCh = 64;      // channels (threads) per block
+constexpr int kT = 32;       // time steps per tile
+constexpr int kStages = 3;   // tiles in flight in the ring
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-scan_kernel(const XT* __restrict__ x, const float* __restrict__ dt,
-            const float* __restrict__ bm, const float* __restrict__ cm,
-            const float* __restrict__ a_log, const float* __restrict__ dvec,
-            const float* __restrict__ h0, float* __restrict__ y,
-            float* __restrict__ h_last, int S, int di, int n) {
-  __shared__ float x_s[kTile][kChannels];
-  __shared__ float dt_s[kTile][kChannels];
-  __shared__ float b_s[kTile][kLanes];
-  __shared__ float c_s[kTile][kLanes];
-  __shared__ float y_s[kTile][kChannels];
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * kChannels;
-  const int ch = threadIdx.x / kLanes;  // channel within the block
-  const int j = threadIdx.x % kLanes;   // state index
-  const int i = c0 + ch;
-  const bool live = i < di && j < n;
-  const size_t hoff = (static_cast<size_t>(b) * di + i) * n + j;
-  const float A = live ? -expf(a_log[static_cast<size_t>(i) * n + j]) : 0.f;
-  const float Dv = i < di ? dvec[i] : 0.f;
-  float h = live ? h0[hoff] : 0.f;
-  const size_t row0 = static_cast<size_t>(b) * S;  // row of (b, t = 0)
+// 16 bytes global -> shared, asynchronously; zero-filled when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    const int steps = min(kTile, S - t0);
-    __syncthreads();  // the previous tile's y_s has been stored
-    for (int e = threadIdx.x; e < kTile * kChannels; e += kThreads) {
-      const int tt = e / kChannels, cc = e % kChannels, gi = c0 + cc;
-      float xv = 0.f, dv = 0.f;
-      if (tt < steps && gi < di) {
-        const size_t off = (row0 + t0 + tt) * di + gi;
-        xv = to_f32(x[off]);
-        dv = dt[off];
-      }
-      x_s[tt][cc] = xv;
-      dt_s[tt][cc] = dv;
+template <typename XT, typename DT, int NS>
+struct Ring {
+  static constexpr int kBC = kT * 2 * NS;  // floats of B_t, C_t per tile
+  static constexpr size_t kXOff = kBC * sizeof(float);
+  static constexpr size_t kDOff = kXOff + kT * kCh * sizeof(XT);
+  static constexpr size_t kStage = kDOff + kT * kCh * sizeof(DT);
+  static constexpr size_t kBytes = kStages * kStage;
+};
+
+// One (kT x kCh) tile of a (B,S,di) operand into shared memory.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, size_t row0,
+                                          int t0, int S, int di, int c0, bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
+    constexpr int CPR = kCh / E;       // chunks per row of the tile
+    for (int e = threadIdx.x; e < kT * CPR; e += kCh) {
+      const int tt = e / CPR, cc = (e % CPR) * E;
+      const bool ok = t0 + tt < S && c0 + cc < di;
+      cp_async16(dst + tt * kCh + cc,
+                 ok ? src + (row0 + t0 + tt) * di + c0 + cc : src, ok);
     }
-    for (int e = threadIdx.x; e < kTile * kLanes; e += kThreads) {
-      const int tt = e / kLanes, jj = e % kLanes;
-      float bv = 0.f, cv = 0.f;
-      if (tt < steps && jj < n) {
-        const size_t off = (row0 + t0 + tt) * n + jj;
-        bv = bm[off];
-        cv = cm[off];
-      }
-      b_s[tt][jj] = bv;
-      c_s[tt][jj] = cv;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < steps; ++tt) {
-      const float xt = x_s[tt][ch], dtt = dt_s[tt][ch];
-      h = expf(dtt * A) * h + (dtt * xt) * b_s[tt][j];
-      float part = h * c_s[tt][j];
-      part += __shfl_xor_sync(0xffffffffu, part, 8);
-      part += __shfl_xor_sync(0xffffffffu, part, 4);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      if (j == 0) y_s[tt][ch] = part + Dv * xt;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < steps * kChannels; e += kThreads) {
-      const int tt = e / kChannels, cc = e % kChannels, gi = c0 + cc;
-      if (gi < di) y[(row0 + t0 + tt) * di + gi] = y_s[tt][cc];
+  } else {
+    for (int e = threadIdx.x; e < kT * kCh; e += kCh) {
+      const int tt = e / kCh, cc = e % kCh;
+      const bool ok = t0 + tt < S && c0 + cc < di;
+      dst[e] = ok ? src[(row0 + t0 + tt) * di + c0 + cc] : static_cast<T>(0.f);
     }
   }
-  if (live) h_last[hoff] = h;
+}
+
+template <typename XT, typename DT, int NS>
+__global__ void __launch_bounds__(kCh)
+scan_kernel(const XT* __restrict__ x, const DT* __restrict__ dt,
+            const float* __restrict__ bc, const float* __restrict__ a_log,
+            const float* __restrict__ dvec, const float* __restrict__ h0,
+            float* __restrict__ y, float* __restrict__ h_last, int S, int di, int n,
+            bool vec) {
+  using R = Ring<XT, DT, NS>;
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * kCh;
+  const int i = c0 + threadIdx.x;
+  const bool live = i < di;
+  const size_t row0 = static_cast<size_t>(b) * S;  // row of (b, t = 0)
+  const size_t hoff = (static_cast<size_t>(b) * di + i) * n;
+
+  float A2[NS], h[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const bool on = live && j < n;
+    A2[j] = on ? -expf(a_log[static_cast<size_t>(i) * n + j]) * kLog2e : 0.f;
+    h[j] = on ? h0[hoff + j] : 0.f;
+  }
+  const float Dv = live ? dvec[i] : 0.f;
+  const int tiles = (S + kT - 1) / kT;
+
+  auto load = [&](int tile) {
+    if (tile < tiles) {
+      unsigned char* st = ring + (tile % kStages) * R::kStage;
+      const int t0 = tile * kT;
+      float* bcs = reinterpret_cast<float*>(st);
+      const float* src = bc + (row0 + t0) * 2 * NS;
+      constexpr int CPT = 2 * NS / 4;  // 16-byte chunks per time step
+      for (int e = threadIdx.x; e < R::kBC / 4; e += kCh) {
+        const bool ok = t0 + e / CPT < S;
+        cp_async16(bcs + 4 * e, ok ? src + 4 * e : bc, ok);
+      }
+      load_rows(reinterpret_cast<XT*>(st + R::kXOff), x, row0, t0, S, di, c0, vec);
+      load_rows(reinterpret_cast<DT*>(st + R::kDOff), dt, row0, t0, S, di, c0, vec);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count uniform
+  };
+
+  for (int tile = 0; tile < kStages - 1; ++tile) load(tile);
+  for (int tile = 0; tile < tiles; ++tile) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of `tile` are done
+    __syncthreads();               // everyone's are, and tile-1's slot is free
+    load(tile + kStages - 1);
+    const unsigned char* st = ring + (tile % kStages) * R::kStage;
+    const float* bcs = reinterpret_cast<const float*>(st);
+    const XT* xs = reinterpret_cast<const XT*>(st + R::kXOff) + threadIdx.x;
+    const DT* dts = reinterpret_cast<const DT*>(st + R::kDOff) + threadIdx.x;
+    const int t0 = tile * kT;
+    const int steps = min(kT, S - t0);
+    float* yp = y + (row0 + t0) * di + i;
+#pragma unroll 2
+    for (int tt = 0; tt < steps; ++tt) {
+      const float xv = to_f32(xs[tt * kCh]);
+      const float dv = to_f32(dts[tt * kCh]);
+      const float4* bv = reinterpret_cast<const float4*>(bcs + tt * 2 * NS);
+      const float4* cv = reinterpret_cast<const float4*>(bcs + tt * 2 * NS + NS);
+      float Bv[NS], Cv[NS];
+#pragma unroll
+      for (int q = 0; q < NS / 4; ++q) {
+        const float4 bq = bv[q], cq = cv[q];
+        Bv[4 * q] = bq.x; Bv[4 * q + 1] = bq.y; Bv[4 * q + 2] = bq.z; Bv[4 * q + 3] = bq.w;
+        Cv[4 * q] = cq.x; Cv[4 * q + 1] = cq.y; Cv[4 * q + 2] = cq.z; Cv[4 * q + 3] = cq.w;
+      }
+      const float u = dv * xv;
+      float acc0 = Dv * xv, acc1 = 0.f;  // two chains: half the add latency
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        h[j] = fmaf(ex2(dv * A2[j]), h[j], u * Bv[j]);
+        if (j % 2 == 0) acc0 = fmaf(h[j], Cv[j], acc0);
+        else acc1 = fmaf(h[j], Cv[j], acc1);
+      }
+      if (live) yp[static_cast<size_t>(tt) * di] = acc0 + acc1;
+    }
+  }
+  cp_async_wait<0>();
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      if (j < n) h_last[hoff + j] = h[j];
+  }
+}
+
+template <typename XT, typename DT, int NS>
+cudaError_t launch(dim3 grid, cudaStream_t st, const void* x, const void* dt,
+                   const float* bc, const float* a_log, const float* d, const float* h0,
+                   float* y, float* h_last, int S, int di, int n, bool vec) {
+  constexpr size_t smem = Ring<XT, DT, NS>::kBytes;
+  auto* kernel = scan_kernel<XT, DT, NS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kCh, smem, st>>>(static_cast<const XT*>(x), static_cast<const DT*>(dt),
+                                  bc, a_log, d, h0, y, h_last, S, di, n, vec);
+  return cudaGetLastError();
+}
+
+template <typename XT, typename DT>
+cudaError_t launch_ns(int ns, dim3 grid, cudaStream_t st, const void* x, const void* dt,
+                      const float* bc, const float* a_log, const float* d,
+                      const float* h0, float* y, float* h_last, int S, int di, int n,
+                      bool vec) {
+  switch (ns) {
+    case 4: return launch<XT, DT, 4>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n, vec);
+    case 8: return launch<XT, DT, 8>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n, vec);
+    case 16: return launch<XT, DT, 16>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n, vec);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// x_bf16: 1 when x is bfloat16, 0 when it is float32.
-extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* bm,
-                                 const void* cm, const void* a_log, const void* d,
-                                 const void* h0, void* y, void* h_last, int B, int S,
-                                 int di, int n, int x_bf16, void* stream) {
-  if (B <= 0 || S <= 0 || di <= 0 || n <= 0 || n > kLanes || B > 65535)
+// x_bf16 / dt_bf16: 1 when that operand is bfloat16, 0 when float32.
+// ns: the padded state count of bc (4, 8 or 16, >= n).  vec: 1 when
+// di % 8 == 0 and x and dt are 16-byte aligned (cp.async in 16-byte chunks).
+extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* bc,
+                                 const void* a_log, const void* d, const void* h0,
+                                 void* y, void* h_last, int B, int S, int di, int n,
+                                 int ns, int x_bf16, int dt_bf16, int vec,
+                                 void* stream) {
+  if (B <= 0 || S <= 0 || di <= 0 || n <= 0 || n > ns || B > 65535 ||
+      (vec && di % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((di + kChannels - 1) / kChannels, B);
+  const dim3 grid((di + kCh - 1) / kCh, B);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* dtp = static_cast<const float*>(dt);
-  const auto* bmp = static_cast<const float*>(bm);
-  const auto* cmp = static_cast<const float*>(cm);
+  const auto* bcp = static_cast<const float*>(bc);
   const auto* alp = static_cast<const float*>(a_log);
   const auto* dp = static_cast<const float*>(d);
   const auto* h0p = static_cast<const float*>(h0);
   auto* yp = static_cast<float*>(y);
   auto* hlp = static_cast<float*>(h_last);
-  if (x_bf16)
-    scan_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), dtp, bmp, cmp, alp, dp, h0p, yp, hlp, S,
-        di, n);
+  const bool v = vec != 0;
+  cudaError_t err;
+  if (x_bf16 && dt_bf16)
+    err = launch_ns<__nv_bfloat16, __nv_bfloat16>(ns, grid, st, x, dt, bcp, alp, dp,
+                                                  h0p, yp, hlp, S, di, n, v);
+  else if (x_bf16)
+    err = launch_ns<__nv_bfloat16, float>(ns, grid, st, x, dt, bcp, alp, dp, h0p,
+                                          yp, hlp, S, di, n, v);
+  else if (dt_bf16)
+    err = launch_ns<float, __nv_bfloat16>(ns, grid, st, x, dt, bcp, alp, dp, h0p,
+                                          yp, hlp, S, di, n, v);
   else
-    scan_kernel<float><<<grid, kThreads, 0, st>>>(static_cast<const float*>(x), dtp,
-                                                   bmp, cmp, alp, dp, h0p, yp, hlp,
-                                                   S, di, n);
-  return static_cast<int>(cudaGetLastError());
+    err = launch_ns<float, float>(ns, grid, st, x, dt, bcp, alp, dp, h0p, yp, hlp,
+                                  S, di, n, v);
+  return static_cast<int>(err);
 }

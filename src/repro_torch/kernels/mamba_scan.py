@@ -12,7 +12,13 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import build
 
-MAX_STATE = 16   # lanes per channel in the kernel: n <= 16
+MAX_STATE = 16          # the kernel keeps at most 16 states in registers
+STATE_TILES = (4, 8, 16)  # register widths it is built for; n is padded up
+
+
+def state_tile(n: int) -> int:
+    """The kernel's register width for n states: the least tile >= n."""
+    return next(t for t in STATE_TILES if t >= n)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
@@ -22,10 +28,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     h0 (B, di, n), on one CUDA device -> (y (B, S, di), h_last (B, di, n)),
     both float32.  Launches on the current stream.
 
-    x is read in its own dtype when it is float32 or bfloat16 (any other
-    float is cast to float32 first); the other operands are cast to
-    float32.  Non-contiguous operands (Bm and Cm are slices of one
-    projection) are made contiguous here.
+    x and dt are read in their own dtype when it is float32 or bfloat16
+    (any other float is cast to float32 first), so the serve path hands
+    over its bfloat16 dt without a float32 copy.  Bm and Cm (slices of one
+    projection) are packed into one zero-padded (B, S, 2, ns) float32
+    tensor; a_log, d and h0 are cast to contiguous float32.
     """
     named = (("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
              ("d", d), ("h0", h0))
@@ -51,17 +58,27 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         raise ValueError(f"selective_scan needs B, S, di >= 1, 1 <= n <= "
                          f"{MAX_STATE} and B <= 65535; got B={B} S={S} di={di} "
                          f"n={n}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        x = x.float()
-    x = x.contiguous()
-    f32 = [t.float().contiguous() for t in (dt, bm, cm, a_log, d, h0)]
+    x, dt = (t.contiguous() if t.dtype in (torch.float32, torch.bfloat16)
+             else t.float().contiguous() for t in (x, dt))
+    ns = state_tile(n)
+    bc = torch.empty((B, S, 2, ns), dtype=torch.float32, device=x.device)
+    bc[:, :, 0, :n] = bm
+    bc[:, :, 1, :n] = cm
+    if n < ns:
+        bc[..., n:] = 0
+    f32 = [t.float().contiguous() for t in (a_log, d, h0)]
+    # cp.async moves 16-byte chunks of x and dt rows when they allow it
+    vec = di % 8 == 0 and x.data_ptr() % 16 == 0 and dt.data_ptr() % 16 == 0
     y = torch.empty((B, S, di), dtype=torch.float32, device=x.device)
     h_last = torch.empty((B, di, n), dtype=torch.float32, device=x.device)
     lib = build.library("mamba_scan")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.mamba_scan_launch(x.data_ptr(), *(t.data_ptr() for t in f32),
+    err = lib.mamba_scan_launch(x.data_ptr(), dt.data_ptr(), bc.data_ptr(),
+                                *(t.data_ptr() for t in f32),
                                 y.data_ptr(), h_last.data_ptr(), B, S, di, n,
-                                int(x.dtype == torch.bfloat16), stream)
+                                ns, int(x.dtype == torch.bfloat16),
+                                int(dt.dtype == torch.bfloat16), int(vec),
+                                stream)
     build.check(err, "selective_scan")
     kernels.LAUNCHES["selective_scan"] += 1
     return y, h_last

@@ -48,10 +48,13 @@ def mamba_template(cfg: ModelConfig, d_model: int | None = None
 
 def _ssm_params(p: Params, x: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, L, di) post-conv activations -> (dt, B_mat, C_mat), float32.
+    """x: (B, L, di) post-conv activations -> (dt, B_mat, C_mat) in the
+    parameter dtype.
 
     The projections run in the parameter dtype and the softplus in it too;
-    the cast to float32 comes last, as in the reference.
+    the cast to float32 is the caller's, as the reference casts last: the
+    decode step casts all three, and the prefill's scan kernel reads dt and
+    Bm/Cm in their own dtype (an exact widening).
     """
     dtr = p["dt_proj"].shape[0]
     n = (p["x_proj"].shape[1] - dtr) // 2
@@ -60,7 +63,7 @@ def _ssm_params(p: Params, x: torch.Tensor
                     + p["dt_bias"].to(proj.dtype))           # (B, L, di)
     Bm = proj[..., dtr: dtr + n]                             # (B, L, n)
     Cm = proj[..., dtr + n:]                                 # (B, L, n)
-    return dt.float(), Bm.float(), Cm.float()
+    return dt, Bm, Cm
 
 
 def _discretize(p: Params, dt: torch.Tensor, Bm: torch.Tensor,
@@ -117,7 +120,7 @@ def mamba_decode_core(cfg: ModelConfig, p: Params, x_in: torch.Tensor,
                          dim=1)                             # (B, cw, di)
     xc = torch.einsum("bwi,wi->bi", conv_buf, p["conv_w"])[:, None]
     xc = F.silu(xc + p["conv_b"].to(xc.dtype))
-    dt, Bm, Cm = _ssm_params(p, xc)              # (B, 1, ...)
+    dt, Bm, Cm = (t.float() for t in _ssm_params(p, xc))   # (B, 1, ...)
     a, b = _discretize(p, dt, Bm, xc)            # (B, 1, di, n)
     h = a[:, 0] * cache["ssm"] + b[:, 0]         # (B, di, n)
     y = torch.einsum("bin,bn->bi", h, Cm[:, 0])[:, None]
