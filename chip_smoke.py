@@ -238,7 +238,8 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
         got = mm.modmatmul(a, b, p)
         want = ref.modmatmul_ref(a, b, p)
         M, KK, NN = a.shape[0], a.shape[1], b.shape[1]
-        pl = mm.plan(M, KK, NN)
+        pl = mm.plan(M, KK, NN, vec=b.data_ptr() % 16 == 0,
+                     sms=mm.sm_count(a.device))
         checks.compare("modmatmul", case, got, want, p=p, shape=[M, KK, NN],
                        plan=[pl.rows, pl.cols, pl.threads, pl.splits])
         if case.startswith("fold_bound") and pl.splits > 1:
@@ -378,8 +379,9 @@ def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
         ("S33", (2, 33, di, n), f32, 0.5, f32),
         ("di8200_n4", (2, 33, 8200, 4), f32, 0.5, f32),
         ("di8200_n16", (2, 70, 8200, 16), bf16, 0.5, bf16),
-        # n below the register tile, di not a multiple of the block's 64
-        # channels, and (di 1001) rows that are not 16-byte aligned
+        # n below the kernel's 16 register states (masked), di not a
+        # multiple of the block's 64 channels, and (di 1001) rows that are
+        # not 16-byte aligned; mixed x/dt dtypes are read widened to f32
         ("di1000_n1", (2, 45, 1000, 1), bf16, 0.5, bf16),
         ("di1001_n3", (2, 45, 1001, 3), f32, 0.5, bf16),
         ("di1001_n16_x_bf16", (3, 40, 1001, 16), bf16, 0.5, f32),

@@ -52,10 +52,9 @@ _ARGTYPES = {
     # x, wt, cbar, scratch, out, N, mk, d, c, r, p, reduce_every, stream
     "coded_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           ctypes.c_uint, _I, _P],
-    # x, dt, bc, a_log, d, h0, y, h_last, B, S, di, n, ns, x_bf16, dt_bf16,
-    # vec, stream
+    # x, dt, bc, a_log, d, h0, y, h_last, B, S, di, n, bf16, vec, stream
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P],
+                          _I, _P],
 }
 
 

@@ -121,8 +121,9 @@ coded_grad_kernel(const uint32_t* __restrict__ X, const uint32_t* __restrict__ W
   }
 }
 
-__global__ void finish_kernel(const unsigned long long* __restrict__ acc,
-                              uint32_t* __restrict__ out, long long total, uint32_t p) {
+__global__ void coded_grad_finish_kernel(const unsigned long long* __restrict__ acc,
+                                         uint32_t* __restrict__ out, long long total,
+                                         uint32_t p) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < total) out[i] = static_cast<uint32_t>(acc[i] % p);
 }
@@ -161,7 +162,8 @@ extern "C" int coded_grad_launch(const void* x, const void* wt, const void* cbar
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int fin_threads = 256;
-  finish_kernel<<<static_cast<unsigned int>((total + fin_threads - 1) / fin_threads),
-                  fin_threads, 0, s>>>(ap, static_cast<uint32_t*>(out), total, p);
+  const auto fin_blocks = static_cast<unsigned int>((total + fin_threads - 1) / fin_threads);
+  coded_grad_finish_kernel<<<fin_blocks, fin_threads, 0, s>>>(
+      ap, static_cast<uint32_t*>(out), total, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,11 +4,11 @@
 // channel i, state j):
 //     h_t = exp(dt_t[i] * A[i,j]) * h_{t-1} + (dt_t[i] * x_t[i]) * B_t[j]
 //     y_t[i] = sum_j h_t[i,j] * C_t[j] + D[i] * x_t[i],   A = -exp(A_log)
-// x and dt (B,S,di) float32 or bfloat16 each, read in their own dtype (the
-// TPU kernel casts them inside too); bc (B,S,2,NS) float32 holds B_t and C_t
-// zero-padded to NS in {4, 8, 16} states; A_log (di,n), D (di,), h0 (B,di,n)
-// float32; y (B,S,di) and h_last (B,di,n) float32.  Any B, S >= 1, di and
-// 1 <= n <= 16.
+// x and dt (B,S,di) both float32 or both bfloat16, read in that dtype (the
+// TPU kernel casts them inside too); bc (B,S,2,16) float32 holds B_t and C_t
+// zero-padded to 16 states; A_log (di,n), D (di,), h0 (B,di,n) float32;
+// y (B,S,di) and h_last (B,di,n) float32.  Any B, S >= 1, di and
+// 1 <= n <= 16: states j >= n run on zeros (A2, B_t, C_t) and store nothing.
 //
 // What bounds it on an H100: the exp.  At the serve shape (B 4, S 2048,
 // di 8192, n 16) the scan needs B*S*di*n = 1.07e9 exp, one multi-function
@@ -17,10 +17,10 @@
 // loads on every state of every step, and the MIO pipe, not the exp, would
 // bound it.  This design:
 //
-//  * One thread per (b, channel), all NS states in registers (h[NS] and
-//    A2[j] = -exp(A_log[i,j]) log2 e), so a step is NS ex2.approx (one MUFU
-//    op each), about 4 FP32 ops per state and an in-thread sum for y_t in
-//    two chains: no shuffles.  The NS state chains are independent, which
+//  * One thread per (b, channel), all NS = 16 states in registers (h[NS]
+//    and A2[j] = -exp(A_log[i,j]) log2 e), so a step is NS ex2.approx (one
+//    MUFU op each), about 4 FP32 ops per state and an in-thread sum for y_t
+//    in two chains: no shuffles.  The NS state chains are independent, which
 //    feeds the MUFU pipe from the 8 warps per SM that the serve shape has
 //    (B * di = 32,768 threads).  There it runs at 1.7x the exp bound: two
 //    threads per channel (more warps, a shuffle per step) and a polynomial
@@ -29,7 +29,7 @@
 //    and latency at 8 warps per SM, not the MUFU rate alone, are what is
 //    left.
 //  * B_t and C_t are shared by the block's channels: read as broadcast
-//    128-bit loads from shared memory, 2 NS / 4 loads for NS states.
+//    128-bit loads from shared memory, 8 loads for the 16 states.
 //  * x and dt tiles (kT steps x kCh channels, coalesced across channels)
 //    and the bc tile come through a kStages-deep ring in shared memory,
 //    filled by cp.async while earlier tiles compute: one barrier per tile
@@ -50,6 +50,7 @@ namespace {
 constexpr int kCh = 64;      // channels (threads) per block
 constexpr int kT = 32;       // time steps per tile
 constexpr int kStages = 3;   // tiles in flight in the ring
+constexpr int NS = 16;       // states in registers; n <= NS are live
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -75,12 +76,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename XT, typename DT, int NS>
+template <typename T>
 struct Ring {
   static constexpr int kBC = kT * 2 * NS;  // floats of B_t, C_t per tile
   static constexpr size_t kXOff = kBC * sizeof(float);
-  static constexpr size_t kDOff = kXOff + kT * kCh * sizeof(XT);
-  static constexpr size_t kStage = kDOff + kT * kCh * sizeof(DT);
+  static constexpr size_t kDOff = kXOff + kT * kCh * sizeof(T);
+  static constexpr size_t kStage = kDOff + kT * kCh * sizeof(T);
   static constexpr size_t kBytes = kStages * kStage;
 };
 
@@ -106,14 +107,14 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, siz
   }
 }
 
-template <typename XT, typename DT, int NS>
+template <typename T>
 __global__ void __launch_bounds__(kCh)
-scan_kernel(const XT* __restrict__ x, const DT* __restrict__ dt,
+scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
             const float* __restrict__ bc, const float* __restrict__ a_log,
             const float* __restrict__ dvec, const float* __restrict__ h0,
             float* __restrict__ y, float* __restrict__ h_last, int S, int di, int n,
             bool vec) {
-  using R = Ring<XT, DT, NS>;
+  using R = Ring<T>;
   extern __shared__ __align__(16) unsigned char ring[];
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * kCh;
@@ -143,8 +144,8 @@ scan_kernel(const XT* __restrict__ x, const DT* __restrict__ dt,
         const bool ok = t0 + e / CPT < S;
         cp_async16(bcs + 4 * e, ok ? src + 4 * e : bc, ok);
       }
-      load_rows(reinterpret_cast<XT*>(st + R::kXOff), x, row0, t0, S, di, c0, vec);
-      load_rows(reinterpret_cast<DT*>(st + R::kDOff), dt, row0, t0, S, di, c0, vec);
+      load_rows(reinterpret_cast<T*>(st + R::kXOff), x, row0, t0, S, di, c0, vec);
+      load_rows(reinterpret_cast<T*>(st + R::kDOff), dt, row0, t0, S, di, c0, vec);
     }
     cp_async_commit();  // an empty group past the end keeps the count uniform
   };
@@ -156,8 +157,8 @@ scan_kernel(const XT* __restrict__ x, const DT* __restrict__ dt,
     load(tile + kStages - 1);
     const unsigned char* st = ring + (tile % kStages) * R::kStage;
     const float* bcs = reinterpret_cast<const float*>(st);
-    const XT* xs = reinterpret_cast<const XT*>(st + R::kXOff) + threadIdx.x;
-    const DT* dts = reinterpret_cast<const DT*>(st + R::kDOff) + threadIdx.x;
+    const T* xs = reinterpret_cast<const T*>(st + R::kXOff) + threadIdx.x;
+    const T* dts = reinterpret_cast<const T*>(st + R::kDOff) + threadIdx.x;
     const int t0 = tile * kT;
     const int steps = min(kT, S - t0);
     float* yp = y + (row0 + t0) * di + i;
@@ -193,44 +194,29 @@ scan_kernel(const XT* __restrict__ x, const DT* __restrict__ dt,
   }
 }
 
-template <typename XT, typename DT, int NS>
+template <typename T>
 cudaError_t launch(dim3 grid, cudaStream_t st, const void* x, const void* dt,
                    const float* bc, const float* a_log, const float* d, const float* h0,
                    float* y, float* h_last, int S, int di, int n, bool vec) {
-  constexpr size_t smem = Ring<XT, DT, NS>::kBytes;
-  auto* kernel = scan_kernel<XT, DT, NS>;
+  constexpr size_t smem = Ring<T>::kBytes;
+  auto* kernel = scan_kernel<T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kCh, smem, st>>>(static_cast<const XT*>(x), static_cast<const DT*>(dt),
-                                  bc, a_log, d, h0, y, h_last, S, di, n, vec);
+  kernel<<<grid, kCh, smem, st>>>(static_cast<const T*>(x), static_cast<const T*>(dt), bc,
+                                  a_log, d, h0, y, h_last, S, di, n, vec);
   return cudaGetLastError();
-}
-
-template <typename XT, typename DT>
-cudaError_t launch_ns(int ns, dim3 grid, cudaStream_t st, const void* x, const void* dt,
-                      const float* bc, const float* a_log, const float* d,
-                      const float* h0, float* y, float* h_last, int S, int di, int n,
-                      bool vec) {
-  switch (ns) {
-    case 4: return launch<XT, DT, 4>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n, vec);
-    case 8: return launch<XT, DT, 8>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n, vec);
-    case 16: return launch<XT, DT, 16>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n, vec);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// x_bf16 / dt_bf16: 1 when that operand is bfloat16, 0 when float32.
-// ns: the padded state count of bc (4, 8 or 16, >= n).  vec: 1 when
+// bf16: 1 when x and dt are bfloat16, 0 when both are float32.  vec: 1 when
 // di % 8 == 0 and x and dt are 16-byte aligned (cp.async in 16-byte chunks).
 extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* bc,
                                  const void* a_log, const void* d, const void* h0,
                                  void* y, void* h_last, int B, int S, int di, int n,
-                                 int ns, int x_bf16, int dt_bf16, int vec,
-                                 void* stream) {
-  if (B <= 0 || S <= 0 || di <= 0 || n <= 0 || n > ns || B > 65535 ||
+                                 int bf16, int vec, void* stream) {
+  if (B <= 0 || S <= 0 || di <= 0 || n <= 0 || n > NS || B > 65535 ||
       (vec && di % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((di + kCh - 1) / kCh, B);
@@ -241,19 +227,9 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* bc,
   const auto* h0p = static_cast<const float*>(h0);
   auto* yp = static_cast<float*>(y);
   auto* hlp = static_cast<float*>(h_last);
-  const bool v = vec != 0;
-  cudaError_t err;
-  if (x_bf16 && dt_bf16)
-    err = launch_ns<__nv_bfloat16, __nv_bfloat16>(ns, grid, st, x, dt, bcp, alp, dp,
-                                                  h0p, yp, hlp, S, di, n, v);
-  else if (x_bf16)
-    err = launch_ns<__nv_bfloat16, float>(ns, grid, st, x, dt, bcp, alp, dp, h0p,
-                                          yp, hlp, S, di, n, v);
-  else if (dt_bf16)
-    err = launch_ns<float, __nv_bfloat16>(ns, grid, st, x, dt, bcp, alp, dp, h0p,
-                                          yp, hlp, S, di, n, v);
-  else
-    err = launch_ns<float, float>(ns, grid, st, x, dt, bcp, alp, dp, h0p, yp, hlp,
-                                  S, di, n, v);
+  const cudaError_t err =
+      bf16 ? launch<__nv_bfloat16>(grid, st, x, dt, bcp, alp, dp, h0p, yp, hlp, S, di, n,
+                                   vec != 0)
+           : launch<float>(grid, st, x, dt, bcp, alp, dp, h0p, yp, hlp, S, di, n, vec != 0);
   return static_cast<int>(err);
 }

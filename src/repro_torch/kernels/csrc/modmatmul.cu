@@ -176,9 +176,9 @@ modmatmul_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ B,
 }
 
 // out[i] = (sum over the K-slices of partial[s][i]) mod p.
-__global__ void finish_kernel(const uint32_t* __restrict__ partial,
-                              uint32_t* __restrict__ out, long long total, int splits,
-                              uint32_t p, unsigned long long bm) {
+__global__ void modmatmul_finish_kernel(const uint32_t* __restrict__ partial,
+                                        uint32_t* __restrict__ out, long long total,
+                                        int splits, uint32_t p, unsigned long long bm) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= total) return;
   uint64_t sum = 0;  // splits residues < 2^30 each
@@ -254,8 +254,9 @@ extern "C" int modmatmul_launch(const void* a, const void* b, void* c, void* par
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long total = static_cast<long long>(M) * N;
   const int fin_threads = 256;
-  finish_kernel<<<static_cast<unsigned int>((total + fin_threads - 1) / fin_threads),
-                  fin_threads, 0, st>>>(static_cast<const uint32_t*>(partial),
-                                        static_cast<uint32_t*>(c), total, splits, p, bm);
+  const auto fin_blocks = static_cast<unsigned int>((total + fin_threads - 1) / fin_threads);
+  modmatmul_finish_kernel<<<fin_blocks, fin_threads, 0, st>>>(
+      static_cast<const uint32_t*>(partial), static_cast<uint32_t*>(c), total, splits, p,
+      bm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,13 +12,29 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import build
 
-MAX_STATE = 16          # the kernel keeps at most 16 states in registers
-STATE_TILES = (4, 8, 16)  # register widths it is built for; n is padded up
+MAX_STATE = 16   # the kernel keeps 16 states in registers; n <= 16 are live
 
 
-def state_tile(n: int) -> int:
-    """The kernel's register width for n states: the least tile >= n."""
-    return next(t for t in STATE_TILES if t >= n)
+def operands(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """x and dt in the one dtype the kernel reads them in, and Bm, Cm packed
+    into the (B, S, 2, MAX_STATE) float32 tensor it stages, zero past n.
+
+    x and dt stay bfloat16 when both are (the serve path); otherwise both
+    are widened to float32, which is exact for bfloat16.
+    """
+    same_bf16 = x.dtype == dt.dtype == torch.bfloat16
+    x, dt = (t.contiguous() if same_bf16 or t.dtype == torch.float32
+             else t.float().contiguous() for t in (x, dt))
+    B, S, n = bm.shape
+    bc = torch.empty((B, S, 2, MAX_STATE), dtype=torch.float32,
+                     device=x.device)
+    bc[:, :, 0, :n] = bm
+    bc[:, :, 1, :n] = cm
+    if n < MAX_STATE:
+        bc[..., n:] = 0
+    return x, dt, bc
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
@@ -28,11 +44,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     h0 (B, di, n), on one CUDA device -> (y (B, S, di), h_last (B, di, n)),
     both float32.  Launches on the current stream.
 
-    x and dt are read in their own dtype when it is float32 or bfloat16
-    (any other float is cast to float32 first), so the serve path hands
-    over its bfloat16 dt without a float32 copy.  Bm and Cm (slices of one
-    projection) are packed into one zero-padded (B, S, 2, ns) float32
-    tensor; a_log, d and h0 are cast to contiguous float32.
+    x and dt are read as bfloat16 when both are, so the serve path hands
+    over its bfloat16 dt without a float32 copy; any other pair is read as
+    float32 (``operands``).  Bm and Cm (slices of one projection) are
+    packed into one zero-padded (B, S, 2, 16) float32 tensor; a_log, d and
+    h0 are cast to contiguous float32.
     """
     named = (("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
              ("d", d), ("h0", h0))
@@ -58,14 +74,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         raise ValueError(f"selective_scan needs B, S, di >= 1, 1 <= n <= "
                          f"{MAX_STATE} and B <= 65535; got B={B} S={S} di={di} "
                          f"n={n}")
-    x, dt = (t.contiguous() if t.dtype in (torch.float32, torch.bfloat16)
-             else t.float().contiguous() for t in (x, dt))
-    ns = state_tile(n)
-    bc = torch.empty((B, S, 2, ns), dtype=torch.float32, device=x.device)
-    bc[:, :, 0, :n] = bm
-    bc[:, :, 1, :n] = cm
-    if n < ns:
-        bc[..., n:] = 0
+    x, dt, bc = operands(x, dt, bm, cm)
     f32 = [t.float().contiguous() for t in (a_log, d, h0)]
     # cp.async moves 16-byte chunks of x and dt rows when they allow it
     vec = di % 8 == 0 and x.data_ptr() % 16 == 0 and dt.data_ptr() % 16 == 0
@@ -76,8 +85,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     err = lib.mamba_scan_launch(x.data_ptr(), dt.data_ptr(), bc.data_ptr(),
                                 *(t.data_ptr() for t in f32),
                                 y.data_ptr(), h_last.data_ptr(), B, S, di, n,
-                                ns, int(x.dtype == torch.bfloat16),
-                                int(dt.dtype == torch.bfloat16), int(vec),
+                                int(x.dtype == torch.bfloat16), int(vec),
                                 stream)
     build.check(err, "selective_scan")
     kernels.LAUNCHES["selective_scan"] += 1

@@ -15,10 +15,10 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import build
 
-SMS = 132                   # streaming multiprocessors of an H100 SXM
-# Threads the plan aims to keep on the card: half of its 2048 per SM, enough
-# loads in flight for the byte bound.  Fewer, and K is split across blocks.
-TARGET_THREADS = SMS * 1024
+SMS = 132   # streaming multiprocessors of an H100 SXM: plan's default
+# Threads the plan aims to keep on each SM: half of its 2048, enough loads in
+# flight for the byte bound.  Fewer on the card, and K is split across blocks.
+THREADS_PER_SM = 1024
 MIN_SLICE = 64              # least depth of a K-slice
 ROW_TILES = (16, 8, 4, 2, 1)
 MAX_THREADS = 256
@@ -60,27 +60,34 @@ class Plan:
         return self.groups * self.col_blocks * self.splits
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=256)
-def plan(M: int, K: int, N: int, vec: bool = True) -> Plan:
-    """Tiling for the shapes; ``vec`` when B's rows may be read 16 bytes at
-    a time (aligned pointer).
+def plan(M: int, K: int, N: int, vec: bool = True, sms: int = SMS) -> Plan:
+    """Tiling for the shapes on a card of ``sms`` SMs; ``vec`` when B's rows
+    may be read 16 bytes at a time (aligned pointer).
 
     rows minimises groups x (rows + 2): a row group costs its rows'
     multiply-adds plus about two for its own read of B's column, so M = 6
     takes one group of 8, M = 40 five of 8 and M = 13 one of 16.  Columns
     go 4 to a thread only where that still fills the card.  Where the
-    threads fall short of TARGET_THREADS, K is split into slices of at
-    least MIN_SLICE.  Where the blocks fall short of the SMs, blocks shrink
+    threads fall short of THREADS_PER_SM on every SM, K is split into
+    slices of at least MIN_SLICE.  Where the blocks fall short of the SMs, blocks shrink
     to as few as 32 threads, and then row groups to fewer rows (more
     groups), so that small products take one launch and still spread.
     """
+    target = sms * THREADS_PER_SM
     rows = min(ROW_TILES, key=lambda r: (_cdiv(M, r) * (r + 2), -r))
     cols = 4 if (vec and N % 4 == 0 and rows <= 8
-                 and _cdiv(M, rows) * (N // 4) >= TARGET_THREADS) else 1
+                 and _cdiv(M, rows) * (N // 4) >= target) else 1
     col_threads = _cdiv(N, cols)
     splits = 1
-    if _cdiv(M, rows) * col_threads < TARGET_THREADS and K >= 2 * MIN_SLICE:
-        splits = min(_cdiv(TARGET_THREADS, _cdiv(M, rows) * col_threads),
+    if _cdiv(M, rows) * col_threads < target and K >= 2 * MIN_SLICE:
+        splits = min(_cdiv(target, _cdiv(M, rows) * col_threads),
                      K // MIN_SLICE)
     slice_ = _cdiv(K, splits)
     splits = _cdiv(K, slice_)
@@ -89,9 +96,9 @@ def plan(M: int, K: int, N: int, vec: bool = True) -> Plan:
         return _cdiv(M, rows) * splits * _cdiv(col_threads, threads)
 
     threads = min(MAX_THREADS, 32 * _cdiv(col_threads, 32))
-    while threads > 32 and blocks(rows, threads) < SMS:
+    while threads > 32 and blocks(rows, threads) < sms:
         threads = max(32, threads // 64 * 32)
-    while rows > 1 and blocks(rows, threads) < SMS:
+    while rows > 1 and blocks(rows, threads) < sms:
         rows //= 2
     return Plan(M, K, N, rows, cols, threads, splits, slice_)
 
@@ -124,7 +131,8 @@ def modmatmul(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     N = b.shape[1]
     if M == 0 or N == 0 or K == 0:
         return torch.zeros((M, N), dtype=torch.int32, device=a.device)
-    return run(a, b, p, plan(M, K, N, vec=b.data_ptr() % 16 == 0))
+    return run(a, b, p, plan(M, K, N, vec=b.data_ptr() % 16 == 0,
+                             sms=sm_count(a.device)))
 
 
 def run(a: torch.Tensor, b: torch.Tensor, p: int, pl: Plan) -> torch.Tensor:

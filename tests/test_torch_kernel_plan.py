@@ -67,6 +67,21 @@ def test_main_path_plan_fills_the_card_or_splits_k(name):
     assert pl.blocks >= tmm.SMS or pl.splits > 1, pl
 
 
+@pytest.mark.parametrize("name", sorted(MAIN_SHAPES))
+@pytest.mark.parametrize("sms", [66, 114])
+def test_plan_fills_a_card_of_fewer_sms(name, sms):
+    """The plan follows the card's SM count (an H100 PCIe has 114): every
+    main-path shape still fills it or splits K, and a split aims at that
+    card's threads, not at 132 SMs'."""
+    pl = tmm.plan(*MAIN_SHAPES[name], sms=sms)
+    check_plan_invariants(pl)
+    assert pl.blocks >= sms or pl.splits > 1, pl
+    if pl.splits > 1:
+        threads = pl.groups * -(-pl.N // pl.cols) * pl.splits
+        assert threads >= sms * tmm.THREADS_PER_SM
+        assert pl.splits <= tmm.plan(*MAIN_SHAPES[name]).splits
+
+
 @pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_edge_plan_invariants(shape):
     for vec in (True, False):
@@ -84,7 +99,7 @@ def test_plan_at_the_coded_head_and_case1():
     shard = tmm.plan(*MAIN_SHAPES["coded_head_shard"])
     assert shard.rows == 4 and shard.splits > 1
     assert shard.groups * -(-16256 // shard.cols) * shard.splits \
-        >= tmm.TARGET_THREADS
+        >= tmm.SMS * tmm.THREADS_PER_SM
     ds = tmm.plan(*MAIN_SHAPES["dataset_encode"])
     assert (ds.rows, ds.groups, ds.splits) == (8, 5, 1)
 
@@ -243,10 +258,33 @@ def test_exp2_form_within_1e5_of_reference_oracle(B, S, di, n, h0_scale):
     assert float(np.abs(h.numpy() - np.asarray(h_ref)).max()) < 1e-5
 
 
-@pytest.mark.parametrize("n,tile", [(1, 4), (3, 4), (4, 4), (5, 8), (8, 8),
-                                    (9, 16), (16, 16)])
-def test_scan_state_tile(n, tile):
-    assert tms.state_tile(n) == tile
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("n,x_dtype,dt_dtype", [
+    (1, BF16, BF16), (3, F32, BF16), (4, BF16, F32), (5, F32, F32),
+    (8, BF16, BF16), (9, F32, BF16), (16, BF16, F32), (16, BF16, BF16)])
+def test_scan_operands_pad_to_16_states_and_one_dtype(n, x_dtype, dt_dtype):
+    """What the wrapper hands the kernel: x and dt in one dtype (bf16 only
+    when both are; a widening is exact), and Bm, Cm packed into 16 float32
+    states with zeros past n, from slices of one projection."""
+    gen = torch.Generator().manual_seed(n)
+    B, S, di = 2, 5, 24
+    x = torch.randn((B, S, di), generator=gen).to(x_dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, di), generator=gen)).to(dt_dtype)
+    proj = torch.randn((B, S, 2 * n + 3), generator=gen)
+    bm, cm = proj[..., 3:3 + n], proj[..., 3 + n:]
+    xk, dtk, bc = tms.operands(x, dt, bm, cm)
+    want = BF16 if x_dtype == dt_dtype == BF16 else F32
+    assert xk.dtype == dtk.dtype == want
+    assert xk.is_contiguous() and dtk.is_contiguous()
+    assert torch.equal(xk.float(), x.float())
+    assert torch.equal(dtk.float(), dt.float())
+    assert bc.shape == (B, S, 2, tms.MAX_STATE) and bc.dtype == F32
+    assert bc.is_contiguous()
+    assert torch.equal(bc[:, :, 0, :n], bm) and torch.equal(bc[:, :, 1, :n], cm)
+    assert not bc[..., n:].any()
 
 
 def test_mamba_mix_hands_the_scan_its_bf16_dt(monkeypatch):
