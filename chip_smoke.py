@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels[,train,...]]
 
 Run from the repository root on a machine with one CUDA card.  It prints
 one JSON object per line, in phases, and fails (non-zero exit) if any
-phase fails:
+phase fails.  ``--phases`` runs the build and the named phases only (for
+iterating on a kernel); such a partial run prints no ok line.
 
   build     builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels   holds each field kernel bit for bit against its plain PyTorch
@@ -15,8 +16,13 @@ phase fails:
             boundary, ``modmatmul``'s row templates (M = 1, 4, 6, 17, 40),
             fold interval (K = L, L+1, 2L+1, also in one K-slice) and K-split
             edges (K = 4096, N = 1, 255, 16256), and ``modmatmul`` at the
-            coded LM head's shapes (P30); the selective scan against its
-            plain version within 1e-4 at the serve shape (x and dt bf16 as
+            coded LM head's shapes (P30); ``coded_grad`` at Case 1 with
+            c = 1, 10 and 33 heads, c = 17 r = 2 and c = 5 r = 7 (c*r
+            above 32), r = 33 with a random c̄, all-(p-1) inputs at P30
+            with a thread's columns and the rows per tile at L-1, L, L+1
+            (forced plans), and d = 60000 on the re-read route; the
+            selective scan against its plain version within 1e-4 at the
+            serve shape (x and dt bf16 as
             served, dt f32, x f32, non-zero h0), S = 1, S = 33, di = 8200,
             n in {1, 3, 4, 16} with di not a multiple of the block's
             channels (and rows not 16-byte aligned), B 1 x di 96 and
@@ -28,6 +34,8 @@ phase fails:
             the card: both field kernels launched (launch counts reset just
             before, read just after), coded accuracy within 0.03 of the
             cleartext baseline
+  train_c33 ``cpml_train --classes 33 --iters 2`` on the card (33 heads,
+            N=8, K=2, T=1): exit 0 and ``coded_grad`` launched twice
   teacher   3 rounds on the card and again on the CPU (plain versions)
             from the card's weights: shares and decoded parts bit-equal,
             weights within 1e-5; then the round's stages timed on the card
@@ -78,6 +86,10 @@ TRAIN_SEED = 1
 # scalar arithmetic (no integer-multiply rate is published).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# 32-bit integer multiply-adds: 64 per clock per SM (CUDA C programming
+# guide, arithmetic instruction throughput, compute capability 9.0) x 132
+# SMs x the 1.98 GHz boost clock; a 32x32 -> 64 multiply-add takes two.
+IMAD_PER_S = 64 * 132 * 1.98e9
 # exp on the multi-function units: 16 per clock per SM (CUDA C programming
 # guide, arithmetic instruction throughput, compute capability 9.0) x 132
 # SMs x the 1.98 GHz boost clock of the SXM part (NVIDIA data sheet).
@@ -91,18 +103,24 @@ SCAN_ATOL = 1e-4
 MODEL_ATOL = 1e-3
 SERVE = dict(arch="falcon-mamba-7b", batch=4, prompt_len=2048, gen=32)
 CODED = dict(batch=4, prompt_len=16, gen=4, kill_shard=2)
+# More heads than the first coded_grad kernel took (c*r <= 32).
+TRAIN_HEADS = dict(classes=33, iters=2)
+PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
+          "consistency", "coded_head")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, ops: float, special: float = 0
+def bound(nbytes: float, ops: float, special: float = 0, imad: float = 0
           ) -> tuple[float, str]:
     """Least ms for the work: bytes at the memory rate against the scalar
-    operations and the special-function ops (exp), each at its rate."""
+    float operations, the special-function ops (exp) and the 32-bit
+    integer multiply-adds, each at its rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / SCALAR_OPS_PER_S, special / SPECIAL_OPS_PER_S) * 1e3
+    t_ops = max(ops / SCALAR_OPS_PER_S, special / SPECIAL_OPS_PER_S,
+                imad / IMAD_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -249,31 +267,65 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
                            mm.run(a, b, p, one), want, p=p, shape=[M, KK, NN],
                            plan=[one.rows, one.cols, one.threads, one.splits])
 
-    # -- coded_grad: main-path shapes, both primes, extremes, odd shapes --
-    cg_cases = []
+    # -- coded_grad: main-path shapes, both primes, extremes, odd shapes,
+    #    many heads (c*r > 32), high degree, the fold interval, re-read --
+    def coeffs(r, p):
+        return torch.as_tensor(sigmoid_poly.quantized_coeffs(r, 2, 4, 6, p),
+                               dtype=torch.int32, device=dev)
+
+    cg_cases = []   # (case, p, x, w, cbar, forced plan or None)
     for p in (field.P, field.P30):
         for c, r in ((1, 1), (10, 2)):
-            cbar = torch.as_tensor(sigmoid_poly.quantized_coeffs(r, 2, 4, 6, p),
-                                   dtype=torch.int32, device=dev)
             cg_cases.append((f"case1_c{c}_r{r}", p, rand((N, mk, d), p),
-                             rand((N, d, c, r), p), cbar))
+                             rand((N, d, c, r), p), coeffs(r, p), None))
             cg_cases.append((f"all_p_minus_1_c{c}_r{r}", p, full((N, mk, d), p),
-                             full((N, d, c, r), p), full((r + 1,), p)))
-        cbar3 = torch.as_tensor(sigmoid_poly.quantized_coeffs(3, 2, 4, 6, p),
-                                dtype=torch.int32, device=dev)
+                             full((N, d, c, r), p), full((r + 1,), p), None))
         cg_cases.append(("odd_N3_mk97_d131_c3_r3", p, rand((3, 97, 131), p),
-                         rand((3, 131, 3, 3), p), cbar3))
+                         rand((3, 131, 3, 3), p), coeffs(3, p), None))
         cg_cases.append(("odd_N5_mk65_d33_c10_r3", p, rand((5, 65, 33), p),
-                         rand((5, 33, 10, 3), p), cbar3))
-        cbar1 = torch.as_tensor(sigmoid_poly.quantized_coeffs(1, 2, 4, 6, p),
-                                dtype=torch.int32, device=dev)
+                         rand((5, 33, 10, 3), p), coeffs(3, p), None))
         cg_cases.append(("odd_N2_mk1_d1_c1_r1", p, rand((2, 1, 1), p),
-                         rand((2, 1, 1, 1), p), cbar1))
-    for case, p, x, w, cbar in cg_cases:
-        got = cg.coded_grad(x, w, cbar, p)
+                         rand((2, 1, 1, 1), p), coeffs(1, p), None))
+        # more heads than the old kernel's 32 registers held (c*r > 32)
+        cg_cases.append(("case1_c33_r1", p, rand((N, mk, d), p),
+                         rand((N, d, 33, 1), p), coeffs(1, p), None))
+        cg_cases.append(("N8_mk131_d97_c17_r2", p, rand((8, 131, 97), p),
+                         rand((8, 97, 17, 2), p), coeffs(2, p), None))
+        cg_cases.append(("N8_mk131_d97_c5_r7", p, rand((8, 131, 97), p),
+                         rand((8, 97, 5, 7), p), coeffs(7, p), None))
+        # degree 33: no fitted sigmoid of that degree, a random c̄ of 34
+        cg_cases.append(("N3_mk9_d21_c1_r33", p, rand((3, 9, 21), p),
+                         rand((3, 21, 1, 33), p), rand((34,), p), None))
+        # the re-read route: one row of d does not fit in shared memory
+        cg_cases.append(("reread_N2_mk5_d60000_c2_r1", p, rand((2, 5, 60000), p),
+                         rand((2, 60000, 2, 1), p), coeffs(1, p), None))
+    # the fold interval L at P30, all p-1: a thread's column count (d at
+    # 32 threads) and the rows per tile at L-1, L and L+1
+    p = field.P30
+    L = build.fold_every(p)
+    for kk in (L - 1, L, L + 1):
+        for c, r in ((1, 1), (3, 2)):
+            dd = 32 * kk
+            pl = cg.fixed_plan(3, 2 * kk + 1, dd, c, r, rows=kk, stages=2,
+                               part_smem=True, threads=32, splits=2)
+            cg_cases.append((f"fold_L{kk - L:+d}_c{c}_r{r}", p,
+                             full((3, 2 * kk + 1, dd), p),
+                             full((3, dd, c, r), p), full((r + 1,), p), pl))
+    for case, p, x, w, cbar, pl in cg_cases:
+        N_, mk_, d_ = x.shape
+        c_, r_ = w.shape[2:]
+        if pl is None:
+            pl = cg.plan(N_, mk_, d_, c_, r_, sms=mm.sm_count(x.device))
+            got = cg.coded_grad(x, w, cbar, p)
+        else:
+            got = cg.run(x, w, cbar, p, pl)
         want = ref.coded_grad_workers_ref(x, w, cbar, p)
         checks.compare("coded_grad", case, got, want, p=p,
-                       shape=list(x.shape) + list(w.shape[2:]))
+                       shape=list(x.shape) + list(w.shape[2:]),
+                       plan=[pl.rows, pl.stages, pl.group, pl.chunk, pl.threads,
+                             pl.splits, int(pl.part_smem), pl.smem])
+        del x, w, got, want
+    del cg_cases
 
     # -- timings at the main path's shapes (Case 1, p = P) --
     p = field.P
@@ -293,13 +345,15 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
             "bound_ms": b_ms, "bound_by": b_by})
     for c, r in ((1, 1), (10, 2)):
         x, w = rand((N, mk, d), p), rand((N, d, c, r), p)
-        cbar = torch.as_tensor(sigmoid_poly.quantized_coeffs(r, 2, 4, 6, p),
-                               dtype=torch.int32, device=dev)
+        cbar = coeffs(r, p)
         nbytes = 4 * (N * mk * d + N * d * c * r + (r + 1) + N * d * c)
-        b_ms, b_by = bound(nbytes, 2 * N * mk * d * (c * r + c))
+        # N mk d (c r + c) multiply-adds of 32x32 -> 64 bits, two IMADs each
+        b_ms, b_by = bound(nbytes, 0, imad=2 * N * mk * d * (c * r + c))
+        pl = cg.plan(N, mk, d, c, r, sms=mm.sm_count(x.device))
         timings.append({
             "kernel": "coded_grad", "case": f"case1_c{c}_r{r}",
             "shape": [N, mk, d, c, r],
+            "launches_per_call": 1 + (pl.splits > 1),
             "ms": time_ms(torch, lambda: cg.coded_grad(x, w, cbar, p), 20),
             "graph_ms": graph_ms(torch, lambda: cg.coded_grad(x, w, cbar, p),
                                  20),
@@ -449,6 +503,33 @@ def phase_train(torch, out_dir: Path) -> dict:
     if gap >= 0.03:
         raise AssertionError(f"coded accuracy {res['acc_coded']} is not within "
                              f"0.03 of the cleartext {res['acc_cleartext']}")
+    return info
+
+
+def phase_train_heads(torch, out_dir: Path) -> dict:
+    """``cpml_train --classes 33`` on the card (N=8, K=2, T=1 and the CLI's
+    other defaults): 33 heads of degree 1, more than the first kernel's 32
+    registers held.  It must exit 0 and launch ``coded_grad`` once a round."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cpml_train
+
+    out = out_dir / "cpml_train_c33.json"
+    iters = TRAIN_HEADS["iters"]
+    argv = ["--classes", str(TRAIN_HEADS["classes"]), "--iters", str(iters),
+            "--device", "cuda", "--json-out", str(out)]
+    ops.reset_launches()
+    rc = cpml_train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cpml_train --classes 33 exited {rc}")
+    res = json.loads(out.read_text())
+    info = {"phase": "train_c33", "argv": argv, "launches": launches,
+            "seconds": res["seconds"], "acc_coded": res["acc_coded"],
+            "acc_cleartext": res["acc_cleartext"]}
+    emit(info)
+    if launches["coded_grad"] != iters:
+        raise AssertionError(f"coded_grad launches at 33 heads: {launches}")
     return info
 
 
@@ -773,7 +854,19 @@ def run_phase(name: str, fn, *args):
     return out
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run after the build "
+                         f"(default: all of {','.join(PHASES)}); a partial "
+                         "run prints no ok line")
+    args = ap.parse_args(argv)
+    phases = [x for x in args.phases.split(",") if x]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {PHASES}")
     import torch
 
     if not torch.cuda.is_available():
@@ -807,35 +900,41 @@ def main() -> int:
                     if (v.parent / f"{name}.log").exists()}})
 
     checks = Checks(torch)
-    timings = run_phase("kernels", phase_kernels, torch, checks)
-    timings += run_phase("kernels_coded_head", phase_kernels_coded_head, torch,
-                         checks)
-    timings += run_phase("kernels_scan", phase_kernels_scan, torch, checks)
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    train = run_phase("train", phase_train, torch, out_dir)
-    run_phase("teacher", phase_teacher, torch)
-    for _ in range(2):
+
+    def free():
         gc.collect()
         torch.cuda.empty_cache()
-    serve = run_phase("serve", phase_serve, torch, out_dir)
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_phase("profile", phase_profile, torch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_phase("consistency", phase_consistency, torch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    coded = run_phase("coded_head", phase_coded_head, torch, out_dir)
+
+    ran: dict[str, dict] = {}
+    timings: list[dict] = []
+    if "kernels" in phases:
+        timings += run_phase("kernels", phase_kernels, torch, checks)
+        free()
+        timings += run_phase("kernels_coded_head", phase_kernels_coded_head,
+                             torch, checks)
+        timings += run_phase("kernels_scan", phase_kernels_scan, torch, checks)
+        free()
+    for name, fn, args_ in (
+            ("train", phase_train, (torch, out_dir)),
+            ("train_c33", phase_train_heads, (torch, out_dir)),
+            ("teacher", phase_teacher, (torch,)),
+            ("serve", phase_serve, (torch, out_dir)),
+            ("profile", phase_profile, (torch,)),
+            ("consistency", phase_consistency, (torch,)),
+            ("coded_head", phase_coded_head, (torch, out_dir))):
+        if name in phases:
+            ran[name] = run_phase(name, fn, *args_)
+            free()
+            free()
 
     # each kernel's main path: the training round for the field kernels,
     # serving for the scan; launches counted on that path's run
     main_case = {"modmatmul": "dataset_encode", "coded_grad": "case1_c1_r1",
                  "selective_scan": "serve_x_dt_bf16"}
-    launches = {"modmatmul": train["launches"]["modmatmul"],
-                "coded_grad": train["launches"]["coded_grad"],
-                "selective_scan": serve["launches"]["selective_scan"]}
+    main_path = {"modmatmul": "train", "coded_grad": "train",
+                 "selective_scan": "serve"}
     replaces = {
         "modmatmul": "src/repro/kernels/modmatmul.py:94",
         "coded_grad": "src/repro/kernels/coded_grad.py:117",
@@ -843,25 +942,34 @@ def main() -> int:
     }
     source = {"modmatmul": "modmatmul.cu", "coded_grad": "coded_grad.cu",
               "selective_scan": "mamba_scan.cu"}
-    kernels = []
-    for name in ("coded_grad", "modmatmul", "selective_scan"):
-        t = next(x for x in timings
-                 if x["kernel"] == name and x["case"] == main_case[name])
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source[name]}",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": checks.max_err[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-            "shape": t["shape"],
-            "launches_by_path": {
-                "train": train["launches"][name],
-                "serve": serve["launches"][name],
-                "serve_coded_head": coded["launches"][name]}})
-    emit({"kernels": kernels})
+    if "kernels" in phases:
+        kernels = []
+        for name in ("coded_grad", "modmatmul", "selective_scan"):
+            t = next(x for x in timings
+                     if x["kernel"] == name and x["case"] == main_case[name])
+            path = ran.get(main_path[name])
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source[name]}",
+                "replaces": replaces[name],
+                "launches": path["launches"][name] if path else None,
+                "max_abs_err": checks.max_err[name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "shape": t["shape"],
+                "launches_by_path": {
+                    k: ran[v]["launches"][name]
+                    for k, v in (("train", "train"), ("train_c33", "train_c33"),
+                                 ("serve", "serve"),
+                                 ("serve_coded_head", "coded_head"))
+                    if v in ran}})
+        emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
+    if set(phases) != set(PHASES):
+        print(f"chip_smoke: partial run ({','.join(phases)}): no ok line",
+              file=sys.stderr)
+        return 0
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

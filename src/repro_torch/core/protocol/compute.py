@@ -4,9 +4,11 @@ Mirrors ``repro/core/protocol/compute.py``.  f(X̃, W̃) = X̃ᵀ ḡ(X̃, W̃) 
 F_p, c one-vs-all heads over the same share: W̃ (d, c, r) -> (d, c).
 
 The reference's ``jax.vmap`` over workers is a written-out worker axis
-here: on the GPU all N workers go through ONE ``coded_grad`` kernel launch;
-on the CPU the plain version runs.  The reference's ``use_kernel`` flag has
-no counterpart, since the device decides.
+here: on the GPU all N workers go through ONE ``coded_grad`` kernel call
+(one launch, or two when each worker's rows are split across blocks), for
+any number of heads c and degree r, as in the reference; on the CPU the
+plain version runs.  The reference's ``use_kernel`` flag has no
+counterpart, since the device decides.
 """
 from __future__ import annotations
 

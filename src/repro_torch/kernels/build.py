@@ -46,12 +46,23 @@ class ModmatmulParams(ctypes.Structure):
                 ("bm", ctypes.c_ulonglong)]
 
 
+class CodedGradParams(ctypes.Structure):
+    """``CodedGradParams`` of csrc/coded_grad.cu: the shapes, the launch
+    plan (kernels/coded_grad.py: plan) and the field constants."""
+    _fields_ = [("N", _I), ("mk", _I), ("d", _I), ("c", _I), ("r", _I),
+                ("rows", _I), ("stages", _I), ("group", _I), ("chunk", _I),
+                ("threads", _I), ("splits", _I), ("tiles_per", _I),
+                ("part_smem", _I), ("smem", _I), ("raw", _I), ("p", ctypes.c_uint),
+                ("fold_every", _I), ("c32", ctypes.c_uint),
+                ("bm", ctypes.c_ulonglong)]
+
+
 _ARGTYPES = {
     # a, b, c, partial, params, stream
     "modmatmul_launch": [_P, _P, _P, _P, ctypes.POINTER(ModmatmulParams), _P],
-    # x, wt, cbar, scratch, out, N, mk, d, c, r, p, reduce_every, stream
-    "coded_grad_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          ctypes.c_uint, _I, _P],
+    # x, w, cbar, slot, out, params, stream
+    "coded_grad_launch": [_P, _P, _P, _P, _P, ctypes.POINTER(CodedGradParams),
+                          _P],
     # x, dt, bc, a_log, d, h0, y, h_last, B, S, di, n, bf16, vec, stream
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P],
@@ -64,10 +75,10 @@ def _check_prime(p: int) -> None:
 
 
 def reduce_every(p: int) -> int:
-    """Largest R with (p-1) + R (p-1)^2 < 2^64: ``coded_grad``'s uint64
-    accumulators are reduced mod p at least every R terms (16 for P30,
-    76921 for P).  Capped at 2^20 so the kernel's index arithmetic stays
-    small; reducing more often than needed is still exact."""
+    """Largest R with (p-1) + R (p-1)^2 < 2^64 (16 for P30, 76921 for P):
+    the products a uint64 sum that starts below p can take.  ``coded_grad``
+    adds 8 to a residue, and a row's d unreduced where d <= R
+    (``coded_grad.raw_sums``).  Capped at 2^20."""
     _check_prime(p)
     return min((2 ** 64 - p) // (p - 1) ** 2, 1 << 20)
 

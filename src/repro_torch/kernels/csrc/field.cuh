@@ -5,9 +5,9 @@
 // uint64 accumulator that starts below p stays exact while it takes at most
 // R = floor((2^64 - p) / (p-1)^2) products:
 //     (p-1) + R (p-1)^2 < 2^64.
-// R is 76921 for P = 15485863 and 16 for P30 = 2^30 - 35; the wrappers
-// compute it (kernels/build.py: reduce_every) and pass it in, and the
-// kernels reduce mod p at least every R terms.
+// R is 76921 for P = 15485863 and 16 for P30 = 2^30 - 35 (kernels/build.py:
+// reduce_every).  coded_grad adds 8 <= R products to a residue, and a
+// row's d products unreduced where d <= R (kernels/coded_grad.py: raw_sums).
 //
 // Cheaper than a 64-bit `%` inside a sum: the fold.  With c = 2^32 mod p,
 //     acc = hi 2^32 + lo  ==  lo + hi c   (mod p),

@@ -319,3 +319,209 @@ def test_mamba_mix_hands_the_scan_its_bf16_dt(monkeypatch):
     with torch.inference_mode():
         y32, h32 = mamba.mamba_mix(cfg, RunConfig(), p, x_in)
     assert torch.equal(y, y32) and torch.equal(h, h32)
+
+
+# -- coded_grad -----------------------------------------------------------
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import coded_grad as tcg  # noqa: E402
+
+N1, MK1, D1 = 40, -(-12396 // 13), 1568    # Case 1's worker step
+CG_SHAPES = {
+    "case1_c1_r1": (N1, MK1, D1, 1, 1),
+    "case1_c10_r2": (N1, MK1, D1, 10, 2),
+    "case1_c33_r1": (N1, MK1, D1, 33, 1),
+    "case1_c5_r7": (N1, MK1, D1, 5, 7),
+    "small_c17_r2": (8, 131, 97, 17, 2),
+    "tiny_c1_r33": (3, 9, 21, 1, 33),
+    "one_row_one_column": (2, 1, 1, 1, 1),
+    "cli_c33_defaults": (8, 1000, 128, 33, 1),
+    "wide_d8192_c10_r2": (40, 300, 8192, 10, 2),
+    "reread_d60000": (2, 5, 60000, 2, 1),
+    "many_workers": (4000, 7, 33, 2, 2),
+}
+
+
+def check_cg_plan(pl: tcg.Plan, sms: int) -> None:
+    assert pl.smem == tcg.smem_bytes(pl.d, pl.c, pl.r, pl.rows, pl.stages,
+                                     pl.group, pl.chunk, pl.threads,
+                                     pl.part_smem)
+    assert pl.smem <= tcg.SMEM_OPTIN
+    # head groups: whole heads, each head exactly once, at most GROUP_COLS
+    # Z columns unless one head alone is wider
+    assert [h for g in pl.head_groups for h in g] == list(range(pl.c))
+    assert all(len(g) * pl.r <= tcg.GROUP_COLS or len(g) == 1
+               for g in pl.head_groups)
+    assert pl.chunk in tcg.CHUNKS and pl.chunk <= 32
+    assert pl.chunk == tcg.chunk_for(pl.group, pl.r)
+    assert 1 <= pl.rows <= min(tcg.TILE_ROWS, pl.mk)
+    assert pl.stages in (0, 1, 2)
+    # the re-read route only where not even one row can be staged
+    assert (pl.stages == 0) == (4 * pl.d + 16 > tcg.SMEM_OPTIN)
+    assert 32 <= pl.threads <= tcg.THREADS and pl.threads % 32 == 0
+    assert pl.threads <= 32 * -(-pl.d // 32)
+    # splits x tiles cover mk, no split is empty
+    assert pl.tiles_per * (pl.splits - 1) < pl.tiles <= pl.tiles_per * pl.splits
+    assert pl.tiles_per * pl.rows * (pl.splits - 1) < pl.mk
+    assert 1 <= pl.splits <= 65535 and pl.N <= 65535
+    # one wave: never more blocks than the card holds at once, unless the
+    # workers alone are more
+    assert pl.blocks <= max(pl.N, sms * tcg.blocks_per_sm(pl.smem, pl.threads))
+
+
+@pytest.mark.parametrize("name", sorted(CG_SHAPES))
+@pytest.mark.parametrize("sms", [132, 114, 66])
+def test_coded_grad_plan_invariants(name, sms):
+    check_cg_plan(tcg.plan(*CG_SHAPES[name], sms=sms), sms)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_coded_grad_plan_fills_the_card_at_case1(sms):
+    """Case 1 (c = 1): two 8-row stages and the residues in shared memory,
+    two blocks an SM, and enough splits per worker that every SM holds a
+    block (an H100 SXM has 132 SMs, an H100 PCIe 114)."""
+    pl = tcg.plan(*CG_SHAPES["case1_c1_r1"], sms=sms)
+    assert (pl.rows, pl.stages, pl.part_smem) == (8, 2, True)
+    assert tcg.blocks_per_sm(pl.smem, pl.threads) == 2
+    assert sms <= pl.blocks <= 2 * sms
+    assert pl.blocks > 2 * sms - N1    # one more split would not fit
+
+
+def test_coded_grad_plan_many_heads_keep_residues_in_global_memory():
+    """At 33 heads d x c residues (207 KB) do not fit beside the ring: the
+    block keeps them in its slot, and the tile stays 8 rows x 2 stages."""
+    pl = tcg.plan(*CG_SHAPES["case1_c33_r1"])
+    assert not pl.part_smem and (pl.rows, pl.stages) == (8, 2)
+    assert [len(g) for g in pl.head_groups] == [32, 1]
+
+
+def fp_reduce_all(a, p):
+    return np.vectorize(lambda v: fp_reduce(int(v), p), otypes=[object])(a)
+
+
+def coded_grad_model(x, w, cbar, p, pl: tcg.Plan, fold_every: int):
+    """coded_grad.cu's arithmetic in Python ints, worker by worker: each
+    block's tiles; per head group, step 1 as each thread sums its columns
+    k ≡ t (mod threads) in uint64, folded every ``fold_every`` products,
+    then adds the threads' sums (raw where ``raw_sums``, else Barrett
+    residues) and reduces; step 2's heads with
+    Barrett products; step 3 adding ROW_BLOCK rows of products to each
+    residue before a Barrett; then the splits' residues summed and reduced.
+    Every uint64 is checked below 2^64 where it is largest."""
+    N, mk, d = x.shape
+    c, r = w.shape[2:]
+    c32 = (1 << 32) % p
+    fold = np.vectorize(lambda v: fp_fold(v, c32), otypes=[object])
+    cb = [int(v) for v in cbar]
+    raw = tcg.raw_sums(d, p) and fold_every == build.fold_every(p)
+    out = np.zeros((N, d, c), dtype=object)
+    for n in range(N):
+        xo = x[n].astype(object)
+        wo = w[n].reshape(d, c * r).astype(object)
+        slots = []
+        for s in range(pl.splits):
+            part = np.zeros((d, c), dtype=object)
+            for t in range(s * pl.tiles_per,
+                           min(pl.tiles, (s + 1) * pl.tiles_per)):
+                xt = xo[t * pl.rows:(t + 1) * pl.rows]
+                for g in pl.head_groups:
+                    cols = slice(g.start * r, g.stop * r)
+                    z = np.zeros((len(xt), len(g) * r), dtype=object)
+                    for k0 in range(min(pl.threads, d)):
+                        ks = np.arange(k0, d, pl.threads)
+                        acc = np.zeros_like(z)
+                        for q in range(0, len(ks), fold_every):
+                            if q:
+                                acc = fold(acc)
+                            kk = ks[q:q + fold_every]
+                            acc = acc + xt[:, kk] @ wo[kk, cols]
+                            assert max(acc.flat) < U64
+                        # raw: the threads' uint64 sums add unreduced
+                        z = z + (acc if raw else fp_reduce_all(acc, p))
+                        assert max(z.flat) < U64
+                    z = fp_reduce_all(z, p)
+                    z = z.reshape(len(xt), len(g), r)
+                    sv = np.full((len(xt), len(g)), cb[0], dtype=object)
+                    prod = None
+                    for e in range(1, r + 1):
+                        prod = z[..., 0] if e == 1 else \
+                            fp_reduce_all(prod * z[..., e - 1], p)
+                        sv = (sv + fp_reduce_all(cb[e] * prod, p)) % p
+                    for rb in range(0, len(xt), tcg.ROW_BLOCK):
+                        acc = (part[:, g.start:g.stop]
+                               + xt[rb:rb + tcg.ROW_BLOCK].T
+                               @ sv[rb:rb + tcg.ROW_BLOCK])
+                        assert max(acc.flat) < U64
+                        part[:, g.start:g.stop] = fp_reduce_all(acc, p)
+            slots.append(part)
+        out[n] = fp_reduce_all(sum(slots), p)
+    return out
+
+
+HEADS = [(1, 1), (10, 2), (33, 1), (17, 2), (1, 33)]
+
+
+def cg_inputs(p, c, r, inputs):
+    """Random inputs at a small shape on the plan's own launch, or
+    all-(p-1) inputs at the fold interval: 32 threads of L+1 columns each
+    (d = 32 L + 1, so thread 0 folds) and tiles of L+1 rows, split in two."""
+    if inputs == "random":
+        N, mk, d = 2, 19, 40
+        rng = np.random.default_rng(c * 100 + r)
+        x = rng.integers(0, p, (N, mk, d))
+        w = rng.integers(0, p, (N, d, c, r))
+        cbar = rng.integers(0, p, r + 1)
+        return x, w, cbar, tcg.plan(N, mk, d, c, r)
+    L = build.fold_every(p)
+    N, mk, d = 1, 2 * (L + 1) + 1, 32 * L + 1
+    x = np.full((N, mk, d), p - 1, np.int64)
+    w = np.full((N, d, c, r), p - 1, np.int64)
+    cbar = np.full(r + 1, p - 1, np.int64)
+    pl = tcg.fixed_plan(N, mk, d, c, r, rows=L + 1, stages=2, part_smem=True,
+                        threads=32, splits=2)
+    return x, w, cbar, pl
+
+
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("c,r", HEADS)
+@pytest.mark.parametrize("inputs", ["random", "p_minus_1_at_fold"])
+def test_coded_grad_model_bit_equal_reference(p, c, r, inputs):
+    """The model of the kernel equals the JAX reference's
+    ``coded_grad_mc_ref``, worker by worker, at c*r above the first
+    kernel's 32 and at r = 33.  All-(p-1) inputs at the fold interval run
+    only at P30 (L = 16; P's L = 76,825 columns a thread is too wide for
+    Python ints), with a random-shape all-(p-1) case at P."""
+    if inputs == "p_minus_1_at_fold" and p == jf.P:
+        x, w, cbar, pl = cg_inputs(p, c, r, "random")
+        x, w, cbar = np.full_like(x, p - 1), np.full_like(w, p - 1), \
+            np.full_like(cbar, p - 1)
+    else:
+        x, w, cbar, pl = cg_inputs(p, c, r, inputs)
+    check_cg_plan(pl, tcg.SMS) if inputs == "random" else None
+    got = coded_grad_model(x, w, cbar, p, pl, build.fold_every(p))
+    for n in range(x.shape[0]):
+        want = np.asarray(jref.coded_grad_mc_ref(
+            jnp.asarray(x[n], jnp.int32), jnp.asarray(w[n], jnp.int32),
+            jnp.asarray(cbar, jnp.int32), p))
+        assert np.array_equal(got[n].astype(np.int64), want.astype(np.int64))
+
+
+def test_coded_grad_model_catches_a_late_fold():
+    """The model is tight: folding one product later than L overflows at
+    the fold interval's all-(p-1) inputs."""
+    p = jf.P30
+    x, w, cbar, pl = cg_inputs(p, 1, 1, "p_minus_1_at_fold")
+    coded_grad_model(x, w, cbar, p, pl, build.fold_every(p))
+    with pytest.raises(AssertionError):
+        coded_grad_model(x, w, cbar, p, pl, build.fold_every(p) + 1)
+
+
+@pytest.mark.parametrize("d,p,raw", [(1568, jf.P, True), (76825, jf.P, True),
+                                     (76826, jf.P, False), (16, jf.P30, True),
+                                     (17, jf.P30, False)])
+def test_coded_grad_raw_sums_bound(d, p, raw):
+    """Step 1 sums a row's d products unreduced only while d (p-1)^2 stays
+    below 2^64 and no thread folds: Case 1 (d = 1568 at P) does."""
+    assert tcg.raw_sums(d, p) == raw
+    if raw:
+        assert d * (p - 1) ** 2 < U64 and d <= build.fold_every(p)

@@ -86,6 +86,12 @@ CASES = {
 }
 
 
+# More heads than the first CUDA kernel took (c*r > 32): held on the round
+# only, where the worker step runs all 33 heads.
+ROUND_CASES = {**CASES, "heads_c33": dict(cfg=dict(N=8, K=2, T=1, c=33),
+                                          m=131, d=12, drop=0)}
+
+
 def test_config_conversion_and_refusals():
     cj, ct = configs(N=8, K=2, T=1, c=3, batch_rows=5)
     assert (ct.threshold, ct.grad_scale) == (cj.threshold, cj.grad_scale)
@@ -116,12 +122,13 @@ def test_setup_bit_equal(case):
                                rtol=1e-6, atol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["binary", "multiclass_batch_drop"])
+@pytest.mark.parametrize("case", ["binary", "multiclass_batch_drop",
+                                  "heads_c33"])
 def test_teacher_forced_round_bit_equal(case):
     """The reference's state and w2 go across through convert; weight
     shares, all N worker results and the decoded parts are bit-equal, and
     the new w2 agrees within W_ATOL_ROUND."""
-    spec = CASES[case]
+    spec = ROUND_CASES[case]
     cj, ct = configs(**spec["cfg"])
     x, y = dataset(ct.c, spec["m"], spec["d"])
     key = jax.random.PRNGKey(9)
