@@ -17,7 +17,7 @@ iterating on a kernel); such a partial run prints no ok line.
             fold interval (K = L, L+1, 2L+1, also in one K-slice) and K-split
             edges (K = 4096, N = 1, 255, 16256), and ``modmatmul`` at the
             coded LM head's shapes (P30); ``coded_grad`` at Case 1 with
-            c = 1, 10 and 33 heads, c = 17 r = 2 and c = 5 r = 7 (c*r
+            c = 1, 10 and 33 heads, one socket worker's N = 1, c = 17 r = 2 and c = 5 r = 7 (c*r
             above 32), r = 33 with a random c̄, all-(p-1) inputs at P30
             with a thread's columns and the rows per tile at L-1, L, L+1
             (forced plans), and d = 60000 on the re-read route; the
@@ -54,6 +54,22 @@ iterating on a kernel); such a partial run prints no ok line.
   coded_head   ``serve --coded-head --kill-shard 2`` at full width, then
             the decoded field values bit-equal to (h_q @ w_q) mod p from
             the plain version
+  cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
+            Case 1 for 25 rounds under lognormal latencies with ``--pipeline
+            off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
+            10 rounds with a worker dead from round 3; each bit-identical to
+            train_reference over its responder trace, ``coded_grad``
+            launched once a round; round ms on the host clock, first-T and
+            wait-all waits on the simulated clock
+  socket    ``cpml_cluster --transport socket`` on the card, one worker
+            process per slot, each on cuda: Case 1 with all 40 workers for
+            25 rounds (``--pipeline full``), the N=8 fleet for 10 rounds with
+            worker 5 killed at round 4 and worker 3 sleeping 0.1 s before
+            each reply, and that straggler again with ``--collect-all``;
+            each bit-identical to train_reference, every live worker on
+            cuda with a ``coded_grad`` launch per round it answered; start-up
+            and provision seconds, median round wall time, first-T against
+            wait-all, wire bytes per round, peak device memory (nvidia-smi)
   summary   the {"kernels": [...]} line, then the card's name and power
             limit, then {"ok": true, "device": {...}} as the last line
 
@@ -106,7 +122,7 @@ CODED = dict(batch=4, prompt_len=16, gen=4, kill_shard=2)
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
 PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
-          "consistency", "coded_head")
+          "consistency", "coded_head", "cluster", "socket")
 
 
 def emit(obj) -> None:
@@ -286,6 +302,9 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
                          rand((5, 33, 10, 3), p), coeffs(3, p), None))
         cg_cases.append(("odd_N2_mk1_d1_c1_r1", p, rand((2, 1, 1), p),
                          rand((2, 1, 1, 1), p), coeffs(1, p), None))
+        # one socket worker's round: N = 1 at Case 1's share
+        cg_cases.append(("worker_N1_c1_r1", p, rand((1, mk, d), p),
+                         rand((1, d, 1, 1), p), coeffs(1, p), None))
         # more heads than the old kernel's 32 registers held (c*r > 32)
         cg_cases.append(("case1_c33_r1", p, rand((N, mk, d), p),
                          rand((N, d, 33, 1), p), coeffs(1, p), None))
@@ -343,16 +362,17 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
             "graph_ms": graph_ms(torch, lambda: mm.modmatmul(a, b, p), 20),
             "plain_ms": time_ms(torch, lambda: ref.modmatmul_ref(a, b, p), 3),
             "bound_ms": b_ms, "bound_by": b_by})
-    for c, r in ((1, 1), (10, 2)):
-        x, w = rand((N, mk, d), p), rand((N, d, c, r), p)
+    for n, c, r, case in ((N, 1, 1, "case1_c1_r1"), (N, 10, 2, "case1_c10_r2"),
+                          (1, 1, 1, "worker_N1_c1_r1")):
+        x, w = rand((n, mk, d), p), rand((n, d, c, r), p)
         cbar = coeffs(r, p)
-        nbytes = 4 * (N * mk * d + N * d * c * r + (r + 1) + N * d * c)
-        # N mk d (c r + c) multiply-adds of 32x32 -> 64 bits, two IMADs each
-        b_ms, b_by = bound(nbytes, 0, imad=2 * N * mk * d * (c * r + c))
-        pl = cg.plan(N, mk, d, c, r, sms=mm.sm_count(x.device))
+        nbytes = 4 * (n * mk * d + n * d * c * r + (r + 1) + n * d * c)
+        # n mk d (c r + c) multiply-adds of 32x32 -> 64 bits, two IMADs each
+        b_ms, b_by = bound(nbytes, 0, imad=2 * n * mk * d * (c * r + c))
+        pl = cg.plan(n, mk, d, c, r, sms=mm.sm_count(x.device))
         timings.append({
-            "kernel": "coded_grad", "case": f"case1_c{c}_r{r}",
-            "shape": [N, mk, d, c, r],
+            "kernel": "coded_grad", "case": case,
+            "shape": [n, mk, d, c, r],
             "launches_per_call": 1 + (pl.splits > 1),
             "ms": time_ms(torch, lambda: cg.coded_grad(x, w, cbar, p), 20),
             "graph_ms": graph_ms(torch, lambda: cg.coded_grad(x, w, cbar, p),
@@ -846,6 +866,205 @@ def phase_coded_head(torch, out_dir: Path) -> dict:
     return info
 
 
+# The cluster phases' configurations (PERF.md section 4): Case 1 has
+# R = (2r+1)(K+T-1)+1 = 40 = N, so no straggler slack; the N=8, K=2 fleet
+# (R = 7) has one worker of slack for the fault runs.
+SLACK = dict(N=8, K=2, T=1, m=CASE1["m"], d=CASE1["d"], iters=10)
+CLUSTER_RUNS = (
+    ("case1_lognormal_off", CASE1, ["--latency", "lognormal",
+                                    "--pipeline", "off"]),
+    ("case1_lognormal_full", CASE1, ["--latency", "lognormal",
+                                     "--pipeline", "full"]),
+    ("slack_dead", SLACK, ["--latency", "dead"]),
+)
+SOCKET_RUNS = (
+    ("case1_full", CASE1, ["--pipeline", "full"]),
+    ("slack_kill_straggle", SLACK, ["--kill-worker", "5", "--kill-at-round",
+                                    "4", "--straggle-worker", "3",
+                                    "--straggle-sleep", "0.1"]),
+    # the same straggler with every round held open to its last arrival:
+    # wait-for-all measured on the wall clock beside first-T
+    ("slack_straggle_collect_all", SLACK, ["--straggle-worker", "3",
+                                           "--straggle-sleep", "0.1",
+                                           "--collect-all"]),
+)
+
+
+def _cluster_argv(spec: dict, extra: list, out: Path) -> list:
+    return ["-N", str(spec["N"]), "-K", str(spec["K"]), "-T", str(spec["T"]),
+            "--m", str(spec["m"]), "--d", str(spec["d"]),
+            "--iters", str(spec["iters"]), "--seed", str(TRAIN_SEED),
+            "--device", "cuda", *extra, "--json-out", str(out)]
+
+
+def _run_cluster(torch, name: str, spec: dict, extra: list, out_dir: Path
+                 ) -> tuple[list, dict, dict]:
+    """``cpml_cluster.main`` with the launch counts reset just before and
+    read just after (the whole of ``main``: dataset encode, rounds,
+    replay, baseline); fails unless it exits 0 bit-identical to
+    train_reference.  The rounds' own counts are ``res["launches_run"]``,
+    taken around ``runner.run`` alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cpml_cluster
+
+    out = out_dir / f"cluster_{name}.json"
+    argv = _cluster_argv(spec, extra, out)
+    ops.reset_launches()
+    rc = cpml_cluster.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"cpml_cluster {name} exited {rc}")
+    res = json.loads(out.read_text())
+    if res["bit_identical"] is not True or res["device"] != "cuda":
+        raise AssertionError(f"cpml_cluster {name}: bit_identical "
+                             f"{res['bit_identical']} on {res['device']}")
+    return argv, res, launches
+
+
+def _waits(stats: dict) -> dict:
+    return {k: {q: stats[k][q] for q in ("mean", "p50", "p95")}
+            for k in ("coded_T", "wait_all", "encode", "decode",
+                      "critical_path")}
+
+
+def phase_cluster(torch, out_dir: Path) -> dict:
+    """``cpml_cluster`` in process on the card: Case 1 with lognormal
+    latencies, pipeline off and full, and the N=8 fleet with a worker dead
+    from round 3.  Each run is bit-identical to train_reference over its
+    trace and launches ``coded_grad`` once a round for all N workers."""
+    runs = {}
+    for name, spec, extra in CLUSTER_RUNS:
+        argv, res, launches = _run_cluster(torch, name, spec, extra, out_dir)
+        iters = spec["iters"]
+        info = {"phase": "cluster", "run": name, "argv": argv,
+                "launches_main": launches, "launches_run": res["launches_run"],
+                "round_ms_host": res["run_s"] / iters * 1e3,
+                "waits_simulated_s": _waits(res["wait_stats"]),
+                "acc_coded": res["acc_coded"],
+                "acc_baseline": res["acc_baseline"]}
+        emit(info)
+        if res["launches_run"]["coded_grad"] != iters:
+            raise AssertionError(f"cluster {name}: coded_grad launches "
+                                 f"{res['launches_run']} over {iters} rounds")
+        if res["launches_run"]["modmatmul"] < 2 * iters:
+            raise AssertionError(f"cluster {name}: modmatmul launches "
+                                 f"{res['launches_run']}")
+        runs[name] = info
+    return {"phase": "cluster", "runs": runs,
+            "launches": {k: sum(r["launches_run"][k] for r in runs.values())
+                         for k in runs[CLUSTER_RUNS[0][0]]["launches_run"]}}
+
+
+class _MemorySampler:
+    """Device memory in use (nvidia-smi, MiB), sampled on a thread: the
+    peak over a window that holds many worker processes' contexts."""
+
+    def __init__(self, period_s: float = 0.5):
+        import threading
+        self.peak_mib = 0
+        self.error = None
+        self._stop = threading.Event()
+        self._period = period_s
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                res = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30)
+            except (OSError, subprocess.TimeoutExpired) as e:
+                self.error = repr(e)
+                return
+            if res.returncode != 0 or not res.stdout.strip():
+                self.error = f"nvidia-smi exited {res.returncode}: {res.stderr}"
+                return
+            self.peak_mib = max(self.peak_mib, int(res.stdout.split()[0]))
+            self._stop.wait(self._period)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def phase_socket(torch, out_dir: Path) -> dict:
+    """``cpml_cluster --transport socket`` on the card: one worker process
+    per slot, each on cuda.  Case 1 with all 40 workers, the N=8 fleet with
+    worker 5 killed at round 4 and worker 3 straggling, and that straggler
+    again with every round held to its last arrival.  Each run is
+    bit-identical to train_reference; every live worker reports cuda, one
+    ``coded_grad`` launch in its warm-up and exactly one a round it
+    answered."""
+    st = statistics
+    runs = {}
+    for name, spec, extra in SOCKET_RUNS:
+        with _MemorySampler() as mem:
+            argv, res, launches = _run_cluster(
+                torch, name, spec, ["--transport", "socket", *extra], out_dir)
+        iters = spec["iters"]
+        reports = res["worker_reports"]
+        killed, kill_at = set(), None
+        if "--kill-worker" in extra:
+            killed = {int(extra[extra.index("--kill-worker") + 1])}
+            kill_at = int(extra[extra.index("--kill-at-round") + 1])
+        live = [r for r in reports if r["worker"] not in killed]
+        if sorted(r["worker"] for r in reports) != list(range(spec["N"])):
+            raise AssertionError(f"socket {name}: worker reports "
+                                 f"{[r['worker'] for r in reports]}")
+        for r in live:
+            if (not r["device"].startswith("cuda") or r["rounds"] < 1
+                    or r["launches"]["coded_grad"] != r["rounds"]
+                    or r["warmup_launches"]["coded_grad"] != 1):
+                raise AssertionError(f"socket {name}: worker {r['worker']} "
+                                     f"{r}")
+        if mem.peak_mib == 0:
+            raise AssertionError(f"socket {name}: no device memory reading "
+                                 f"from nvidia-smi ({mem.error})")
+        stats = res["wait_stats"]
+        info = {"phase": "socket", "run": name, "argv": argv,
+                "master_launches_main": launches,
+                "master_launches_run": res["launches_run"],
+                # the rounds' launches: the master's runner.run and every
+                # worker's rounds (warm-ups not counted)
+                "launches_run": {k: v + sum(r["launches"][k] for r in reports)
+                                 for k, v in res["launches_run"].items()},
+                "worker_rounds_answered": sum(r["rounds"] for r in reports),
+                "workers_connected_s": res["startup_s"],
+                "provision_s": res["provision_s"],
+                "worker_startup_s": {"median": st.median(
+                    r["startup_s"] for r in reports),
+                    "max": max(r["startup_s"] for r in reports)},
+                "worker_warmup_s": {"median": st.median(
+                    r.get("warmup_s", 0.0) for r in reports),
+                    "max": max(r.get("warmup_s", 0.0) for r in reports)},
+                "run_s": res["run_s"],
+                "round_ms_median": stats["critical_path"]["p50"] * 1e3,
+                "worker_compute_s": res["worker_compute_s"],
+                "waits_wall_s": _waits(stats),
+                "dead_rounds": stats["rounds"]["dead_rounds"],
+                "wire_bytes_per_round": {
+                    "tx": stats["wire_tx_bytes"]["mean"],
+                    "rx": stats["wire_rx_bytes"]["mean"]},
+                "wire_totals": stats.get("wire_totals"),
+                "device_memory_peak_mib": mem.peak_mib,
+                "survivors_last_round": res["survivors"][str(iters - 1)]}
+        emit(info)
+        for t, surv in res["survivors"].items():
+            if kill_at is not None and int(t) >= kill_at and killed & set(surv):
+                raise AssertionError(f"socket {name}: killed worker decoded "
+                                     f"in round {t}")
+        runs[name] = info
+    return {"phase": "socket", "runs": runs,
+            "launches": {k: sum(r["launches_run"][k] for r in runs.values())
+                         for k in runs[SOCKET_RUNS[0][0]]["launches_run"]}}
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase; print its seconds.  A failure propagates."""
     t0 = time.perf_counter()
@@ -923,7 +1142,9 @@ def main(argv: list[str] | None = None) -> int:
             ("serve", phase_serve, (torch, out_dir)),
             ("profile", phase_profile, (torch,)),
             ("consistency", phase_consistency, (torch,)),
-            ("coded_head", phase_coded_head, (torch, out_dir))):
+            ("coded_head", phase_coded_head, (torch, out_dir)),
+            ("cluster", phase_cluster, (torch, out_dir)),
+            ("socket", phase_socket, (torch, out_dir))):
         if name in phases:
             ran[name] = run_phase(name, fn, *args_)
             free()
@@ -961,7 +1182,9 @@ def main(argv: list[str] | None = None) -> int:
                     k: ran[v]["launches"][name]
                     for k, v in (("train", "train"), ("train_c33", "train_c33"),
                                  ("serve", "serve"),
-                                 ("serve_coded_head", "coded_head"))
+                                 ("serve_coded_head", "coded_head"),
+                                 ("cluster_inprocess", "cluster"),
+                                 ("cluster_socket", "socket"))
                     if v in ran}})
         emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

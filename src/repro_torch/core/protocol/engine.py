@@ -178,6 +178,65 @@ def round_fn(cfg: CPMLConfig, state: CPMLState, eta: float, draws
     return run
 
 
+def round_fn_split(cfg: CPMLConfig, state: CPMLState, eta: float
+                   ) -> Callable[..., torch.Tensor]:
+    """``round_fn`` with the W-independent encode half supplied by the caller.
+
+    Returns ``run(u, mask_shares, w2, dmat, order, batch_idx=None) -> w2``:
+    (u, mask_shares) come from ``round_mask_context`` for the same round,
+    built ahead of time (cluster/pipeline.py); the result is bit-identical
+    to ``round_fn``'s for that round.
+    """
+
+    def run(u: torch.Tensor, mask_shares: torch.Tensor, w2: torch.Tensor,
+            dmat: torch.Tensor, order: torch.Tensor,
+            batch_idx: torch.Tensor | None = None) -> torch.Tensor:
+        w_shares = encode.encode_weights_finish(cfg, u, mask_shares, w2)
+        parts = round_parts(cfg, state, w_shares, dmat, order, batch_idx)
+        return _update_from_parts(cfg, state, w2, parts, batch_idx, eta)
+
+    return run
+
+
+def update_from_parts_fn(cfg: CPMLConfig, state: CPMLState, eta: float
+                         ) -> Callable[..., torch.Tensor]:
+    """Decode-and-update hook for streamed rounds.
+
+    Returns ``run(w2, parts, batch_idx=None) -> w2`` where ``parts`` is the
+    (K, d, c) field output of ``decode.StreamingDecoder.finish`` (host
+    numpy): the same ``_update_from_parts`` the in-process round composes.
+    """
+
+    def run(w2: torch.Tensor, parts, batch_idx: torch.Tensor | None = None
+            ) -> torch.Tensor:
+        parts = torch.as_tensor(parts, dtype=torch.int32, device=w2.device)
+        return _update_from_parts(cfg, state, w2, parts, batch_idx, eta)
+
+    return run
+
+
+def round_mask_context(cfg: CPMLConfig, draws, t: int,
+                       w_shape: tuple[int, ...]
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The W-independent half of round t's weight encode.
+
+    Round t's draws (uniforms and the T fresh masks) and the masks' encoded
+    contribution (N, *w_shape, r).  Returns ``(u, mask_shares)`` for
+    ``encode_round_shares_split``; a pipelined master builds it while round
+    t-1 is still in flight.
+    """
+    u, masks = draws.round(t, (*w_shape, cfg.r), cfg.T, cfg.p)
+    return u, encode.weight_mask_shares(cfg, masks)
+
+
+def encode_round_shares_split(cfg: CPMLConfig, u: torch.Tensor,
+                              mask_shares: torch.Tensor, w2: torch.Tensor
+                              ) -> torch.Tensor:
+    """The W-dependent half: bit-identical to ``encode_round_shares`` when
+    (u, mask_shares) came from ``round_mask_context`` for the same round."""
+    return encode.encode_weights_finish(cfg, u, mask_shares, w2)
+
+
 def update_fn(cfg: CPMLConfig, state: CPMLState, eta: float
               ) -> Callable[..., torch.Tensor]:
     """Returns ``run(w2, fastest, dmat, batch_idx=None) -> w2`` for worker

@@ -47,3 +47,10 @@ def dequantize(x: torch.Tensor, l: int, p: int = field.P) -> torch.Tensor:
 def gradient_scale(lx: int, lw: int, r: int) -> int:
     """Fixed-point scale of the decoded gradient, l = lx + r(lx+lw)."""
     return lx + r * (lx + lw)
+
+
+def wire_itemsize(p: int = field.P) -> int:
+    """Bytes per element that carry F_p losslessly, ceil(bits(p-1) / 8): 3
+    for the 24-bit P, 4 for P30.  Wire v2's PACKED encoding narrows int32
+    payloads to this width (cluster/wire.py)."""
+    return max(1, ((p - 1).bit_length() + 7) // 8)

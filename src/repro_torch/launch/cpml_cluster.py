@@ -1,0 +1,534 @@
+"""Coded cluster driver on torch: simulated or real multi-process run.
+
+    python -m repro_torch.launch.cpml_cluster --latency lognormal --iters 25
+    python -m repro_torch.launch.cpml_cluster --latency dead --round-timeout 60
+    python -m repro_torch.launch.cpml_cluster --pipeline full
+    python -m repro_torch.launch.cpml_cluster --transport socket --iters 10
+    python -m repro_torch.launch.cpml_cluster --transport socket \\
+        --kill-worker 5 --kill-at-round 4 --straggle-worker 3
+    python -m repro_torch.launch.cpml_cluster --device cpu --m 300 --d 24
+
+Mirrors ``repro/launch/cpml_cluster.py`` for ``--protocol cpml --engine
+exact``: CodedPrivateML training through the cluster runtime
+(repro_torch.cluster), per-round dispatch to N workers, decode at the
+fastest ``threshold`` responders, and what the wait-for-fastest-T policy
+saved over wait-for-all.
+
+``--transport inprocess`` (default) is the event-driven simulation under a
+``--latency`` profile, the whole round computed on the master's device.
+``--transport socket`` spawns N worker processes
+(``repro_torch.launch.cpml_worker``, each on ``--device``) on localhost,
+ships coded shares as wire frames over TCP, and decodes from the bytes the
+fastest responders sent.  On CUDA the kernels are built once before any
+worker starts.
+
+Either way the run ends by checking that the weights are bit-identical to
+``train_reference`` replaying the observed responder trace with the same
+draws, on the same device.  Runs on CUDA unless ``--device cpu``.
+
+Not ported, refused with exit 2: ``--protocol mpc`` (ROADMAP.md queue 1
+item 7), ``--engine alcc`` and ``--model mlp`` (item 9), ``--masters > 1``
+(item 6, ``master_group``) and ``--resilient`` (item 10,
+``checkpoint/manager.py``).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+_SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="CodedPrivateML cluster driver "
+                                 "(PyTorch/CUDA)")
+    ap.add_argument("--protocol", choices=("cpml", "mpc"), default="cpml",
+                    help="mpc (the BGW baseline) is not ported yet")
+    ap.add_argument("--engine", choices=("exact", "alcc"), default="exact",
+                    help="alcc (the float engine) is not ported yet")
+    ap.add_argument("--model", choices=("logreg", "mlp"), default="logreg",
+                    help="mlp (ALCC only) is not ported yet")
+    ap.add_argument("--workers", "-N", type=int, default=8)
+    ap.add_argument("--parallel", "-K", type=int, default=2)
+    ap.add_argument("--privacy", "-T", type=int, default=1)
+    ap.add_argument("--degree", "-r", type=int, default=1)
+    ap.add_argument("--classes", "-c", type=int, default=1)
+    ap.add_argument("--m", type=int, default=2000, help="samples")
+    ap.add_argument("--d", type=int, default=128, help="features")
+    ap.add_argument("--iters", type=int, default=25)
+    ap.add_argument("--batch-rows", type=int, default=None)
+    ap.add_argument("--transport", choices=("inprocess", "socket"),
+                    default="inprocess",
+                    help="inprocess = event-driven simulation; socket = "
+                         "spawn N real worker processes on localhost")
+    ap.add_argument("--pipeline", choices=("off", "prefetch", "streaming",
+                                           "full"),
+                    default="off",
+                    help="overlap master-side coding with in-flight worker "
+                         "compute: prefetch = next round's draws, mask "
+                         "shares, batch and decode plan built during the "
+                         "wait; streaming = fold results into the decode as "
+                         "they arrive; full = both.  Bit-identical to off")
+    ap.add_argument("--encode-cost-s", type=float, default=0.0,
+                    help="modeled master encode seconds per round charged "
+                         "to the simulated clock (inprocess only)")
+    ap.add_argument("--decode-cost-s", type=float, default=0.0,
+                    help="modeled master decode seconds per round "
+                         "(inprocess only)")
+    ap.add_argument("--latency", choices=("deterministic", "lognormal",
+                                          "bursty", "dead"),
+                    default="lognormal",
+                    help="per-worker latency profile (inprocess only)")
+    ap.add_argument("--latency-seed", type=int, default=0)
+    ap.add_argument("--round-timeout", type=float, default=math.inf,
+                    help="seconds before a round is declared starved "
+                         "(60 simulated seconds for --latency dead, 120 wall "
+                         "seconds for --transport socket unless given)")
+    ap.add_argument("--resilient", action="store_true",
+                    help="not ported yet (needs checkpoint/manager.py)")
+    ap.add_argument("--masters", type=int, default=1,
+                    help="only 1: the sharded master is not ported yet")
+    ap.add_argument("--spares", type=int, default=0,
+                    help="pre-encode this many spare Lagrange evaluation "
+                         "points beyond N for elastic joins")
+    ap.add_argument("--join-at-round", type=int, default=None,
+                    help="admit one extra worker at this round's fence "
+                         "(socket: a real late-joiner process; inprocess: a "
+                         "scheduled join); implies --spares 1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="master TCP port (0 = ephemeral)")
+    ap.add_argument("--kill-worker", type=int, default=None,
+                    help="crash this worker index mid-run (socket only)")
+    ap.add_argument("--kill-at-round", type=int, default=4,
+                    help="round at which --kill-worker crashes")
+    ap.add_argument("--straggle-worker", type=int, default=None,
+                    help="make this worker sleep before every reply "
+                         "(socket only)")
+    ap.add_argument("--straggle-sleep", type=float, default=0.25)
+    ap.add_argument("--collect-all", action="store_true",
+                    help="keep each round open until every dispatched "
+                         "worker responds, so wait-for-all is measured on "
+                         "the real clock (socket only)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=math.inf,
+                    help="wall seconds of heartbeat silence before a worker "
+                         "drops from the dispatch set (socket only)")
+    ap.add_argument("--wire", choices=("v1", "v2"), default="v2",
+                    help="wire protocol version of the master and the "
+                         "spawned workers")
+    ap.add_argument("--no-verify", action="store_true",
+                    help="skip the bit-identity check against "
+                         "train_reference")
+    ap.add_argument("--seed", type=int, default=7,
+                    help="seed of the protocol's draws (masks, uniforms, "
+                         "batches)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the master's device and every spawned worker's")
+    ap.add_argument("--json-out", type=str, default=None)
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="record a flight trace and write Chrome trace-event "
+                         "JSON here; also prints a terminal waterfall and "
+                         "the straggler attribution")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    help="write the metrics registry here (*.json: JSON "
+                         "snapshot, else the Prometheus textfile format)")
+    return ap
+
+
+def _worker_env() -> dict[str, str]:
+    """Environment of a spawned worker: this tree on PYTHONPATH, and one
+    host thread each, since the N workers share one host."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def spawn_worker(port: int, w: int, *, env: dict[str, str] | None = None,
+                 wire_version: int = 2, die_at_round: int | None = None,
+                 sleep_s: float | None = None,
+                 join_at_round: int | None = None,
+                 device: str = "cuda",
+                 stdout=None) -> subprocess.Popen:
+    """Start one ``repro_torch.launch.cpml_worker`` process for slot ``w``
+    against the master listening on ``port``."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.cpml_worker",
+           "--host", "127.0.0.1", "--port", str(port),
+           "--worker", str(w), "--wire", str(wire_version),
+           "--device", device]
+    if die_at_round is not None:
+        cmd += ["--die-at-round", str(die_at_round)]
+    if sleep_s is not None:
+        cmd += ["--sleep-s", str(sleep_s)]
+    if join_at_round is not None:
+        cmd += ["--join-at-round", str(join_at_round)]
+    return subprocess.Popen(cmd, stdout=stdout,
+                            env=env if env is not None else _worker_env())
+
+
+@contextlib.contextmanager
+def local_socket_cluster(n_workers: int, *, port: int = 0,
+                         die_at_round: dict[int, int] | None = None,
+                         sleep_s: dict[int, float] | None = None,
+                         join_at_round: dict[int, int] | None = None,
+                         connect_timeout_s: float = 180.0,
+                         poll_interval_s: float = 0.02,
+                         wire_version: int = 2,
+                         device: str = "cuda",
+                         reports: list | None = None):
+    """Spawn N worker processes against a fresh master transport.
+
+    Yields the master ``SocketTransport`` once every worker has connected
+    (``tr.startup_s``: seconds from the first spawn to the last HELLO).  On
+    CUDA the kernels are built first, once, so the workers only load them.
+    On exit the transport is closed (each worker leaves its serve loop) and
+    the processes are reaped; with ``reports`` given, each worker's stdout
+    is captured and its JSON report line appended there.
+    """
+    from repro_torch.cluster.messages import worker_endpoint
+    from repro_torch.cluster.socket_transport import SocketTransport
+
+    if device == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()
+    env = _worker_env()
+    out = subprocess.PIPE if reports is not None else None
+    tr = SocketTransport.master(port=port, poll_interval_s=poll_interval_s,
+                                wire_version=wire_version)
+    procs: list[subprocess.Popen] = []
+    tr.procs = procs
+    try:
+        t0 = time.monotonic()
+        for w in range(n_workers):
+            procs.append(spawn_worker(
+                tr.port, w, env=env, wire_version=wire_version,
+                die_at_round=(die_at_round or {}).get(w),
+                sleep_s=(sleep_s or {}).get(w), device=device, stdout=out))
+        for w, at_round in (join_at_round or {}).items():
+            procs.append(spawn_worker(tr.port, w, env=env,
+                                      wire_version=wire_version,
+                                      join_at_round=at_round, device=device,
+                                      stdout=out))
+        expect = [*range(n_workers), *(join_at_round or {})]
+        tr.wait_for_endpoints([worker_endpoint(w) for w in expect],
+                              timeout_s=connect_timeout_s)
+        tr.startup_s = time.monotonic() - t0
+        yield tr
+    finally:
+        tr.close()
+        deadline = time.monotonic() + 30.0
+        for p in procs:
+            try:
+                text, _ = p.communicate(
+                    timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+            if reports is not None and text:
+                for line in text.decode(errors="replace").splitlines():
+                    if line.startswith("{"):
+                        reports.append(json.loads(line))
+
+
+def _recorder_for(args):
+    if args.trace_out is None:
+        return None
+    from repro_torch.obs.trace import Recorder
+    return Recorder()
+
+
+def _emit_obs(args, runner, threshold: int) -> None:
+    """Post-run outputs: trace file, waterfall, straggler attribution,
+    metrics dump."""
+    if args.trace_out:
+        from repro_torch.obs.export import (straggler_report, waterfall,
+                                            write_chrome_trace)
+        obj = write_chrome_trace(runner.obs, args.trace_out)
+        pids = {e.get("pid") for e in obj["traceEvents"]}
+        print(f"trace: {len(obj['traceEvents'])} events / {len(pids)} "
+              f"process(es) -> {args.trace_out}")
+        print(waterfall(runner.obs))
+        text, _ = straggler_report(runner.traces, threshold)
+        print(text)
+    if args.metrics_out:
+        runner.metrics.write(args.metrics_out)
+        print(f"metrics -> {args.metrics_out}")
+
+
+def _validate(args) -> str | None:
+    """The flags this port refuses: one sentence naming the ROADMAP item,
+    or None when the run is possible."""
+    if args.protocol == "mpc":
+        return ("--protocol mpc (the BGW baseline) is not ported yet: "
+                "ROADMAP.md queue 1 item 7")
+    if args.engine == "alcc":
+        return ("--engine alcc (the ALCC float engine) is not ported yet: "
+                "ROADMAP.md queue 1 item 9")
+    if args.model == "mlp":
+        return ("--model mlp (ALCC's coded MLP) is not ported yet: "
+                "ROADMAP.md queue 1 item 9")
+    if args.masters != 1:
+        return ("--masters > 1 (cluster/master_group.py) is not ported yet: "
+                "ROADMAP.md queue 1 item 6")
+    if args.resilient:
+        return ("--resilient needs checkpoint/manager.py, which is not "
+                "ported yet: ROADMAP.md queue 1 item 10")
+    return None
+
+
+def _timed_run(runner, iters: int, dev, out: dict):
+    """``runner.run(iters)``: its seconds on the host clock, synchronised
+    (``out["run_s"]``), and the kernel launches it made in this process
+    (``out["launches_run"]``)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    w = runner.run(iters)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["run_s"] = time.perf_counter() - t0
+    out["launches_run"] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    return w
+
+
+def _run_socket(args, cfg, x, y, draws, dev, out: dict):
+    """--transport socket: N real worker processes, wire frames, wall clock."""
+    from repro_torch.cluster.runner import ClusterRunner, wait_summary
+
+    die = ({args.kill_worker: args.kill_at_round}
+           if args.kill_worker is not None else None)
+    sleep = ({args.straggle_worker: args.straggle_sleep}
+             if args.straggle_worker is not None else None)
+    timeout = args.round_timeout
+    if math.isinf(timeout):
+        timeout = 120.0         # real silence must be detectable
+    wv = int(args.wire[1:])
+    spares = args.spares
+    join = None
+    if args.join_at_round is not None:
+        spares = max(spares, 1)
+        join = {cfg.N: args.join_at_round}      # first spare slot
+    reports: list[dict] = []
+    with local_socket_cluster(cfg.N, port=args.port, die_at_round=die,
+                              sleep_s=sleep, join_at_round=join,
+                              wire_version=wv, device=dev.type,
+                              reports=reports) as tr:
+        print(f"{cfg.N + len(join or {})} worker processes connected in "
+              f"{tr.startup_s:.1f}s")
+        runner = ClusterRunner(cfg, x, y, latency=None, transport=tr,
+                               draws=draws, device=dev,
+                               round_timeout_s=timeout,
+                               heartbeat_timeout_s=args.heartbeat_timeout,
+                               collect_all=args.collect_all,
+                               pipeline=args.pipeline, spares=spares,
+                               recorder=_recorder_for(args))
+        runner.provision(timeout_s=300.0)
+        provision_s = runner.metrics.gauge("cpml_provision_seconds").value
+        print(f"provisioned in {provision_s:.1f}s (shares shipped, every "
+              f"worker's warm-up round done)")
+        w = _timed_run(runner, args.iters, dev, out)
+        runner.shutdown_workers()
+    # each result's compute_s: the worker's seconds from taking the share
+    # off its queue to sending the result (a straggler's sleep included)
+    compute_s = [v for tr_ in runner.traces.values()
+                 for v in tr_.latencies.values() if math.isfinite(v)]
+    out.update(startup_s=tr.startup_s, provision_s=provision_s,
+               worker_compute_s=wait_summary(compute_s),
+               worker_reports=sorted(reports, key=lambda r: r["worker"]))
+    print(f"socket run: {args.iters} rounds over TCP in {out['run_s']:.2f}s "
+          f"({out['run_s'] / args.iters * 1e3:.1f} ms/round)")
+    stats = runner.wait_stats()
+    if "wire_totals" in stats:
+        tot, per = stats["wire_totals"], stats["wire_tx_bytes"]
+        print(f"wire [{args.wire}]: {tot['tx_bytes'] / 1e6:.2f} MB tx / "
+              f"{tot['rx_bytes'] / 1e6:.2f} MB rx total "
+              f"({per['mean'] / 1e3:.1f} kB/round tx, "
+              f"{stats['wire_rx_bytes']['mean'] / 1e3:.1f} kB/round rx, "
+              f"{int(tot['tx_frames'])} frames out)")
+    devices = sorted({r["device"] for r in reports})
+    print(f"worker reports: {len(reports)}, devices {devices}, coded_grad "
+          f"launches {[r['launches']['coded_grad'] for r in out['worker_reports']]}")
+    if die:
+        dead = set(die)
+        late = [t for t, rec in runner.records.items()
+                if dead & set(map(int, rec.survivors))]
+        print(f"killed worker(s) {sorted(dead)} at round "
+              f"{args.kill_at_round}: last decoded in round "
+              f"{max(late) if late else '-'}; first-T decode rode through")
+    return runner, w
+
+
+def _run_inprocess(args, cfg, x, y, draws, dev, out: dict):
+    """--transport inprocess: the simulation, whole rounds on the master."""
+    from repro_torch.cluster.latency import make_latency
+    from repro_torch.cluster.runner import ClusterRunner
+
+    latency = make_latency(args.latency, seed=args.latency_seed)
+    timeout = args.round_timeout
+    if args.latency == "dead" and math.isinf(timeout):
+        timeout = 60.0          # a dead worker must be detectable
+    spares = args.spares
+    join_schedule = None
+    if args.join_at_round is not None:
+        spares = max(spares, 1)
+        join_schedule = {cfg.N: args.join_at_round}  # first spare slot
+    runner = ClusterRunner(cfg, x, y, latency, draws=draws, device=dev,
+                           round_timeout_s=timeout,
+                           heartbeat_timeout_s=args.heartbeat_timeout,
+                           pipeline=args.pipeline,
+                           encode_cost_s=args.encode_cost_s,
+                           decode_cost_s=args.decode_cost_s,
+                           spares=spares, join_schedule=join_schedule,
+                           recorder=_recorder_for(args))
+    w = _timed_run(runner, args.iters, dev, out)
+    print(f"in-process run: {args.iters} rounds in {out['run_s']:.3f}s "
+          f"({out['run_s'] / args.iters * 1e3:.2f} ms/round, host clock, "
+          f"{dev})")
+    return runner, w
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    refusal = _validate(args)
+    if refusal is not None:
+        print(refusal, file=sys.stderr)
+        return 2
+
+    import numpy as np
+    import torch
+
+    from repro_torch import device as _device
+    from repro_torch.core import protocol
+    from repro_torch.data import synthetic
+
+    try:
+        dev = _device.resolve(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    cfg = protocol.CPMLConfig(N=args.workers, K=args.parallel,
+                              T=args.privacy, r=args.degree, c=args.classes,
+                              batch_rows=args.batch_rows)
+    mode = (args.latency if args.transport == "inprocess"
+            else f"socket x{cfg.N} procs")
+    print(f"CPML cluster [exact]: N={cfg.N} K={cfg.K} T={cfg.T} r={cfg.r} "
+          f"c={cfg.c} threshold={cfg.threshold} [{mode}] device={dev}")
+    if cfg.c == 1:
+        x_np, y_np = synthetic.mnist_like(1, m=args.m, d=args.d, margin=12.0)
+    else:
+        x_np, y_np = synthetic.multiclass_mnist_like(1, m=args.m, d=args.d,
+                                                     c=cfg.c)
+    x = torch.as_tensor(x_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    draws = protocol.TorchDraws(args.seed, dev)
+
+    out: dict = {}
+    if args.transport == "socket":
+        runner, w = _run_socket(args, cfg, x, y, draws, dev, out)
+    else:
+        runner, w = _run_inprocess(args, cfg, x, y, draws, dev, out)
+
+    rc = 0
+    same = None
+    if not args.no_verify:
+        # runner.cfg is the spare-extended config when elastic: the replay
+        # runs the same N + spares scheme over the observed trace
+        w_ref, _ = protocol.train_reference(
+            runner.cfg, x, y, args.iters, eta=runner.eta,
+            survivor_fn=runner.survivor_fn(), draws=draws, device=dev)
+        same = bool(torch.equal(w, w_ref))
+        print(f"bit-identical to train_reference over the observed "
+              f"responder trace: {same}")
+        if not same:
+            rc = 1
+
+    _emit_obs(args, runner, cfg.threshold)
+    stats = runner.wait_stats()
+    memb = stats["membership"]
+    if memb["joins"] or memb["leaves"]:
+        print(f"membership: epoch {int(memb['epoch'])}, "
+              f"{int(memb['members'])} member(s) "
+              f"({int(memb['joins'])} join(s), {int(memb['leaves'])} "
+              f"leave(s), {int(memb['spares_left'])} spare(s) left)")
+    coded, allw = stats["coded_T"], stats["wait_all"]
+    print(f"per-round wait  coded-T: mean {coded['mean']:.4f}s  "
+          f"p50 {coded['p50']:.4f}s  p95 {coded['p95']:.4f}s")
+    cp, enc, dec = stats["critical_path"], stats["encode"], stats["decode"]
+    print(f"per-round critical path [{args.pipeline}]: mean {cp['mean']:.4f}s "
+          f"= encode {enc['mean']:.4f}s + wait + decode {dec['mean']:.4f}s  "
+          f"({int(stats['rounds']['prefetched'])} prefetched, "
+          f"{int(stats['rounds']['streamed'])} streamed rounds)")
+    unobserved = int(stats["rounds"]["dead_rounds"])
+    if allw["total"] > 0:
+        print(f"per-round wait wait-all: mean {allw['mean']:.4f}s  "
+              f"p50 {allw['p50']:.4f}s  p95 {allw['p95']:.4f}s")
+    if unobserved and args.transport == "socket" and not args.collect_all:
+        print("(wait-for-all unobserved in first-T mode: the master moved "
+              "on at the threshold-th arrival every round; rerun with "
+              "--collect-all to measure it)")
+    elif unobserved:
+        print(f"({unobserved} round(s) had a dead worker: wait-for-all "
+              f"would never complete; wait-all stats cover the "
+              f"{int(stats['rounds']['n']) - unobserved} finite rounds)")
+    if unobserved == 0 and allw["total"] > 0:
+        word = "wall" if args.transport == "socket" else "simulated"
+        print(f"{word} training time: {coded['total']:.3f}s coded-T vs "
+              f"{allw['total']:.3f}s wait-all "
+              f"({allw['total'] / coded['total']:.2f}x speedup)")
+
+    # accuracy against the cleartext quantized baseline, same step count
+    wc, xq = protocol.cleartext_baseline(cfg, x, y, args.iters)
+    metric = (protocol.loss_and_accuracy if cfg.c == 1
+              else protocol.multiclass_loss_and_accuracy)
+    _, acc = metric(w, xq, y)
+    _, acc_ref = metric(wc, xq, y)
+    print(f"accuracy: coded {float(acc):.2%} vs cleartext baseline "
+          f"{float(acc_ref):.2%}")
+
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(_json_finite({
+                "config": {"N": cfg.N, "K": cfg.K, "T": cfg.T, "r": cfg.r,
+                           "c": cfg.c, "m": args.m, "d": args.d,
+                           "batch_rows": cfg.batch_rows,
+                           "spares": args.spares,
+                           "transport": args.transport,
+                           "pipeline": args.pipeline,
+                           "latency": (args.latency
+                                       if args.transport == "inprocess"
+                                       else None),
+                           "iters": args.iters},
+                "device": str(dev),
+                "bit_identical": same,
+                "survivors": {int(t): np.asarray(r.survivors).tolist()
+                              for t, r in sorted(runner.records.items())},
+                "wait_stats": stats,
+                "acc_coded": float(acc),
+                "acc_baseline": float(acc_ref), **out}), f, indent=2)
+    return rc
+
+
+def _json_finite(obj):
+    """inf/nan -> null recursively (strict JSON has no Infinity)."""
+    if isinstance(obj, dict):
+        return {k: _json_finite(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_finite(v) for v in obj]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return None
+    return obj
+
+
+if __name__ == "__main__":
+    sys.exit(main())

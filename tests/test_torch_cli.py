@@ -1,4 +1,5 @@
 """The port's CLI and its import hygiene, in subprocesses."""
+import json
 import os
 import subprocess
 import sys
@@ -54,11 +55,15 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'repro' or k.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "for m in ('cluster.runner', 'cluster.socket_transport',\n"
+        "          'launch.cpml_worker', 'launch.cpml_cluster',\n"
+        "          'obs.export', 'runtime.resilience'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "n = sum(1 for k in sys.modules if k.startswith('repro_torch.'))\n"
         "print('modules', n)\n")
     res = run(["-c", code])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15
+    assert int(res.stdout.split()[-1]) >= 63
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_no_result():
@@ -67,3 +72,74 @@ def test_chip_smoke_without_cuda_exits_nonzero_and_prints_no_result():
     res = run(["chip_smoke.py"])
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+CLUSTER_SMALL = ["--device", "cpu", "--m", "200", "--d", "12", "--iters", "4"]
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--protocol", "mpc"], "queue 1 item 7"),
+    (["--engine", "alcc"], "queue 1 item 9"),
+    (["--model", "mlp"], "queue 1 item 9"),
+    (["--masters", "2"], "queue 1 item 6"),
+    (["--resilient"], "queue 1 item 10"),
+])
+def test_cpml_cluster_refuses_unported_flags(flags, item):
+    res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
+               *flags])
+    assert res.returncode == 2
+    assert "not ported" in res.stderr and item in res.stderr
+
+
+def test_cpml_cluster_needs_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    for module in ("repro_torch.launch.cpml_cluster",
+                   "repro_torch.launch.cpml_worker"):
+        extra = ["--port", "1", "--worker", "0"] if "worker" in module else []
+        res = run(["-m", module, *extra])
+        assert res.returncode == 2, (module, res.stderr)
+        assert "CUDA is not available" in res.stderr
+
+
+@pytest.mark.parametrize("latency,pipeline", [("lognormal", "full"),
+                                              ("dead", "off")])
+def test_cpml_cluster_inprocess_cpu_smoke(tmp_path, latency, pipeline):
+    out = tmp_path / "c.json"
+    res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
+               "--latency", latency, "--pipeline", pipeline,
+               "--json-out", str(out)])
+    assert res.returncode == 0, res.stderr
+    assert "bit-identical to train_reference over the observed " \
+           "responder trace: True" in res.stdout
+    res_json = json.loads(out.read_text())
+    assert res_json["bit_identical"] is True
+    assert res_json["device"] == "cpu"
+
+
+@pytest.mark.slow
+def test_cpml_cluster_socket_cpu_smoke(tmp_path):
+    """N=5 worker processes on the CPU, worker 4 killed at round 2 and
+    worker 1 straggling: every live worker reports the CPU and the rounds
+    it answered, and the run is bit-identical to train_reference."""
+    out = tmp_path / "s.json"
+    res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
+               "-N", "5", "-K", "1", "--transport", "socket",
+               "--pipeline", "full", "--kill-worker", "4",
+               "--kill-at-round", "2", "--straggle-worker", "1",
+               "--straggle-sleep", "0.05", "--json-out", str(out)])
+    assert res.returncode == 0, res.stderr
+    got = json.loads(out.read_text())
+    assert got["bit_identical"] is True
+    reports = {r["worker"]: r for r in got["worker_reports"]}
+    assert sorted(reports) == list(range(5))
+    assert reports[4]["exit"] == "die_at_round 2"
+    for w in range(4):
+        assert reports[w]["device"] == "cpu"
+        assert reports[w]["exit"] in ("shutdown", "hangup")
+        assert reports[w]["rounds"] >= 1
+        # the plain version on the CPU: no kernel launch, warm-up or round
+        for counts in (reports[w]["launches"], reports[w]["warmup_launches"]):
+            assert set(counts) == {"coded_grad", "modmatmul",
+                                   "selective_scan"}
+            assert set(counts.values()) == {0}
