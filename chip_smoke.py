@@ -26,7 +26,9 @@ iterating on a kernel); such a partial run prints no ok line.
             served, dt f32, x f32, non-zero h0), S = 1, S = 33, di = 8200,
             n in {1, 3, 4, 16} with di not a multiple of the block's
             channels (and rows not 16-byte aligned), B 1 x di 96 and
-            S = 8192; and times each main-path shape (CUDA events; the
+            S = 8192; ``modmatmul`` at the BGW baseline's two local
+            products at Case 1 in both orientations; and times each
+            main-path shape (CUDA events; the
             field kernels also replayed from a CUDA graph, the device's time
             without the host's launch cost) beside its plain version and
             its bound
@@ -70,6 +72,25 @@ iterating on a kernel); such a partial run prints no ok line.
             cuda with a ``coded_grad`` launch per round it answered; start-up
             and provision seconds, median round wall time, first-T against
             wait-all, wire bytes per round, peak device memory (nvidia-smi)
+  mpc       ``cpml_cluster --protocol mpc`` in process on the card at
+            Case 1 (N=40, T=1) for 10 rounds: bit-identical to the
+            single-host ``mpc_baseline.train``, ``modmatmul`` launched
+            exactly twice per worker a round and nothing else; then one
+            more runner's rounds under torch.profiler (device ms a round)
+            and its peak device memory
+  mpc_socket  ``cpml_cluster --protocol mpc --transport socket``: 40 worker
+            processes at Case 1 for 10 rounds, then N=8 with worker 3
+            sleeping 0.1 s before each phase; each bit-identical to the
+            oracle, every worker on cuda with two ``modmatmul`` launches
+            a round and two in its warm-up; provisioning seconds and
+            bytes, median round, wire bytes a round, peak device memory,
+            and ``speedup_vs_mpc`` against the socket phase's Case 1 round
+  resilient ``cpml_cluster --resilient`` at N=8, K=2, T=1 with Case 1's m
+            and d: in process with two workers dead from round 3, then
+            over sockets with workers 0 and 1 crashing at round 4; each
+            restarts at least once and is bit-identical to
+            train_reference, and over sockets the respawned processes run
+            on cuda
   summary   the {"kernels": [...]} line, then the card's name and power
             limit, then {"ok": true, "device": {...}} as the last line
 
@@ -122,7 +143,8 @@ CODED = dict(batch=4, prompt_len=16, gen=4, kill_shard=2)
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
 PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
-          "consistency", "coded_head", "cluster", "socket")
+          "consistency", "coded_head", "cluster", "socket", "mpc",
+          "mpc_socket", "resilient")
 
 
 def emit(obj) -> None:
@@ -414,6 +436,58 @@ def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
             "plain_ms": time_ms(torch, lambda: ref.modmatmul_ref(a, b, p), 1),
             "bound_ms": b_ms, "bound_by": b_by})
         emit({"phase": "kernels", "timing": timings[-1]})
+    return timings
+
+
+def phase_kernels_mpc(torch, checks: Checks) -> list[dict]:
+    """``modmatmul`` at the BGW baseline's two local products at Case 1,
+    one worker's whole-dataset share X̄ (m x d), in both orientations:
+    z = X̄·w̄ as (m x d)·(d x 1) and as w̄ᵀ·X̄ᵀ, (1 x d)·(d x m) (the port's),
+    g = X̄ᵀ·s as (d x m)·(m x 1) and as sᵀ·X̄, (1 x m)·(m x d) (the port's).
+    Bit-equal at both primes, then timed at P against the byte bound."""
+    from repro_torch.core import field
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import modmatmul as mm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m, d = CASE1["m"], CASE1["d"]
+    timings = []
+    for p in (field.P, field.P30):
+        def rand(shape):
+            return torch.randint(0, p, shape, generator=gen,
+                                 dtype=torch.int32, device="cuda")
+        x = rand((m, d))
+        xt = x.T.contiguous()
+        w, s_ = rand((d, 1)), rand((m, 1))
+        for case, a, b in (
+                ("mpc_mul_direct", x, w),
+                ("mpc_mul_transposed", w.T.contiguous(), xt),
+                ("mpc_final_direct", xt, s_),
+                ("mpc_final_transposed", s_.T.contiguous(), x)):
+            M, KK = a.shape
+            NN = b.shape[1]
+            pl = mm.plan(M, KK, NN, vec=b.data_ptr() % 16 == 0,
+                         sms=mm.sm_count(a.device))
+            checks.compare("modmatmul", case, mm.modmatmul(a, b, p),
+                           ref.modmatmul_ref(a, b, p), p=p,
+                           shape=[M, KK, NN],
+                           plan=[pl.rows, pl.cols, pl.threads, pl.splits,
+                                 pl.blocks])
+            if p != field.P:
+                continue
+            b_ms, b_by = bound(4 * (M * KK + KK * NN + M * NN),
+                               2 * M * KK * NN)
+            timings.append({
+                "kernel": "modmatmul", "case": case, "shape": [M, KK, NN],
+                "plan": [pl.rows, pl.cols, pl.threads, pl.splits, pl.blocks],
+                "ms": time_ms(torch, lambda: mm.modmatmul(a, b, p), 20),
+                "graph_ms": graph_ms(torch, lambda: mm.modmatmul(a, b, p),
+                                     20),
+                "plain_ms": time_ms(
+                    torch, lambda: ref.modmatmul_ref(a, b, p), 3),
+                "bound_ms": b_ms, "bound_by": b_by})
+            emit({"phase": "kernels", "timing": timings[-1]})
+        del x, xt
     return timings
 
 
@@ -902,8 +976,9 @@ def _run_cluster(torch, name: str, spec: dict, extra: list, out_dir: Path
     """``cpml_cluster.main`` with the launch counts reset just before and
     read just after (the whole of ``main``: dataset encode, rounds,
     replay, baseline); fails unless it exits 0 bit-identical to
-    train_reference.  The rounds' own counts are ``res["launches_run"]``,
-    taken around ``runner.run`` alone."""
+    train_reference (with ``--protocol mpc``: to the single-host
+    ``mpc_baseline.train``).  The rounds' own counts are
+    ``res["launches_run"]``, taken around ``runner.run`` alone."""
     from repro_torch.kernels import ops
     from repro_torch.launch import cpml_cluster
 
@@ -1065,6 +1140,219 @@ def phase_socket(torch, out_dir: Path) -> dict:
                          for k in runs[SOCKET_RUNS[0][0]]["launches_run"]}}
 
 
+# The BGW baseline at Case 1 (N = 40, T = 1, r = 1), in process and over
+# sockets, and the slack fleet's size (N = 8, T = 1) with a straggler.
+MPC_CASE1 = dict(CASE1, iters=10)
+MPC_SLACK = dict(SLACK, iters=10)
+MPC_SOCKET_RUNS = (
+    ("case1_mpc", MPC_CASE1, []),
+    ("slack_mpc_straggle", MPC_SLACK, ["--straggle-worker", "3",
+                                       "--straggle-sleep", "0.1"]),
+)
+RESILIENT_RUNS = (
+    # two workers dead from round 3, one more than R = 7 of 8 tolerates
+    ("slack_dead_resilient", SLACK, ["--latency", "dead", "--resilient",
+                                     "--checkpoint-every", "2"]),
+    ("slack_socket_resilient", SLACK, ["--transport", "socket",
+                                       "--resilient", "--kill-worker", "0",
+                                       "1", "--kill-at-round", "4",
+                                       "--checkpoint-every", "2",
+                                       "--round-timeout", "10"]),
+)
+
+
+def phase_mpc(torch, out_dir: Path) -> dict:
+    """The BGW baseline in process on the card at Case 1 (N = 40, T = 1),
+    lognormal latencies, 10 rounds: bit-identical to the single-host
+    oracle, and ``modmatmul`` launched exactly twice per worker a round
+    (z = w̄ᵀ·X̄ᵀ and g = sᵀ·X̄), nothing else.  Then, apart from the main
+    path's run, one runner's rounds under ``torch.profiler`` (device ms a
+    round) and its peak device memory from set-up on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cluster.mpc_runner import MPCClusterRunner, mpc_phase_models
+    from repro_torch.core import mpc_baseline
+    from repro_torch.core.protocol.draws import TorchMPCDraws
+    from repro_torch.data import synthetic
+
+    spec = MPC_CASE1
+    iters = spec["iters"]
+    argv, res, launches = _run_cluster(
+        torch, "mpc_case1_inprocess", spec,
+        ["--protocol", "mpc", "--latency", "lognormal"], out_dir)
+    want = 2 * spec["N"] * iters
+    if res["launches_run"]["modmatmul"] != want or any(
+            v for k, v in res["launches_run"].items() if k != "modmatmul"):
+        raise AssertionError(f"mpc in process: launches {res['launches_run']}"
+                             f", want {want} modmatmul and nothing else")
+    # device time of a round and the peak memory, one more runner
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    x, y = synthetic.mnist_like(1, m=spec["m"], d=spec["d"], margin=12.0)
+    cfg = mpc_baseline.MPCConfig(N=spec["N"], T=spec["T"])
+    runner = MPCClusterRunner(
+        cfg, x, y, mpc_phase_models("lognormal", r=cfg.r),
+        draws=TorchMPCDraws(TRAIN_SEED, dev), device=dev)
+    runner.step_round(0)                                   # warm
+    torch.cuda.synchronize()
+    rounds = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(1, 1 + rounds):
+            runner.step_round(t)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    by_group: dict[str, float] = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            g = _kernel_group(e.name)
+            by_group[g] = by_group.get(g, 0.0) + e.device_time_total / 1e3
+            n_kernels += 1
+    device_ms = sum(by_group.values()) / rounds
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20 - base_mib
+    share_mib = (runner.state.x_shares.numel() * 4
+                 + runner.state.x_shares_t.numel() * 4) / 2**20
+    del runner
+    info = {"phase": "mpc", "argv": argv, "launches_main": launches,
+            "launches_run": res["launches_run"],
+            "round_ms_host": res["run_s"] / iters * 1e3,
+            "waits_simulated_s": {k: res["wait_stats"][k]
+                                  for k in ("mpc", "mpc_all")},
+            "acc_mpc": res["acc_mpc"],
+            "profiled_rounds": rounds,
+            "round_ms_host_profiled": host_ms,
+            "round_device_ms": device_ms,
+            "round_device_ms_by_group": {k: v / rounds
+                                         for k, v in by_group.items()},
+            "device_busy_share": device_ms / host_ms,
+            "kernels_per_round": n_kernels / rounds,
+            "peak_device_mib_from_setup": peak_mib,
+            "shares_mib": share_mib}
+    emit(info)
+    return {"phase": "mpc", "info": info, "launches": res["launches_run"]}
+
+
+def _check_reports(name: str, reports: list, n: int, kernel: str,
+                   per_round: int, warmup: int, dead: set) -> None:
+    """Every slot reported; every live worker on cuda with ``per_round``
+    launches of ``kernel`` a round it answered and ``warmup`` in its
+    warm-up."""
+    if sorted({r["worker"] for r in reports}) != list(range(n)):
+        raise AssertionError(f"{name}: worker reports "
+                             f"{[r['worker'] for r in reports]}")
+    for r in reports:
+        if r["exit"].startswith("die_at_round"):
+            if r["worker"] not in dead:
+                raise AssertionError(f"{name}: worker {r['worker']} died")
+            continue
+        if (not r["device"].startswith("cuda") or r["rounds"] < 1
+                or r["launches"][kernel] != per_round * r["rounds"]
+                or r["warmup_launches"][kernel] != warmup):
+            raise AssertionError(f"{name}: worker {r['worker']} {r}")
+
+
+def phase_mpc_socket(torch, out_dir: Path, coded: dict | None) -> dict:
+    """``cpml_cluster --protocol mpc --transport socket`` on the card: 40
+    worker processes at Case 1 for 10 rounds, then the N = 8 fleet with
+    worker 3 sleeping 0.1 s before each phase.  Each run is bit-identical
+    to the single-host oracle; every worker reports cuda, two
+    ``modmatmul`` launches a round and two in its warm-up.  The Case 1
+    round's p50 over the coded socket phase's Case 1 p50 is
+    ``speedup_vs_mpc``."""
+    runs = {}
+    for name, spec, extra in MPC_SOCKET_RUNS:
+        with _MemorySampler() as mem:
+            argv, res, launches = _run_cluster(
+                torch, name, spec,
+                ["--protocol", "mpc", "--transport", "socket", *extra],
+                out_dir)
+        reports = res["worker_reports"]
+        _check_reports(f"mpc_socket {name}", reports, spec["N"],
+                       "modmatmul", 2, 2, set())
+        if mem.peak_mib == 0:
+            raise AssertionError(f"mpc_socket {name}: no device memory "
+                                 f"reading from nvidia-smi ({mem.error})")
+        stats = res["wait_stats"]
+        info = {"phase": "mpc_socket", "run": name, "argv": argv,
+                "master_launches_main": launches,
+                "master_launches_run": res["launches_run"],
+                "launches_run": {k: v + sum(r["launches"][k] for r in reports)
+                                 for k, v in res["launches_run"].items()},
+                "workers_connected_s": res["startup_s"],
+                "provision_s": res["provision_s"],
+                "provision_wire": res["provision_wire"],
+                "run_s": res["run_s"],
+                "round_ms_median": stats["critical_path"]["p50"] * 1e3,
+                "wait_ms_median": stats["mpc"]["p50"] * 1e3,
+                "encode_decode_ms_mean": (stats["encode"]["mean"]
+                                          + stats["decode"]["mean"]) * 1e3,
+                "wire_bytes_per_round": {
+                    "tx": stats["wire_tx_bytes"]["mean"],
+                    "rx": stats["wire_rx_bytes"]["mean"]},
+                "device_memory_peak_mib": mem.peak_mib,
+                "worker_startup_s": {"median": statistics.median(
+                    r["startup_s"] for r in reports)},
+                "worker_warmup_s": {"median": statistics.median(
+                    r["warmup_s"] for r in reports)}}
+        emit(info)
+        runs[name] = info
+    coded_p50 = None
+    if coded is not None:
+        coded_p50 = coded["runs"][SOCKET_RUNS[0][0]]["round_ms_median"]
+    mpc_p50 = runs[MPC_SOCKET_RUNS[0][0]]["round_ms_median"]
+    summary = {"phase": "mpc_socket", "case1_round_ms_median": {
+        "mpc": mpc_p50, "coded": coded_p50},
+        "speedup_vs_mpc": None if coded_p50 is None else mpc_p50 / coded_p50}
+    emit(summary)
+    return {"phase": "mpc_socket", "runs": runs, **summary,
+            "launches": {k: sum(r["launches_run"][k] for r in runs.values())
+                         for k in runs[MPC_SOCKET_RUNS[0][0]]["launches_run"]}}
+
+
+def phase_resilient(torch, out_dir: Path) -> dict:
+    """``cpml_cluster --resilient`` on the card at the slack fleet (N = 8,
+    K = 2, T = 1, Case 1's m and d): in process with two workers dead from
+    round 3, then over sockets with workers 0 and 1 crashing at round 4.
+    Each run restarts at least once, and is bit-identical to
+    train_reference over its trace; over sockets the respawned processes
+    for slots 0 and 1 run on cuda and answer rounds."""
+    runs = {}
+    for name, spec, extra in RESILIENT_RUNS:
+        argv, res, launches = _run_cluster(torch, name, spec, extra, out_dir)
+        if res.get("restarts", 0) < 1:
+            raise AssertionError(f"resilient {name}: no restart ({res})")
+        info = {"phase": "resilient", "run": name, "argv": argv,
+                "restarts": res["restarts"], "run_s": res["run_s"],
+                "launches_main": launches}
+        run = dict(res["launches_run"])
+        if "worker_reports" in res:
+            reports = res["worker_reports"]
+            _check_reports(f"resilient {name}", reports, spec["N"],
+                           "coded_grad", 1, 1, {0, 1})
+            respawned = [r for r in reports if r["worker"] in (0, 1)
+                         and not r["exit"].startswith("die_at_round")]
+            if len(respawned) != 2:
+                raise AssertionError(f"resilient {name}: respawned "
+                                     f"{respawned}")
+            info["respawned"] = respawned
+            run = {k: v + sum(r["launches"][k] for r in reports)
+                   for k, v in run.items()}
+        if run["coded_grad"] < spec["iters"]:
+            raise AssertionError(f"resilient {name}: launches {run}")
+        info["launches_run"] = run
+        emit(info)
+        runs[name] = info
+    return {"phase": "resilient", "runs": runs,
+            "launches": {k: sum(r["launches_run"][k] for r in runs.values())
+                         for k in runs[RESILIENT_RUNS[0][0]]["launches_run"]}}
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase; print its seconds.  A failure propagates."""
     t0 = time.perf_counter()
@@ -1133,6 +1421,7 @@ def main(argv: list[str] | None = None) -> int:
         free()
         timings += run_phase("kernels_coded_head", phase_kernels_coded_head,
                              torch, checks)
+        timings += run_phase("kernels_mpc", phase_kernels_mpc, torch, checks)
         timings += run_phase("kernels_scan", phase_kernels_scan, torch, checks)
         free()
     for name, fn, args_ in (
@@ -1144,8 +1433,13 @@ def main(argv: list[str] | None = None) -> int:
             ("consistency", phase_consistency, (torch,)),
             ("coded_head", phase_coded_head, (torch, out_dir)),
             ("cluster", phase_cluster, (torch, out_dir)),
-            ("socket", phase_socket, (torch, out_dir))):
+            ("socket", phase_socket, (torch, out_dir)),
+            ("mpc", phase_mpc, (torch, out_dir)),
+            ("mpc_socket", phase_mpc_socket, (torch, out_dir)),
+            ("resilient", phase_resilient, (torch, out_dir))):
         if name in phases:
+            if name == "mpc_socket":
+                args_ = (*args_, ran.get("socket"))
             ran[name] = run_phase(name, fn, *args_)
             free()
             free()
@@ -1184,7 +1478,10 @@ def main(argv: list[str] | None = None) -> int:
                                  ("serve", "serve"),
                                  ("serve_coded_head", "coded_head"),
                                  ("cluster_inprocess", "cluster"),
-                                 ("cluster_socket", "socket"))
+                                 ("cluster_socket", "socket"),
+                                 ("mpc_inprocess", "mpc"),
+                                 ("mpc_socket", "mpc_socket"),
+                                 ("resilient", "resilient"))
                     if v in ran}})
         emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

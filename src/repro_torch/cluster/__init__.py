@@ -16,11 +16,14 @@ collects results as they arrive, and decodes the moment the fastest
   pipeline.py          one-round-ahead prefetch of the W-independent work
   runner.py            ClusterRunner: core/protocol rounds through the
                        scheduler, simulated or over real worker processes
-                       (launch/cpml_worker.py)
+                       (launch/cpml_worker.py), and its checkpointed
+                       run_resilient
+  mpc_runner.py        MPCClusterRunner: the BGW baseline
+                       (core/mpc_baseline.py) through the same scheduler
 
-Every module but ``runner.py`` is numpy-only and a copy of the
-reference's.  Not ported: ``master_group.py`` (ROADMAP.md queue 1 item 6),
-``mpc_runner.py`` (item 7), ``serve.py`` (item 8), ``alcc_mlp.py`` (item 9).
+Every module but ``runner.py`` and ``mpc_runner.py`` is numpy-only and a
+copy of the reference's.  Not ported: ``master_group.py`` (ROADMAP.md
+queue 1 item 6), ``serve.py`` (item 8), ``alcc_mlp.py`` (item 9).
 
 Import the submodules themselves: the package imports nothing, so a
 worker process that imports ``repro_torch.cluster.socket_transport`` does

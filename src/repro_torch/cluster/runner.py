@@ -23,15 +23,18 @@ Differences from the reference:
   * the prefetch thread launches ``modmatmul`` on the consumer's CUDA
     stream and records an event on it that the consumer waits on before
     it reads the context;
-  * ``engine="alcc"`` (ROADMAP.md queue 1 item 9), ``masters > 1`` (queue
-    1 item 6, ``master_group``) and ``run_resilient`` (queue 1 item 10,
-    ``checkpoint/manager.py``) are not ported and raise
+  * ``engine="alcc"`` (ROADMAP.md queue 1 item 9) and ``masters > 1``
+    (queue 1 item 6, ``master_group``) are not ported and raise
     ``NotImplementedError``.
 
 Resilience (runtime/resilience.py): results and acks feed a
 HeartbeatMonitor on the scheduler's clock; dead workers drop out of
 dispatch, and known stragglers are speculatively excluded while the fast
-set strictly exceeds the recovery threshold.
+set strictly exceeds the recovery threshold.  ``run_resilient``
+checkpoints the weights (checkpoint/manager.py) and, on a starved round,
+restores, revives or respawns the dead workers and replays; round t's
+draws depend on t alone (draws.py), so a replay re-derives the same
+masks and batches.
 """
 from __future__ import annotations
 
@@ -68,7 +71,7 @@ from repro_torch.core.protocol import engine as _eng
 from repro_torch.core.protocol.config import CPMLConfig
 from repro_torch.core.protocol.draws import TorchDraws
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.runtime.resilience import HeartbeatMonitor
+from repro_torch.runtime.resilience import HeartbeatMonitor, ResilientLoop
 
 
 def wait_summary(a) -> dict[str, float]:
@@ -773,11 +776,55 @@ class ClusterRunner:
                 self.step_round(t, iters)
         return _eng._w_public(self.cfg, self.w2)
 
-    def run_resilient(self, iters: int, ckpt_manager, **kw):
-        """The reference's checkpointed run needs ``checkpoint/manager.py``."""
-        raise NotImplementedError(
-            "run_resilient needs checkpoint/manager.py, which is not ported "
-            "yet: ROADMAP.md queue 1 item 10")
+    def run_resilient(self, iters: int, ckpt_manager,
+                      checkpoint_every: int = 5, max_retries: int = 3,
+                      respawn: Callable[[int, int], None] | None = None
+                      ) -> torch.Tensor:
+        """Checkpointed run: a starved round restores the last checkpoint,
+        reprovisions dead workers, and replays.
+
+        ``respawn(worker, step)`` is the real transport's replacement hook:
+        called for each dead slot after a restore, it starts a fresh worker
+        process for that slot (the caller owns the processes); the runner
+        then reprovisions the slot and waits for its ack before replaying.
+        In simulation the latency model's ``revive`` plays that part and
+        ``respawn`` is unused.
+        """
+        self._reset()
+        replaying = {"flag": False}
+
+        def step_fn(state, t):
+            self.w2 = state["train"]["w2"].to(self.device)
+            self.step_round(t, iters, replayed=replaying["flag"])
+            return {"train": {"w2": self.w2}}
+
+        def on_restore(step):
+            replaying["flag"] = True
+            t0 = self.scheduler.clock
+            for i, ws in list(self.monitor.workers.items()):
+                if not ws.alive:
+                    if self.latency is not None:
+                        self.latency.revive(i, at_round=step)
+                    elif respawn is not None:
+                        respawn(i, step)
+                        self.provision(workers=[i], timeout_s=180.0)
+                    self.monitor.revive(i, now=self.scheduler.clock)
+            # the respawn and reprovision blocked dispatch: credit the
+            # healthy fleet the stall so the replay's first fence does not
+            # read their silence as death
+            self.monitor.credit_stall(self.scheduler.clock - t0,
+                                      now=self.scheduler.clock)
+
+        loop = ResilientLoop(ckpt_manager, checkpoint_every=checkpoint_every,
+                             max_retries=max_retries, on_restore=on_restore)
+        state0 = {"train": {"w2": self.w2}}
+        ckpt_manager.save(0, state0)
+        ckpt_manager.wait()
+        with self._pipeline_scope(iters):
+            # a restore rewinds t; RoundPrefetcher.get resets its producer
+            loop.run(state0, step_fn, start_step=0, num_steps=iters)
+        self.restarts = loop.restarts
+        return _eng._w_public(self.cfg, self.w2)
 
     def _reset(self) -> None:
         self.w2 = _eng._w_internal(self.cfg, self.state.w)

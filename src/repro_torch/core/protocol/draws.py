@@ -16,6 +16,24 @@ three methods:
 run see the same bits, and round t's draws do not depend on which rounds
 ran before.  The reference draws with ``jax.random`` (threefry); the port's
 tests hand its draws to the port through an object with the same methods.
+
+``TorchMPCDraws`` is the same seam for the BGW baseline
+(core/mpc_baseline.py), with four methods:
+
+  data_masks(T, m, d, p)          -> (T, m, d) int32 Shamir masks of the
+                                     dataset, drawn once
+  step(t, wbar_shape, T, p)       -> (uniforms (*wbar_shape) float32,
+                                      masks (T, *wbar_shape) int32) for
+                                     iteration t's weight quantization and
+                                     weight shares
+  reshare_seed(t, phase)          -> an int the master ships to every
+                                     worker for one degree reduction
+  reshare_masks(seed, worker, T, shape, p)
+                                  -> (T, *shape) int32 masks with which
+                                     ``worker`` re-shares its product
+                                     share; a function of (seed, worker)
+                                     alone, so a worker process draws its
+                                     own from the shipped seed
 """
 from __future__ import annotations
 
@@ -24,15 +42,19 @@ import hashlib
 import torch
 
 
+def _seed_of(*tags) -> int:
+    """A 63-bit integer from the tags' repr."""
+    digest = hashlib.sha256(repr(tags).encode()).digest()
+    return int.from_bytes(digest[:8], "little") >> 1
+
+
 class TorchDraws:
     def __init__(self, seed: int, device: str | torch.device = "cpu"):
         self.seed = int(seed)
         self.device = torch.device(device)
 
     def _gen(self, *tags) -> torch.Generator:
-        digest = hashlib.sha256(repr((self.seed,) + tags).encode()).digest()
-        return torch.Generator().manual_seed(
-            int.from_bytes(digest[:8], "little") >> 1)
+        return torch.Generator().manual_seed(_seed_of(self.seed, *tags))
 
     def dataset_masks(self, T: int, mk: int, d: int, p: int) -> torch.Tensor:
         g = self._gen("dataset")
@@ -53,3 +75,29 @@ class TorchDraws:
                              f"encoded part (padded m / K)")
         g = self._gen("batch", int(t))
         return torch.randperm(mk, generator=g)[:rows].to(self.device)
+
+
+class TorchMPCDraws(TorchDraws):
+    """The BGW baseline's draws (see the module docstring)."""
+
+    def data_masks(self, T: int, m: int, d: int, p: int) -> torch.Tensor:
+        g = self._gen("mpc_data")
+        return torch.randint(0, p, (T, m, d), generator=g,
+                             dtype=torch.int32).to(self.device)
+
+    def step(self, t: int, wbar_shape: tuple[int, ...], T: int, p: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        g = self._gen("mpc_step", int(t))
+        u = torch.rand(tuple(wbar_shape), generator=g, dtype=torch.float32)
+        masks = torch.randint(0, p, (T, *wbar_shape), generator=g,
+                              dtype=torch.int32)
+        return u.to(self.device), masks.to(self.device)
+
+    def reshare_seed(self, t: int, phase: int) -> int:
+        return _seed_of(self.seed, "mpc_reshare", int(t), int(phase))
+
+    def reshare_masks(self, seed: int, worker: int, T: int,
+                      shape: tuple[int, ...], p: int) -> torch.Tensor:
+        g = torch.Generator().manual_seed(_seed_of(int(seed), int(worker)))
+        return torch.randint(0, p, (T, *shape), generator=g,
+                             dtype=torch.int32).to(self.device)

@@ -2,34 +2,50 @@
 
     python -m repro_torch.launch.cpml_cluster --latency lognormal --iters 25
     python -m repro_torch.launch.cpml_cluster --latency dead --round-timeout 60
+    python -m repro_torch.launch.cpml_cluster --latency dead --resilient
     python -m repro_torch.launch.cpml_cluster --pipeline full
     python -m repro_torch.launch.cpml_cluster --transport socket --iters 10
     python -m repro_torch.launch.cpml_cluster --transport socket \\
         --kill-worker 5 --kill-at-round 4 --straggle-worker 3
+    python -m repro_torch.launch.cpml_cluster --transport socket --resilient \\
+        --kill-worker 0 1 --kill-at-round 4 --round-timeout 10
+    python -m repro_torch.launch.cpml_cluster --protocol mpc --latency lognormal
+    python -m repro_torch.launch.cpml_cluster --protocol mpc --transport socket \\
+        --workers 5 --privacy 2 --straggle-worker 4
     python -m repro_torch.launch.cpml_cluster --device cpu --m 300 --d 24
 
-Mirrors ``repro/launch/cpml_cluster.py`` for ``--protocol cpml --engine
-exact``: CodedPrivateML training through the cluster runtime
-(repro_torch.cluster), per-round dispatch to N workers, decode at the
-fastest ``threshold`` responders, and what the wait-for-fastest-T policy
-saved over wait-for-all.
+Mirrors ``repro/launch/cpml_cluster.py`` for ``--engine exact``:
+CodedPrivateML training through the cluster runtime (repro_torch.cluster),
+per-round dispatch to N workers, decode at the fastest ``threshold``
+responders, and what the wait-for-fastest-T policy saved over
+wait-for-all.
 
 ``--transport inprocess`` (default) is the event-driven simulation under a
-``--latency`` profile, the whole round computed on the master's device.
-``--transport socket`` spawns N worker processes
+``--latency`` profile, the whole round computed on the master's device;
+``--resilient`` adds checkpoint/restore recovery from mid-run worker death
+(pair it with ``--latency dead``, which then kills one worker more than
+the code tolerates).  ``--transport socket`` spawns N worker processes
 (``repro_torch.launch.cpml_worker``, each on ``--device``) on localhost,
 ships coded shares as wire frames over TCP, and decodes from the bytes the
-fastest responders sent.  On CUDA the kernels are built once before any
-worker starts.
+fastest responders sent; with ``--resilient`` a starved round restores
+the last checkpoint, spawns a fresh worker process for each dead slot,
+reprovisions it and replays.  On CUDA the kernels are built once before
+any worker starts.  ``--kill-worker`` takes one or more worker indices
+(the reference takes one), all crashing at ``--kill-at-round``.
 
 Either way the run ends by checking that the weights are bit-identical to
 ``train_reference`` replaying the observed responder trace with the same
 draws, on the same device.  Runs on CUDA unless ``--device cpu``.
 
-Not ported, refused with exit 2: ``--protocol mpc`` (ROADMAP.md queue 1
-item 7), ``--engine alcc`` and ``--model mlp`` (item 9), ``--masters > 1``
-(item 6, ``master_group``) and ``--resilient`` (item 10,
-``checkpoint/manager.py``).
+``--protocol mpc`` runs the BGW baseline over the same runtime: one
+all-to-all reshare barrier per degree reduction (the workers exchange
+SubShares through the master's relay over sockets), reconstruction at the
+first 2T+1 final shares, and a closing bit-identity check against the
+port's single-host ``mpc_baseline.train`` with the same draws.
+
+Not ported, refused with exit 2: ``--engine alcc`` and ``--model mlp``
+(ROADMAP.md queue 1 item 9) and ``--masters > 1`` (item 6,
+``master_group``).
 """
 from __future__ import annotations
 
@@ -40,6 +56,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 _SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -49,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="CodedPrivateML cluster driver "
                                  "(PyTorch/CUDA)")
     ap.add_argument("--protocol", choices=("cpml", "mpc"), default="cpml",
-                    help="mpc (the BGW baseline) is not ported yet")
+                    help="cpml = coded training (first-T decode); mpc = the "
+                         "BGW secret-sharing baseline over the same runtime "
+                         "(reshare barriers, no straggler tolerance)")
     ap.add_argument("--engine", choices=("exact", "alcc"), default="exact",
                     help="alcc (the float engine) is not ported yet")
     ap.add_argument("--model", choices=("logreg", "mlp"), default="logreg",
@@ -91,7 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(60 simulated seconds for --latency dead, 120 wall "
                          "seconds for --transport socket unless given)")
     ap.add_argument("--resilient", action="store_true",
-                    help="not ported yet (needs checkpoint/manager.py)")
+                    help="checkpoint/restore recovery on starved rounds "
+                         "(socket: a respawned replacement process is "
+                         "reprovisioned over the wire before the replay)")
+    ap.add_argument("--checkpoint-every", type=int, default=5)
     ap.add_argument("--masters", type=int, default=1,
                     help="only 1: the sharded master is not ported yet")
     ap.add_argument("--spares", type=int, default=0,
@@ -103,10 +125,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "scheduled join); implies --spares 1")
     ap.add_argument("--port", type=int, default=0,
                     help="master TCP port (0 = ephemeral)")
-    ap.add_argument("--kill-worker", type=int, default=None,
-                    help="crash this worker index mid-run (socket only)")
+    ap.add_argument("--kill-worker", type=int, nargs="+", default=None,
+                    help="crash these worker indices mid-run (socket only)")
     ap.add_argument("--kill-at-round", type=int, default=4,
-                    help="round at which --kill-worker crashes")
+                    help="round at which the --kill-worker workers crash")
     ap.add_argument("--straggle-worker", type=int, default=None,
                     help="make this worker sleep before every reply "
                          "(socket only)")
@@ -188,7 +210,9 @@ def local_socket_cluster(n_workers: int, *, port: int = 0,
     CUDA the kernels are built first, once, so the workers only load them.
     On exit the transport is closed (each worker leaves its serve loop) and
     the processes are reaped; with ``reports`` given, each worker's stdout
-    is captured and its JSON report line appended there.
+    is captured and its JSON report line appended there.  A process a
+    caller appends to ``tr.procs`` (a resilient respawn, spawned with
+    ``stdout=tr.worker_stdout``) is reaped and reported the same way.
     """
     from repro_torch.cluster.messages import worker_endpoint
     from repro_torch.cluster.socket_transport import SocketTransport
@@ -202,6 +226,7 @@ def local_socket_cluster(n_workers: int, *, port: int = 0,
                                 wire_version=wire_version)
     procs: list[subprocess.Popen] = []
     tr.procs = procs
+    tr.worker_stdout = out
     try:
         t0 = time.monotonic()
         for w in range(n_workers):
@@ -263,9 +288,6 @@ def _emit_obs(args, runner, threshold: int) -> None:
 def _validate(args) -> str | None:
     """The flags this port refuses: one sentence naming the ROADMAP item,
     or None when the run is possible."""
-    if args.protocol == "mpc":
-        return ("--protocol mpc (the BGW baseline) is not ported yet: "
-                "ROADMAP.md queue 1 item 7")
     if args.engine == "alcc":
         return ("--engine alcc (the ALCC float engine) is not ported yet: "
                 "ROADMAP.md queue 1 item 9")
@@ -275,14 +297,36 @@ def _validate(args) -> str | None:
     if args.masters != 1:
         return ("--masters > 1 (cluster/master_group.py) is not ported yet: "
                 "ROADMAP.md queue 1 item 6")
-    if args.resilient:
-        return ("--resilient needs checkpoint/manager.py, which is not "
-                "ported yet: ROADMAP.md queue 1 item 10")
     return None
 
 
-def _timed_run(runner, iters: int, dev, out: dict):
-    """``runner.run(iters)``: its seconds on the host clock, synchronised
+def _validate_mpc(args) -> str | None:
+    """--protocol mpc's refusals, in the reference's words."""
+    if args.resilient:
+        return ("--resilient is meaningless for MPC: BGW has no erasure "
+                "tolerance — a starved round is terminal")
+    if args.pipeline != "off":
+        return ("--pipeline applies to the coded protocol only: every BGW "
+                "reshare barrier consumes the previous phase's output, so "
+                "there is no W-independent master work to overlap")
+    if args.classes != 1:
+        return "--protocol mpc supports the paper's binary task only"
+    if args.kill_worker is not None:
+        return ("--kill-worker is meaningless for MPC: a crashed worker "
+                "starves the reshare barrier and ends the run (that is the "
+                "paper's point) — use --straggle-worker to slow one instead")
+    if args.masters > 1 or args.spares or args.join_at_round is not None:
+        return ("--masters/--spares/--join-at-round are coded-protocol "
+                "features: BGW bakes N into every reshare (no spare "
+                "evaluation points to join on) and its master only "
+                "reconstructs")
+    return None
+
+
+def _timed_run(runner, iters: int, dev, out: dict, resilient: bool = False,
+               checkpoint_every: int = 5, respawn=None):
+    """``runner.run(iters)``, or ``runner.run_resilient`` with checkpoints
+    in a temporary directory: its seconds on the host clock, synchronised
     (``out["run_s"]``), and the kernel launches it made in this process
     (``out["launches_run"]``)."""
     import torch
@@ -293,7 +337,16 @@ def _timed_run(runner, iters: int, dev, out: dict):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    w = runner.run(iters)
+    if resilient:
+        from repro_torch.checkpoint.manager import CheckpointManager
+        with tempfile.TemporaryDirectory() as ckdir:
+            mgr = CheckpointManager(ckdir, async_write=False)
+            w = runner.run_resilient(iters, mgr,
+                                     checkpoint_every=checkpoint_every,
+                                     respawn=respawn)
+        out["restarts"] = runner.restarts
+    else:
+        w = runner.run(iters)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     out["run_s"] = time.perf_counter() - t0
@@ -305,7 +358,7 @@ def _run_socket(args, cfg, x, y, draws, dev, out: dict):
     """--transport socket: N real worker processes, wire frames, wall clock."""
     from repro_torch.cluster.runner import ClusterRunner, wait_summary
 
-    die = ({args.kill_worker: args.kill_at_round}
+    die = ({w: args.kill_at_round for w in args.kill_worker}
            if args.kill_worker is not None else None)
     sleep = ({args.straggle_worker: args.straggle_sleep}
              if args.straggle_worker is not None else None)
@@ -323,6 +376,8 @@ def _run_socket(args, cfg, x, y, draws, dev, out: dict):
                               sleep_s=sleep, join_at_round=join,
                               wire_version=wv, device=dev.type,
                               reports=reports) as tr:
+        from repro_torch.cluster.messages import worker_endpoint
+
         print(f"{cfg.N + len(join or {})} worker processes connected in "
               f"{tr.startup_s:.1f}s")
         runner = ClusterRunner(cfg, x, y, latency=None, transport=tr,
@@ -336,7 +391,20 @@ def _run_socket(args, cfg, x, y, draws, dev, out: dict):
         provision_s = runner.metrics.gauge("cpml_provision_seconds").value
         print(f"provisioned in {provision_s:.1f}s (shares shipped, every "
               f"worker's warm-up round done)")
-        w = _timed_run(runner, args.iters, dev, out)
+
+        def respawn(worker: int, step: int) -> None:
+            # a starved round's restore asks for a fresh process for each
+            # dead slot; the runner reprovisions it over the wire and waits
+            # for its ack before replaying
+            tr.procs.append(spawn_worker(tr.port, worker, wire_version=wv,
+                                         device=dev.type,
+                                         stdout=tr.worker_stdout))
+            tr.wait_for_endpoints([worker_endpoint(worker)], timeout_s=180.0)
+
+        w = _timed_run(runner, args.iters, dev, out,
+                       resilient=args.resilient,
+                       checkpoint_every=args.checkpoint_every,
+                       respawn=respawn)
         runner.shutdown_workers()
     # each result's compute_s: the worker's seconds from taking the share
     # off its queue to sending the result (a straggler's sleep included)
@@ -347,6 +415,9 @@ def _run_socket(args, cfg, x, y, draws, dev, out: dict):
                worker_reports=sorted(reports, key=lambda r: r["worker"]))
     print(f"socket run: {args.iters} rounds over TCP in {out['run_s']:.2f}s "
           f"({out['run_s'] / args.iters * 1e3:.1f} ms/round)")
+    if args.resilient:
+        print(f"resilient socket run: {runner.restarts} restart(s), each "
+              f"respawning + reprovisioning the dead slot over TCP")
     stats = runner.wait_stats()
     if "wire_totals" in stats:
         tot, per = stats["wire_totals"], stats["wire_tx_bytes"]
@@ -373,7 +444,13 @@ def _run_inprocess(args, cfg, x, y, draws, dev, out: dict):
     from repro_torch.cluster.latency import make_latency
     from repro_torch.cluster.runner import ClusterRunner
 
-    latency = make_latency(args.latency, seed=args.latency_seed)
+    kw = {}
+    if args.latency == "dead" and args.resilient:
+        # kill one worker more than the code tolerates, so the run goes
+        # through a checkpoint restore (one death at N=8 is absorbed by
+        # the first-T decode with no restart)
+        kw["deaths"] = {w: 3 for w in range(cfg.N - cfg.threshold + 1)}
+    latency = make_latency(args.latency, seed=args.latency_seed, **kw)
     timeout = args.round_timeout
     if args.latency == "dead" and math.isinf(timeout):
         timeout = 60.0          # a dead worker must be detectable
@@ -390,17 +467,136 @@ def _run_inprocess(args, cfg, x, y, draws, dev, out: dict):
                            decode_cost_s=args.decode_cost_s,
                            spares=spares, join_schedule=join_schedule,
                            recorder=_recorder_for(args))
-    w = _timed_run(runner, args.iters, dev, out)
+    w = _timed_run(runner, args.iters, dev, out, resilient=args.resilient,
+                   checkpoint_every=args.checkpoint_every)
     print(f"in-process run: {args.iters} rounds in {out['run_s']:.3f}s "
           f"({out['run_s'] / args.iters * 1e3:.2f} ms/round, host clock, "
           f"{dev})")
+    if args.resilient:
+        print(f"resilient run: {runner.restarts} restart(s)")
     return runner, w
+
+
+def _run_mpc(args, dev) -> int:
+    """--protocol mpc: the BGW baseline head-to-head on the same runtime."""
+    import torch
+
+    from repro_torch.cluster.mpc_runner import MPCClusterRunner, mpc_phase_models
+    from repro_torch.core import mpc_baseline, protocol
+    from repro_torch.core.protocol.draws import TorchMPCDraws
+    from repro_torch.data import synthetic
+
+    cfg = mpc_baseline.MPCConfig(N=args.workers, T=args.privacy,
+                                 r=args.degree)
+    mode = (args.latency if args.transport == "inprocess"
+            else f"socket x{cfg.N} procs")
+    print(f"BGW MPC baseline: N={cfg.N} T={cfg.T} r={cfg.r} "
+          f"collect=2T+1={2 * cfg.T + 1} [{mode}] device={dev} — every "
+          f"degree reduction is an all-to-all barrier")
+    x_np, y_np = synthetic.mnist_like(1, m=args.m, d=args.d, margin=12.0)
+    x = torch.as_tensor(x_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    draws = TorchMPCDraws(args.seed, dev)
+    out: dict = {}
+    rc = 0
+    if args.transport == "socket":
+        timeout = args.round_timeout
+        if math.isinf(timeout):
+            timeout = 120.0
+        sleep = ({args.straggle_worker: args.straggle_sleep}
+                 if args.straggle_worker is not None else None)
+        reports: list[dict] = []
+        with local_socket_cluster(cfg.N, port=args.port, sleep_s=sleep,
+                                  wire_version=int(args.wire[1:]),
+                                  device=dev.type, reports=reports) as tr:
+            print(f"{cfg.N} worker processes connected in "
+                  f"{tr.startup_s:.1f}s")
+            runner = MPCClusterRunner(
+                cfg, x, y, None, draws=draws, device=dev, transport=tr,
+                round_timeout_s=timeout,
+                heartbeat_timeout_s=args.heartbeat_timeout,
+                recorder=_recorder_for(args))
+            wire0 = tr.wire_totals()
+            t0 = time.perf_counter()
+            runner.provision(timeout_s=600.0)
+            provision_s = time.perf_counter() - t0
+            wire1 = tr.wire_totals()
+            print(f"provisioned in {provision_s:.1f}s "
+                  f"({(wire1['tx_bytes'] - wire0['tx_bytes']) / 1e6:.1f} MB "
+                  f"of whole-dataset shares shipped, every worker's warm-up "
+                  f"done)")
+            w = _timed_run(runner, args.iters, dev, out)
+            runner.shutdown_workers()
+        out.update(startup_s=tr.startup_s, provision_s=provision_s,
+                   provision_wire={k: wire1[k] - wire0[k] for k in wire0},
+                   worker_reports=sorted(reports, key=lambda r: r["worker"]))
+        print(f"socket MPC run: {args.iters} rounds over TCP in "
+              f"{out['run_s']:.1f}s "
+              f"({out['run_s'] / args.iters * 1e3:.0f} ms/round, "
+              f"{args.degree} reshare barrier(s) each)")
+        devices = sorted({r["device"] for r in reports})
+        print(f"worker reports: {len(reports)}, devices {devices}, "
+              f"modmatmul launches "
+              f"{[r['launches']['modmatmul'] for r in out['worker_reports']]}")
+    else:
+        models = mpc_phase_models(args.latency, seed=args.latency_seed,
+                                  r=cfg.r)
+        timeout = args.round_timeout
+        if args.latency == "dead" and math.isinf(timeout):
+            timeout = 60.0
+        runner = MPCClusterRunner(cfg, x, y, models, draws=draws, device=dev,
+                                  round_timeout_s=timeout,
+                                  recorder=_recorder_for(args))
+        w = _timed_run(runner, args.iters, dev, out)
+        print(f"in-process MPC run: {args.iters} rounds in "
+              f"{out['run_s']:.3f}s "
+              f"({out['run_s'] / args.iters * 1e3:.2f} ms/round, host "
+              f"clock, {dev})")
+    _emit_obs(args, runner, runner.collect_threshold)
+    stats = runner.wait_stats()
+    word = "wall" if args.transport == "socket" else "simulated"
+    print(f"per-round MPC wait (dispatch -> 2T+1 reconstruct): "
+          f"mean {stats['mpc']['mean']:.2f}s  p50 {stats['mpc']['p50']:.2f}s "
+          f"p95 {stats['mpc']['p95']:.2f}s "
+          f"({word} total {stats['mpc']['total']:.1f}s)")
+    if "wire_tx_bytes" in stats:
+        print(f"wire [{args.wire}]: "
+              f"{stats['wire_tx_bytes']['mean'] / 1e6:.2f} MB/round tx, "
+              f"{stats['wire_rx_bytes']['mean'] / 1e6:.2f} MB/round rx "
+              f"(reshare relay included)")
+    same = None
+    if not args.no_verify:
+        w_ref, _ = mpc_baseline.train(cfg, x, y, args.iters, eta=runner.eta,
+                                      draws=draws, device=dev)
+        same = bool(torch.equal(w, w_ref))
+        print(f"bit-identical to the single-host mpc_baseline oracle: {same}")
+        if not same:
+            rc = 1
+    _, acc = protocol.loss_and_accuracy(w, runner.state.xq_real, y)
+    print(f"accuracy: mpc {float(acc):.2%}")
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(_json_finite(
+                {"config": {"N": cfg.N, "T": cfg.T, "r": cfg.r,
+                            "m": args.m, "d": args.d,
+                            "protocol": "mpc",
+                            "transport": args.transport,
+                            "latency": (args.latency
+                                        if args.transport == "inprocess"
+                                        else None),
+                            "iters": args.iters},
+                 "device": str(dev),
+                 "bit_identical": same,
+                 "wait_stats": stats,
+                 "acc_mpc": float(acc), **out}), f, indent=2)
+    return rc
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    refusal = _validate(args)
-    if refusal is not None:
+    refusal = ((args.protocol == "mpc" and _validate_mpc(args))
+               or _validate(args))
+    if refusal:
         print(refusal, file=sys.stderr)
         return 2
 
@@ -416,6 +612,8 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if args.protocol == "mpc":
+        return _run_mpc(args, dev)
 
     cfg = protocol.CPMLConfig(N=args.workers, K=args.parallel,
                               T=args.privacy, r=args.degree, c=args.classes,

@@ -3,25 +3,36 @@
     python -m repro_torch.launch.cpml_worker --port 9000 --worker 3
     python -m repro_torch.launch.cpml_worker --port 9000 --worker 3 --device cpu
 
-Mirrors the ``"cpml"`` mode of ``repro/launch/cpml_worker.py``; it speaks
-the same wire (v1 or v2), so either package's master can drive it.  One
-process is one of the paper's N workers:
+Mirrors the ``"cpml"`` and ``"mpc"`` modes of
+``repro/launch/cpml_worker.py``; it speaks the same wire (v1 or v2), so
+either package's master can drive it in the ``"cpml"`` mode.  One process
+is one of the paper's N workers:
 
   1. PROVISION: an EncodeShare with ``round == PROVISION_ROUND`` carrying
-     {cfg kwargs, the coded dataset share X̃_i, the coefficients c̄}.  The
-     share goes to the device, then one warm-up round runs at the round's
-     real shapes (kernel load, CUDA init, the sub-batch gather), and only
-     then does the worker ack with a Heartbeat: round 0 is not charged for
-     start-up.  The reference's ``"mpc"``, ``"serve"``, ``"alcc"`` and
-     ``"alcc_mlp"`` provisions are refused (ROADMAP.md queue 1 items 7, 8
-     and 9): the worker exits 2.
-  2. ROUNDS: each EncodeShare(t, i, {"w_share", "batch", "next_batch"}) is
-     acked with a Heartbeat, then answered with WorkerResult(t, i,
-     compute_s, f(X̃_i[batch], W̃_i)), where f is ``compute.worker_fn``: one
-     ``coded_grad`` launch with N = 1 on the card, its plain version on the
-     CPU.  The sub-batch is an ``index_select`` on the device; a
-     pipelined master's ``next_batch`` is gathered after the reply, while
-     the next weight share is in flight.
+     {cfg kwargs, the dataset share, the coefficients c̄}.  The share goes
+     to the device, then one warm-up round runs at the round's real shapes
+     (kernel load, CUDA init, the sub-batch gather), and only then does the
+     worker ack with a Heartbeat: round 0 is not charged for start-up.
+     ``"protocol": "mpc"`` selects the BGW baseline: the share is a Shamir
+     share of the whole dataset X̄_i, kept on the device beside its
+     transpose.  The reference's ``"serve"``, ``"alcc"`` and ``"alcc_mlp"``
+     provisions are refused (ROADMAP.md queue 1 items 8 and 9): the worker
+     exits 2.
+  2. ROUNDS, "cpml": each EncodeShare(t, i, {"w_share", "batch",
+     "next_batch"}) is acked with a Heartbeat, then answered with
+     WorkerResult(t, i, compute_s, f(X̃_i[batch], W̃_i)), where f is
+     ``compute.worker_fn``: one ``coded_grad`` launch with N = 1 on the
+     card, its plain version on the CPU.  The sub-batch is an
+     ``index_select`` on the device; a pipelined master's ``next_batch`` is
+     gathered after the reply, while the next weight share is in flight.
+     ROUNDS, "mpc": each EncodeShare(t, i, {"w_share", "kred"}) runs the
+     BGW phases through the core/mpc_baseline hooks: the local product
+     z = X̄_i·w̄_i, then one reshare barrier per degree reduction (this
+     worker draws its reshare masks from the shipped seed, sends a
+     SubShare to every peer through the master's relay, and blocks until
+     all N sub-shares are in), then g = X̄_iᵀ·s, answered with
+     CombineResult(t, i, compute_s, g).  Two ``modmatmul`` launches a
+     round on the card.
   3. SHUTDOWN: ``round == SHUTDOWN_ROUND``, or the master hanging up.
 
 On leaving its serve loop the worker prints one JSON line to stdout: its
@@ -30,7 +41,9 @@ the kernel launches of its rounds (``launches``) and those of the warm-up
 (``warmup_launches``), both from ``kernels.LAUNCHES``.
 
 ``--die-at-round R`` exits without replying when round R's share arrives;
-``--sleep-s S`` sleeps S seconds before every reply (a real straggler);
+``--sleep-s S`` sleeps S seconds before every reply (a real straggler; in
+the "mpc" mode before every phase's sends, which stalls every peer at the
+barrier); ``--barrier-timeout S`` bounds the wait at a reshare barrier;
 ``--join-at-round R`` announces an elastic JOIN for round R's fence.  Runs
 on CUDA unless ``--device cpu``; without CUDA it exits 2.
 """
@@ -46,8 +59,8 @@ import time
 _T0 = time.monotonic()    # before torch is imported: start-up seconds
 
 # the reference's other provisions and the ROADMAP items that port them
-_NOT_PORTED = {"mpc": "queue 1 item 7", "serve": "queue 1 item 8",
-               "alcc": "queue 1 item 9", "alcc_mlp": "queue 1 item 9"}
+_NOT_PORTED = {"serve": "queue 1 item 8", "alcc": "queue 1 item 9",
+               "alcc_mlp": "queue 1 item 9"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,6 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--worker", type=int, required=True,
                     help="this worker's index i in [0, N)")
     ap.add_argument("--connect-timeout", type=float, default=30.0)
+    ap.add_argument("--barrier-timeout", type=float, default=600.0,
+                    help="seconds to wait at an MPC reshare barrier before "
+                         "giving up (a missing peer means the round can "
+                         "never complete)")
     ap.add_argument("--die-at-round", type=int, default=None,
                     help="crash (exit silently) when this round's share "
                          "arrives")
@@ -83,11 +100,14 @@ def serve(args, dev) -> int:
     import torch
 
     from repro_torch.cluster.messages import (
-        MASTER, PROVISION_ROUND, SHUTDOWN_ROUND, EncodeShare, Epoch,
-        Heartbeat, Join, WorkerResult, worker_endpoint)
+        MASTER, PROVISION_ROUND, SHUTDOWN_ROUND, CombineResult, EncodeShare,
+        Epoch, Heartbeat, Join, SubShare, WorkerResult, worker_endpoint)
     from repro_torch.cluster.socket_transport import SocketTransport
+    from repro_torch.core import field
+    from repro_torch.core import mpc_baseline as mpc
     from repro_torch.core.protocol import compute
     from repro_torch.core.protocol.config import CPMLConfig
+    from repro_torch.core.protocol.draws import TorchMPCDraws
     from repro_torch.kernels import LAUNCHES
 
     def to_dev(a, dtype) -> torch.Tensor:
@@ -119,12 +139,17 @@ def serve(args, dev) -> int:
                              time.monotonic()))
     pending: collections.deque = collections.deque()
     state: dict[str, object] = {}
+    subshares: dict[tuple[int, int], dict[int, object]] = {}
 
     def drain() -> None:
         """Pull everything off the wire: EncodeShares into the work queue
-        with their arrival stamps, Epochs into the state."""
+        with their arrival stamps, SubShares into their (round, phase)
+        buffer, Epochs into the state."""
         for at, msg in tr.recv(me, math.inf):
-            if isinstance(msg, Epoch):
+            if isinstance(msg, SubShare):
+                subshares.setdefault((msg.round, msg.phase),
+                                     {})[msg.src] = msg.payload
+            elif isinstance(msg, Epoch):
                 state["epoch"] = msg.epoch         # informational
             elif isinstance(msg, EncodeShare):
                 pending.append((at, msg))
@@ -136,6 +161,10 @@ def serve(args, dev) -> int:
                 f"{me}: the {protocol!r} worker mode is not ported yet "
                 f"(ROADMAP.md {_NOT_PORTED[protocol]})")
         state["trace"] = bool(p.get("trace"))
+        state["protocol"] = protocol
+        if protocol == "mpc":
+            provision_mpc(p)
+            return
         cfg = CPMLConfig(**p["cfg"])
         state["f"] = compute.worker_fn(cfg, to_dev(p["cbar"], np.int32))
         x_share = to_dev(p["x_share"], np.int32)
@@ -156,6 +185,99 @@ def serve(args, dev) -> int:
             # rides the first traced result, like the reference's
             # warm_compile span
             state["carry"] = [["warm_compile", t_c0, time.monotonic()]]
+
+    def provision_mpc(p: dict) -> None:
+        cfg = mpc.MPCConfig(**p["cfg"])
+        state["cfg"] = cfg
+        state["cbar"] = to_dev(p["cbar"], np.int32)
+        state["draws"] = TorchMPCDraws(0, dev)   # reshare masks: (seed, i)
+        x_share = to_dev(p["x_share"], np.int32)               # (m, d)
+        state["x_share"] = x_share
+        state["x_share_t"] = x_share.T.contiguous()            # (d, m)
+        # warm-up: both local products at the real shapes before the ack
+        t_c0 = time.monotonic()
+        m, d = x_share.shape
+        z = mpc.worker_mul(cfg, state["x_share_t"],
+                           torch.zeros((d, cfg.r), dtype=torch.int32,
+                                       device=dev))
+        mpc.worker_final(cfg, x_share, z[:, 0]).cpu()
+        report["warmup_s"] = time.monotonic() - t_c0
+        report["warmup_launches"] = dict(LAUNCHES)
+        if state["trace"]:
+            state["carry"] = [["warm_compile", t_c0, time.monotonic()]]
+
+    def reshare_barrier(cfg, t: int, phase: int, seed: int, value):
+        """One BGW degree reduction from this worker's seat: re-share, send
+        a sub-share to every peer, then block until all N sub-shares of
+        (t, phase) are in and combine them."""
+        if args.sleep_s > 0:
+            time.sleep(args.sleep_s)
+        masks = mpc.reshare_masks(cfg, state["draws"], seed, args.worker,
+                                  tuple(value.shape))
+        sub = mpc.make_subshares(cfg, value, masks).cpu().numpy()
+        for v in range(cfg.N):
+            if v != args.worker:
+                tr.send(worker_endpoint(v),
+                        SubShare(t, phase, args.worker, v, sub[v]))
+        got = {args.worker: sub[args.worker]}
+        deadline = time.monotonic() + args.barrier_timeout
+        while len(got) < cfg.N:
+            for src, payload in subshares.pop((t, phase), {}).items():
+                got[src] = payload
+            if len(got) == cfg.N:
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"{me}: reshare barrier (round {t}, phase {phase}) "
+                    f"starved: peers {sorted(set(range(cfg.N)) - set(got))} "
+                    f"never re-shared")
+            if tr.next_delivery(me) is not None:
+                drain()
+        gathered = to_dev(np.stack([np.asarray(got[i])
+                                    for i in range(cfg.N)]), np.int32)
+        return mpc.combine_subshares(cfg, gathered)
+
+    def mpc_round(at: float, msg) -> None:
+        cfg, cbar = state["cfg"], state["cbar"]
+        t = msg.round
+        t0 = time.monotonic()
+        spans = state.pop("carry", []) if state.get("trace") else None
+        if spans is not None:
+            spans.append(["recv", at, t0])
+        w_share = to_dev(msg.payload["w_share"], np.int32)        # (d, r)
+        seeds = [int(k) for k in np.asarray(msg.payload["kred"])]
+        z = mpc.worker_mul(cfg, state["x_share_t"], w_share)     # (m, r)
+        t1 = time.monotonic()
+        if spans is not None:
+            spans.append(["compute", t0, t1])
+        z = reshare_barrier(cfg, t, 0, seeds[0], z)
+        if spans is not None:
+            spans.append(["barrier", t1, time.monotonic()])
+        prod = z[..., 0]
+        s = mpc.s_init(cfg, cbar, prod)
+        for i in range(2, cfg.r + 1):
+            prod = field.mulmod(prod, z[..., i - 1], cfg.p)
+            b0 = time.monotonic()
+            prod = reshare_barrier(cfg, t, i - 1, seeds[i - 1], prod)
+            if spans is not None:
+                spans.append(["barrier", b0, time.monotonic()])
+            s = mpc.s_accum(cfg, cbar[i], s, prod)
+        if args.sleep_s > 0:
+            time.sleep(args.sleep_s)
+        t2 = time.monotonic()
+        g = mpc.worker_final(cfg, state["x_share"], s).cpu().numpy()
+        t3 = time.monotonic()
+        if spans is not None:
+            spans.append(["serialize", t2, t3])
+        tr.send(MASTER, CombineResult(t, args.worker,
+                                      time.monotonic() - t0, g,
+                                      trace=spans))
+        report["rounds"] += 1
+        if spans is not None:
+            state["carry"] = [["send", t3, time.monotonic()]]
+        # reshare traffic of finished rounds can never be consumed again
+        for key in [k for k in subshares if k[0] <= t]:
+            del subshares[key]
 
     def cpml_round(at: float, msg) -> None:
         t0 = time.monotonic()
@@ -218,10 +340,13 @@ def serve(args, dev) -> int:
                 report["exit"] = f"die_at_round {msg.round}"
                 return 0                # crash: no heartbeat, no result
             tr.send(MASTER, Heartbeat(args.worker, time.monotonic()))
-            if "f" not in state:
+            if "protocol" not in state:
                 raise RuntimeError(f"{me}: round {msg.round} share arrived "
                                    f"before provisioning")
-            cpml_round(at, msg)
+            if state["protocol"] == "mpc":
+                mpc_round(at, msg)
+            else:
+                cpml_round(at, msg)
         return 0
     except _Refused as e:
         report["exit"] = "refused"

@@ -78,11 +78,9 @@ CLUSTER_SMALL = ["--device", "cpu", "--m", "200", "--d", "12", "--iters", "4"]
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--protocol", "mpc"], "queue 1 item 7"),
     (["--engine", "alcc"], "queue 1 item 9"),
     (["--model", "mlp"], "queue 1 item 9"),
     (["--masters", "2"], "queue 1 item 6"),
-    (["--resilient"], "queue 1 item 10"),
 ])
 def test_cpml_cluster_refuses_unported_flags(flags, item):
     res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
@@ -94,9 +92,12 @@ def test_cpml_cluster_refuses_unported_flags(flags, item):
 def test_cpml_cluster_needs_cuda_unless_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
-    for module in ("repro_torch.launch.cpml_cluster",
-                   "repro_torch.launch.cpml_worker"):
-        extra = ["--port", "1", "--worker", "0"] if "worker" in module else []
+    for module, extra in (
+            ("repro_torch.launch.cpml_cluster", []),
+            ("repro_torch.launch.cpml_cluster", ["--protocol", "mpc"]),
+            ("repro_torch.launch.cpml_cluster", ["--resilient"]),
+            ("repro_torch.launch.cpml_worker", ["--port", "1", "--worker",
+                                                "0"])):
         res = run(["-m", module, *extra])
         assert res.returncode == 2, (module, res.stderr)
         assert "CUDA is not available" in res.stderr
@@ -143,3 +144,4 @@ def test_cpml_cluster_socket_cpu_smoke(tmp_path):
             assert set(counts) == {"coded_grad", "modmatmul",
                                    "selective_scan"}
             assert set(counts.values()) == {0}
+
