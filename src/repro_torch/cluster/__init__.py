@@ -14,18 +14,58 @@ collects results as they arrive, and decodes the moment the fastest
   scheduler.py         the event loop on either clock; first-T against
                        wait-for-all per round
   pipeline.py          one-round-ahead prefetch of the W-independent work
-  runner.py            ClusterRunner: core/protocol rounds through the
-                       scheduler, simulated or over real worker processes
+  runner.py            ClusterRunner: core/protocol rounds (the exact
+                       engine or ALCC's) through the scheduler, simulated
+                       or over real worker processes
                        (launch/cpml_worker.py), and its checkpointed
                        run_resilient
   mpc_runner.py        MPCClusterRunner: the BGW baseline
                        (core/mpc_baseline.py) through the same scheduler
+  serve.py             PredictionServer: coded prediction serving, model
+                       shares provisioned once, queries batched under a
+                       max-batch / max-wait policy, decoded at the first
+                       2(K+T-1)+1 responders
+  alcc_mlp.py          ALCCMLPRunner: the gelu MLP as two coded ALCC phases
+                       a step
 
-Every module but ``runner.py`` and ``mpc_runner.py`` is numpy-only and a
-copy of the reference's.  Not ported: ``master_group.py`` (ROADMAP.md
-queue 1 item 6), ``serve.py`` (item 8), ``alcc_mlp.py`` (item 9).
+Every module but ``runner.py``, ``mpc_runner.py``, ``serve.py`` and
+``alcc_mlp.py`` is numpy-only and a copy of the reference's.  Not ported:
+``master_group.py`` (ROADMAP.md queue 1 item 6).
 
-Import the submodules themselves: the package imports nothing, so a
-worker process that imports ``repro_torch.cluster.socket_transport`` does
-not load the runner.
+The package's names (the reference's ``__all__`` less ``master_group``'s)
+resolve on first use: importing ``repro_torch.cluster.socket_transport``
+in a worker process does not load the runner or torch's master side.
 """
+import importlib
+
+_EXPORTS = {
+    "latency": ("BurstyStragglerLatency", "DeadWorkerLatency",
+                "DeterministicLatency", "LatencyModel",
+                "LognormalTailLatency", "SleepyStragglerLatency",
+                "make_latency"),
+    "membership": ("ClusterMembership", "MembershipView", "Transition"),
+    "messages": ("MASTER", "PROVISION_ROUND", "SHUTDOWN_ROUND",
+                 "CombineResult", "EncodeShare", "Epoch", "Heartbeat",
+                 "Join", "Prediction", "Query", "SubShare", "WorkerResult",
+                 "worker_endpoint"),
+    "serve": ("BatchingPolicy", "PredictionServer", "ServeConfig",
+              "open_loop_queries"),
+    "mpc_runner": ("MPCClusterRunner", "mpc_phase_models"),
+    "pipeline": ("PIPELINE_MODES", "RoundContext", "RoundPrefetcher"),
+    "runner": ("ClusterRunner", "RoundRecord", "wait_summary"),
+    "scheduler": ("Clock", "ClusterDecodeError", "EventScheduler",
+                  "MPCRoundTrace", "RoundTrace", "SimClock", "WallClock"),
+    "socket_transport": ("SocketTransport",),
+    "transport": ("InProcessTransport", "Transport"),
+    "alcc_mlp": ("ALCCMLPRunner",),
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name: str):
+    if name not in _WHERE:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f"{__name__}.{_WHERE[name]}")
+    return getattr(module, name)

@@ -1,6 +1,6 @@
 """ClusterRunner: coded training driven by the cluster runtime, on torch.
 
-Mirrors ``repro/cluster/runner.py`` for the exact engine.  The scheduler
+Mirrors ``repro/cluster/runner.py``.  The scheduler
 moves messages and time; all gradient numerics run through the round and
 update hooks that ``engine.train``/``train_reference`` use, with the
 decode matrix and responder order observed from the runtime.  In the
@@ -23,9 +23,19 @@ Differences from the reference:
   * the prefetch thread launches ``modmatmul`` on the consumer's CUDA
     stream and records an event on it that the consumer waits on before
     it reads the context;
-  * ``engine="alcc"`` (ROADMAP.md queue 1 item 9) and ``masters > 1``
-    (queue 1 item 6, ``master_group``) are not ported and raise
-    ``NotImplementedError``.
+  * ``masters > 1`` (ROADMAP.md queue 1 item 6, ``master_group``) is not
+    ported and raises ``NotImplementedError``.
+
+``engine="alcc"`` swaps in ``protocol/alcc_engine``: real-valued Lagrange
+coding with Gaussian masks and a least-squares decode.  Weight shares and
+results are float32 (wire v2 frames), the decode hooks take the responder
+ORDER (rows picked by the decode's conditioning), and every decode's
+condition number, error budget and fallback flag go to
+``wait_stats()["alcc"]``, the ``cpml_alcc_*`` metrics and ``alcc_decode``
+trace instants.  A simulated ALCC run is bit-identical to
+``alcc_engine.train_reference`` on the same device; a socket run agrees
+within the decode error budget.  Pipelining, spares and joins are
+exact-engine only and refused (``ValueError``).
 
 Resilience (runtime/resilience.py): results and acks feed a
 HeartbeatMonitor on the scheduler's clock; dead workers drop out of
@@ -66,10 +76,10 @@ from repro_torch.cluster.scheduler import (ClusterDecodeError, EventScheduler,
                                            RoundTrace)
 from repro_torch.cluster.transport import Transport
 from repro_torch.cluster.wire import WIRE_V2
-from repro_torch.core.protocol import decode
+from repro_torch.core.protocol import alcc_engine, decode
 from repro_torch.core.protocol import engine as _eng
 from repro_torch.core.protocol.config import CPMLConfig
-from repro_torch.core.protocol.draws import TorchDraws
+from repro_torch.core.protocol.draws import TorchALCCDraws, TorchDraws
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.resilience import HeartbeatMonitor, ResilientLoop
 
@@ -185,10 +195,12 @@ class ClusterRunner:
     ``encode_cost_s``/``decode_cost_s`` as the reference does.
 
     ``x``, ``y`` are numpy arrays or tensors; they go to ``device``
-    (``None`` means CUDA, ``repro_torch.device.resolve``).
+    (``None`` means CUDA, ``repro_torch.device.resolve``).  ``engine``:
+    ``"exact"`` (``cfg`` a CPMLConfig) or ``"alcc"`` (an ALCCConfig; see
+    the module docstring).
     """
 
-    def __init__(self, cfg: CPMLConfig, x, y,
+    def __init__(self, cfg, x, y,
                  latency: LatencyModel | None = None, *,
                  draws=None,
                  device: str | torch.device | None = None,
@@ -211,18 +223,28 @@ class ClusterRunner:
                  engine: str = "exact"):
         if pipeline not in PIPELINE_MODES:
             raise ValueError(f"pipeline={pipeline!r} not in {PIPELINE_MODES}")
-        if engine == "alcc":
-            raise NotImplementedError(
-                "engine='alcc' (the ALCC float engine) is not ported yet: "
-                "ROADMAP.md queue 1 item 9")
-        if engine != "exact":
+        if engine not in ("exact", "alcc"):
             raise ValueError(f"unknown engine {engine!r}")
+        if engine == "alcc":
+            # the float engine keeps the round loop, not the exact-only
+            # machinery: pipelining splits a field matmul, and the sharded
+            # master and spare points rely on bit-identical re-encode
+            if pipeline != "off":
+                raise ValueError("pipeline modes are exact-engine only")
+            if masters != 1 or spares or join_schedule:
+                raise ValueError("sharded masters / elastic membership are "
+                                 "exact-engine only")
         if masters != 1:
             raise NotImplementedError(
                 "masters > 1 (cluster/master_group.py, the sharded master) "
                 "is not ported yet: ROADMAP.md queue 1 item 6")
+        self.engine_name = engine
+        self.eng = alcc_engine if engine == "alcc" else _eng
         self.device = _device.resolve(device)
-        self.draws = draws if draws is not None else TorchDraws(0, self.device)
+        if draws is None:
+            draws = (TorchALCCDraws if engine == "alcc"
+                     else TorchDraws)(0, self.device)
+        self.draws = draws
         # Elastic membership: ``spares`` extra Lagrange evaluation points
         # are encoded up front; the points are consecutive, so shares
         # 0..N-1 and every decode over them equal the fixed-N scheme's.
@@ -233,14 +255,25 @@ class ClusterRunner:
         self.elastic = spares > 0 or bool(join_schedule)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         y = torch.as_tensor(y, device=self.device)
-        self.state = _eng.setup(cfg, x, y, draws=self.draws)
-        self.eta = (_eng.lipschitz_eta(self.state.xq_real)
+        self.state = self.eng.setup(cfg, x, y, draws=self.draws)
+        self.eta = (self.eng.lipschitz_eta(self.state.xq_real)
                     if eta is None else float(eta))
-        self._round = _eng.round_fn(cfg, self.state, self.eta, self.draws)
-        self._update = _eng.update_fn(cfg, self.state, self.eta)
-        self._round_split = _eng.round_fn_split(cfg, self.state, self.eta)
-        self._update_parts = _eng.update_from_parts_fn(cfg, self.state,
-                                                         self.eta)
+        if engine == "alcc":
+            # every least-squares decode appends its conditioning info here
+            self.alcc_info: list[dict] | None = []
+            self._round = alcc_engine.round_fn(cfg, self.state, self.eta,
+                                               self.draws,
+                                               info_sink=self.alcc_info)
+            self._update = alcc_engine.update_fn(cfg, self.state, self.eta,
+                                                 info_sink=self.alcc_info)
+        else:
+            self.alcc_info = None
+            self._round = _eng.round_fn(cfg, self.state, self.eta,
+                                        self.draws)
+            self._update = _eng.update_fn(cfg, self.state, self.eta)
+        self._round_split = self.eng.round_fn_split(cfg, self.state, self.eta)
+        self._update_parts = self.eng.update_from_parts_fn(cfg, self.state,
+                                                           self.eta)
         # the stream every launch of this run goes to, the prefetch
         # thread's included (pipeline.py)
         self._stream = (torch.cuda.current_stream(self.device)
@@ -275,7 +308,7 @@ class ClusterRunner:
         self.scheduler.bind_membership(self.membership)
         for w, at_round in (join_schedule or {}).items():
             self.membership.schedule_join(w, at_round)
-        self.w2 = _eng._w_internal(cfg, self.state.w)
+        self.w2 = self.eng._w_internal(cfg, self.state.w)
         self.records: dict[int, RoundRecord] = {}
         self.traces: dict[int, RoundTrace] = {}
         self.restarts = 0
@@ -336,6 +369,18 @@ class ClusterRunner:
             "cpml_xla_warm_compile_seconds",
             "max worker-reported warm-up wall before its provisioning ack "
             "(needs tracing + v2 wire)")
+        if self.engine_name == "alcc":
+            self._m_alcc_cond = m.gauge(
+                "cpml_alcc_decode_cond",
+                "condition number of the last round's least-squares decode")
+            self._m_alcc_budget = m.gauge(
+                "cpml_alcc_error_budget",
+                "a-priori absolute decode-error bound of the last round "
+                "(cond * eps32 * max|evaluation|)")
+            self._m_alcc_fallback = m.counter(
+                "cpml_alcc_decode_fallbacks_total",
+                "rounds decoded by the overdetermined all-responder "
+                "fallback (square system over cond_max)")
 
     def _observe_round(self, t: int, trace: RoundTrace,
                        rec: RoundRecord) -> None:
@@ -355,6 +400,17 @@ class ClusterRunner:
             for w, spans in trace.worker_traces.items():
                 obs.add_process_spans(f"worker{int(w)}", spans, round=t)
         self._m_rounds.inc()
+        if self.alcc_info:
+            # the decode that just ran appended its conditioning info
+            info = self.alcc_info[-1]
+            self._m_alcc_cond.set(float(info["cond"]))
+            self._m_alcc_budget.set(float(info["abs_err_budget"]))
+            if info["fallback"]:
+                self._m_alcc_fallback.inc()
+            self.obs.instant("alcc_decode", round=t,
+                             cond=float(info["cond"]),
+                             err_budget=float(info["abs_err_budget"]),
+                             fallback=bool(info["fallback"]))
         if rec.prefetched:
             self._m_prefetch.inc()
         if rec.streamed:
@@ -480,15 +536,22 @@ class ClusterRunner:
         with self.obs.span("provision", workers=len(workers)):
             tr = self.scheduler.transport
             x_shares = self.state.x_shares.cpu().numpy()
-            cbar = _eng.poly_coeffs(self.cfg)
+            cbar = self.eng.poly_coeffs(self.cfg)
             cfg_kw = {"N": self.cfg.N, "K": self.cfg.K, "T": self.cfg.T,
-                      "r": self.cfg.r, "c": self.cfg.c, "lx": self.cfg.lx,
-                      "lw": self.cfg.lw, "lc": self.cfg.lc, "p": self.cfg.p,
+                      "r": self.cfg.r, "c": self.cfg.c,
                       "batch_rows": self.cfg.batch_rows}
+            if self.engine_name == "alcc":
+                cfg_kw["sigma"] = self.cfg.sigma
+            else:
+                cfg_kw.update(lx=self.cfg.lx, lw=self.cfg.lw, lc=self.cfg.lc,
+                              p=self.cfg.p)
             now = self.scheduler.clock
             for w in workers:
                 payload = {"cfg": cfg_kw, "x_share": x_shares[w],
                            "cbar": cbar, "trace": bool(self.obs.enabled)}
+                if self.engine_name == "alcc":
+                    # the worker picks its float round off this marker
+                    payload["protocol"] = "alcc"
                 tr.send(worker_endpoint(w),
                         EncodeShare(PROVISION_ROUND, w, payload), at=now)
             await_worker_acks(tr, lambda: self.scheduler.clock, set(workers),
@@ -665,9 +728,10 @@ class ClusterRunner:
                 w_shares = _eng.encode_round_shares_split(
                     cfg, ctx.kq, ctx.mask_shares, self.w2)
             else:
-                w_shares = _eng.encode_round_shares(cfg, self.draws, t,
-                                                      self.w2)
-            w_shares = w_shares.cpu().numpy()                # (N, d, c, r)
+                w_shares = self.eng.encode_round_shares(cfg, self.draws, t,
+                                                        self.w2)
+            # (N, d, c, r) int32, or (N, d, c) float32 under ALCC
+            w_shares = w_shares.cpu().numpy()
             batch_np = (None if bidx is None
                         else bidx.cpu().numpy().astype(np.int32))
             next_np = None if ctx is None else ctx.next_batch
@@ -710,10 +774,16 @@ class ClusterRunner:
                 f"{cfg.threshold} within {self.round_timeout_s}s")
 
         streamed = False
+        alcc = self.engine_name == "alcc"
         dec_t0 = _time.perf_counter()
         if decoder is not None:
             order = np.asarray(trace.responders[: cfg.threshold],
                                dtype=np.int64)
+        elif alcc:
+            # the least-squares decode picks its own row count (the
+            # ill-conditioned fallback reads ALL responders)
+            _, order, _ = alcc_engine.survivor_round_info(cfg,
+                                                          trace.responders)
         else:
             dmat, order = _eng.survivor_round(cfg, trace.responders)
             dmat_t = torch.as_tensor(dmat, dtype=torch.int32,
@@ -723,6 +793,11 @@ class ClusterRunner:
                 parts = decoder.finish(order)
                 streamed = decoder.streamed
                 self.w2 = self._update_parts(self.w2, parts, bidx)
+            elif alcc:
+                fastest = np.stack([np.asarray(trace.payloads[int(w)],
+                                               dtype=np.float32)
+                                    for w in order])
+                self.w2 = self._update(self.w2, fastest, order, bidx)
             else:
                 fastest = np.stack([np.asarray(trace.payloads[int(w)],
                                                dtype=np.int32)
@@ -732,6 +807,8 @@ class ClusterRunner:
                     dmat_t, bidx)
             if self.device.type == "cuda":    # honest decode_s
                 torch.cuda.synchronize(self.device)
+        elif alcc:
+            self.w2 = self._round(t, self.w2, order, bidx)
         else:
             order_t = torch.as_tensor(order, dtype=torch.int64,
                                       device=self.device)
@@ -774,7 +851,7 @@ class ClusterRunner:
         with self._pipeline_scope(iters):
             for t in range(iters):
                 self.step_round(t, iters)
-        return _eng._w_public(self.cfg, self.w2)
+        return self.eng._w_public(self.cfg, self.w2)
 
     def run_resilient(self, iters: int, ckpt_manager,
                       checkpoint_every: int = 5, max_retries: int = 3,
@@ -824,13 +901,15 @@ class ClusterRunner:
             # a restore rewinds t; RoundPrefetcher.get resets its producer
             loop.run(state0, step_fn, start_step=0, num_steps=iters)
         self.restarts = loop.restarts
-        return _eng._w_public(self.cfg, self.w2)
+        return self.eng._w_public(self.cfg, self.w2)
 
     def _reset(self) -> None:
-        self.w2 = _eng._w_internal(self.cfg, self.state.w)
+        self.w2 = self.eng._w_internal(self.cfg, self.state.w)
         self.records.clear()
         self.traces.clear()
         self._last_order = None
+        if self.alcc_info is not None:
+            self.alcc_info.clear()
 
     # ------------------------------------------------------------------
     # Trace export + stats
@@ -879,4 +958,13 @@ class ClusterRunner:
             "joins": float(sum(tr.kind == "join" for tr in trans)),
             "leaves": float(sum(tr.kind == "leave" for tr in trans)),
         }
+        if self.alcc_info:
+            # the decode's conditioning and a-priori float error bound
+            stats["alcc"] = {
+                "cond": wait_summary([i["cond"] for i in self.alcc_info]),
+                "abs_err_budget": wait_summary(
+                    [i["abs_err_budget"] for i in self.alcc_info]),
+                "fallbacks": {"n": float(sum(
+                    1 for i in self.alcc_info if i["fallback"]))},
+            }
         return stats

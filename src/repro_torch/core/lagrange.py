@@ -137,13 +137,22 @@ def decode(scheme: CodingScheme, results: torch.Tensor, survivors: np.ndarray,
     if len(survivors) < need:
         raise ValueError(f"need {need} survivors for deg(f)={deg_f}, "
                          f"got {len(survivors)}")
-    survivors = np.asarray(survivors)[:need]
+    survivors = tuple(int(i) for i in np.asarray(survivors)[:need])
     res_shape = results.shape[1:]
     flat = results[:need].reshape(need, -1).contiguous()
-    dt = torch.as_tensor(scheme.decode_matrix(survivors).T.copy(),
-                         dtype=torch.int32, device=results.device)  # (K, S)
+    dt = _decode_matrix_t(scheme, survivors, results.device)     # (K, S)
     out = field.matmul(dt, flat, p)
     return out.reshape(scheme.K, *res_shape)
+
+
+@functools.lru_cache(maxsize=512)
+def _decode_matrix_t(scheme: CodingScheme, survivors: tuple[int, ...],
+                     device: torch.device) -> torch.Tensor:
+    """Dᵀ (K, S) int32 on ``device``, built once per survivor pattern: the
+    host solve is pure python, and a serving flush decodes every time."""
+    return torch.as_tensor(
+        scheme.decode_matrix(np.asarray(survivors)).T.copy(),
+        dtype=torch.int32, device=device)
 
 
 def decode_sum(scheme: CodingScheme, results: torch.Tensor,

@@ -34,10 +34,33 @@ tests hand its draws to the port through an object with the same methods.
                                      share; a function of (seed, worker)
                                      alone, so a worker process draws its
                                      own from the shipped seed
+
+``TorchServeDraws`` is the seam of the coded prediction server
+(cluster/serve.py):
+
+  weight_masks(T, shape, p)       -> (T, *shape) int32 masks of the model's
+                                     encode, drawn once per provision
+  flush_masks(t, T, shape, p)     -> (T, *shape) int32 fresh masks of flush
+                                     t's query encode
+  model_weights(shape)            -> float32 standard normals: the CLI's
+                                     stand-in model (launch/cpml_serve.py)
+
+``TorchALCCDraws`` is the seam of the ALCC float engine
+(core/protocol/alcc_engine.py, cluster/alcc_mlp.py).  Its masks are
+float32 standard normals that ``alcc.draw_masks`` scales by sigma:
+
+  data_masks(shape)               -> (T, mk, d) masks of the dataset encode
+  round_masks(t, shape)           -> (T, *shape) masks of coded round t (the
+                                     MLP's rounds 2s and 2s+1 are step s's)
+  batch(t, mk, rows)              -> as TorchDraws.batch
+  mlp_init(d, hidden, c)          -> (w1 (d, hidden), w2 (hidden, c))
+                                     float32 initial MLP weights, normals
+                                     over sqrt(fan-in)
 """
 from __future__ import annotations
 
 import hashlib
+import math
 
 import torch
 
@@ -101,3 +124,46 @@ class TorchMPCDraws(TorchDraws):
         g = torch.Generator().manual_seed(_seed_of(int(seed), int(worker)))
         return torch.randint(0, p, (T, *shape), generator=g,
                              dtype=torch.int32).to(self.device)
+
+
+class TorchServeDraws(TorchDraws):
+    """The prediction server's draws (see the module docstring)."""
+
+    def weight_masks(self, T: int, shape: tuple[int, ...], p: int
+                     ) -> torch.Tensor:
+        g = self._gen("serve_weights")
+        return torch.randint(0, p, (T, *shape), generator=g,
+                             dtype=torch.int32).to(self.device)
+
+    def flush_masks(self, t: int, T: int, shape: tuple[int, ...], p: int
+                    ) -> torch.Tensor:
+        g = self._gen("serve_flush", int(t))
+        return torch.randint(0, p, (T, *shape), generator=g,
+                             dtype=torch.int32).to(self.device)
+
+    def model_weights(self, shape: tuple[int, ...]) -> torch.Tensor:
+        g = self._gen("serve_model")
+        return torch.randn(tuple(shape), generator=g,
+                           dtype=torch.float32).to(self.device)
+
+
+class TorchALCCDraws(TorchDraws):
+    """The ALCC engine's draws (see the module docstring)."""
+
+    def data_masks(self, shape: tuple[int, ...]) -> torch.Tensor:
+        g = self._gen("alcc_data")
+        return torch.randn(tuple(shape), generator=g,
+                           dtype=torch.float32).to(self.device)
+
+    def round_masks(self, t: int, shape: tuple[int, ...]) -> torch.Tensor:
+        g = self._gen("alcc_round", int(t))
+        return torch.randn(tuple(shape), generator=g,
+                           dtype=torch.float32).to(self.device)
+
+    def mlp_init(self, d: int, hidden: int, c: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        g = self._gen("alcc_mlp_init")
+        w1 = torch.randn((d, hidden), generator=g, dtype=torch.float32)
+        w2 = torch.randn((hidden, c), generator=g, dtype=torch.float32)
+        return ((w1 / math.sqrt(d)).to(self.device),
+                (w2 / math.sqrt(hidden)).to(self.device))

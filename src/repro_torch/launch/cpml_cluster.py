@@ -12,10 +12,13 @@
     python -m repro_torch.launch.cpml_cluster --protocol mpc --latency lognormal
     python -m repro_torch.launch.cpml_cluster --protocol mpc --transport socket \\
         --workers 5 --privacy 2 --straggle-worker 4
+    python -m repro_torch.launch.cpml_cluster --engine alcc --iters 10
+    python -m repro_torch.launch.cpml_cluster --engine alcc --model mlp \
+        --classes 10 --hidden 32 --transport socket
     python -m repro_torch.launch.cpml_cluster --device cpu --m 300 --d 24
 
-Mirrors ``repro/launch/cpml_cluster.py`` for ``--engine exact``:
-CodedPrivateML training through the cluster runtime (repro_torch.cluster),
+Mirrors ``repro/launch/cpml_cluster.py``: CodedPrivateML training
+through the cluster runtime (repro_torch.cluster),
 per-round dispatch to N workers, decode at the fastest ``threshold``
 responders, and what the wait-for-fastest-T policy saved over
 wait-for-all.
@@ -43,9 +46,18 @@ SubShares through the master's relay over sockets), reconstruction at the
 first 2T+1 final shares, and a closing bit-identity check against the
 port's single-host ``mpc_baseline.train`` with the same draws.
 
-Not ported, refused with exit 2: ``--engine alcc`` and ``--model mlp``
-(ROADMAP.md queue 1 item 9) and ``--masters > 1`` (item 6,
-``master_group``).
+``--engine alcc`` swaps in the ALCC float engine (real-valued Lagrange
+coding, Gaussian masks of std ``--sigma``, least-squares decode): an
+in-process run ends bit-identical to ``alcc_engine.train_reference`` over
+its trace, a socket run within ``ALCC_SOCKET_TOL`` of it, and both print
+the decode's condition number and error budget and the accuracy of the
+uncoded ``float_oracle``.  ``--model mlp`` (ALCC only) trains the gelu MLP
+as two coded phases a step (cluster/alcc_mlp.py), its final loss within
+``ALCC_MLP_LOSS_TOL`` of the plaintext ``mlp_oracle``.  The reference's
+cross-flag refusals are kept, in its words (exit 2).
+
+Not ported, refused with exit 2: ``--masters > 1`` (ROADMAP.md queue 1
+item 6, ``master_group``).
 """
 from __future__ import annotations
 
@@ -61,6 +73,14 @@ import time
 
 _SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
+# The reference's ALCC tolerances (its cpml_cluster.py): a socket run
+# replays through train_reference within ALCC_SOCKET_TOL in max|Δw| (the
+# workers' float32 products sum in another order than the replay's), and
+# an MLP run's final full-data loss lands within ALCC_MLP_LOSS_TOL of the
+# plaintext oracle's.
+ALCC_SOCKET_TOL = 1e-3
+ALCC_MLP_LOSS_TOL = 0.05
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="CodedPrivateML cluster driver "
@@ -70,9 +90,23 @@ def build_parser() -> argparse.ArgumentParser:
                          "BGW secret-sharing baseline over the same runtime "
                          "(reshare barriers, no straggler tolerance)")
     ap.add_argument("--engine", choices=("exact", "alcc"), default="exact",
-                    help="alcc (the float engine) is not ported yet")
+                    help="coded-arithmetic backend: exact = quantized "
+                         "Lagrange coding over F_p, bit-identical decode; "
+                         "alcc = real-valued Lagrange coding with Gaussian "
+                         "masks and a least-squares decode whose condition "
+                         "number and error budget are tracked per round")
     ap.add_argument("--model", choices=("logreg", "mlp"), default="logreg",
-                    help="mlp (ALCC only) is not ported yet")
+                    help="logreg = the paper's logistic regression; mlp = "
+                         "the two-layer gelu MLP as two bilinear coded "
+                         "phases a step (ALCC only)")
+    ap.add_argument("--sigma", type=float, default=1.0,
+                    help="ALCC Gaussian mask std, the analog privacy knob "
+                         "(--engine alcc only)")
+    ap.add_argument("--hidden", type=int, default=32,
+                    help="MLP hidden width (--model mlp)")
+    ap.add_argument("--eta", type=float, default=0.1,
+                    help="MLP step size for both layers (--model mlp; "
+                         "logreg keeps the Lipschitz step)")
     ap.add_argument("--workers", "-N", type=int, default=8)
     ap.add_argument("--parallel", "-K", type=int, default=2)
     ap.add_argument("--privacy", "-T", type=int, default=1)
@@ -208,9 +242,11 @@ def local_socket_cluster(n_workers: int, *, port: int = 0,
     Yields the master ``SocketTransport`` once every worker has connected
     (``tr.startup_s``: seconds from the first spawn to the last HELLO).  On
     CUDA the kernels are built first, once, so the workers only load them.
-    On exit the transport is closed (each worker leaves its serve loop) and
-    the processes are reaped; with ``reports`` given, each worker's stdout
-    is captured and its JSON report line appended there.  A process a
+    On a normal exit the master keeps relaying and flushing until every
+    worker has left (at most 60 s), so queued sub-shares and SHUTDOWNs
+    reach them; then the transport is closed and the processes are reaped.
+    With ``reports`` given, each worker's stdout is captured and its JSON
+    report line appended there.  A process a
     caller appends to ``tr.procs`` (a resilient respawn, spawned with
     ``stdout=tr.worker_stdout``) is reaped and reported the same way.
     """
@@ -244,6 +280,15 @@ def local_socket_cluster(n_workers: int, *, port: int = 0,
                               timeout_s=connect_timeout_s)
         tr.startup_s = time.monotonic() - t0
         yield tr
+        # Relay and flush until every worker has left.  A straggler's last
+        # reshare sub-shares and every SHUTDOWN may still sit in the
+        # master's outboxes; closing now would drop them and leave a worker
+        # waiting at a barrier that can no longer fill.
+        deadline = time.monotonic() + 60.0
+        while (any(p.poll() is None for p in procs)
+               and time.monotonic() < deadline):
+            tr.recv(tr.local, math.inf)
+            tr.next_delivery(tr.local)
     finally:
         tr.close()
         deadline = time.monotonic() + 30.0
@@ -286,14 +331,40 @@ def _emit_obs(args, runner, threshold: int) -> None:
 
 
 def _validate(args) -> str | None:
-    """The flags this port refuses: one sentence naming the ROADMAP item,
-    or None when the run is possible."""
-    if args.engine == "alcc":
-        return ("--engine alcc (the ALCC float engine) is not ported yet: "
-                "ROADMAP.md queue 1 item 9")
+    """The refusals: the reference's cross-flag matrix in its words, then
+    the flag this port does not have (naming its ROADMAP item); None when
+    the run is possible."""
+    if args.engine == "alcc" and args.protocol == "mpc":
+        return ("--engine alcc cannot run --protocol mpc: BGW is an exact "
+                "finite-field protocol (Shamir shares, modular reshare "
+                "barriers) — there is no analog/float variant of its "
+                "degree reduction")
     if args.model == "mlp":
-        return ("--model mlp (ALCC's coded MLP) is not ported yet: "
-                "ROADMAP.md queue 1 item 9")
+        if args.protocol == "mpc":
+            return ("--model mlp is a coded-protocol feature: the BGW "
+                    "baseline reproduces the paper's logistic task only")
+        if args.engine != "alcc":
+            return ("--model mlp needs --engine alcc: gelu and softmax are "
+                    "not finite-field polynomials, so the exact engine "
+                    "structurally cannot train the MLP")
+        if args.resilient or args.collect_all:
+            return ("--resilient/--collect-all are not wired into the MLP "
+                    "plane yet — drop them or use --model logreg")
+    if args.engine == "alcc":
+        if args.pipeline != "off":
+            return ("--pipeline modes are exact-engine only: they split the "
+                    "FIELD encode/decode (prefetchable mask rows, integer "
+                    "streaming folds) — the ALCC least-squares decode has "
+                    "no such split")
+        if args.masters > 1 or args.spares or args.join_at_round is not None:
+            return ("--masters/--spares/--join-at-round are exact-engine "
+                    "only: the elastic + sharded-master planes rely on "
+                    "bit-identical re-encode, which a float engine cannot "
+                    "promise")
+        if args.transport == "socket" and args.wire == "v1":
+            return ("--engine alcc needs --wire v2: float round shares and "
+                    "results are wire v2 frames (like TRACE/JOIN) — a v1 "
+                    "fleet has no frame for them")
     if args.masters != 1:
         return ("--masters > 1 (cluster/master_group.py) is not ported yet: "
                 "ROADMAP.md queue 1 item 6")
@@ -386,7 +457,8 @@ def _run_socket(args, cfg, x, y, draws, dev, out: dict):
                                heartbeat_timeout_s=args.heartbeat_timeout,
                                collect_all=args.collect_all,
                                pipeline=args.pipeline, spares=spares,
-                               recorder=_recorder_for(args))
+                               recorder=_recorder_for(args),
+                               engine=args.engine)
         runner.provision(timeout_s=300.0)
         provision_s = runner.metrics.gauge("cpml_provision_seconds").value
         print(f"provisioned in {provision_s:.1f}s (shares shipped, every "
@@ -466,7 +538,7 @@ def _run_inprocess(args, cfg, x, y, draws, dev, out: dict):
                            encode_cost_s=args.encode_cost_s,
                            decode_cost_s=args.decode_cost_s,
                            spares=spares, join_schedule=join_schedule,
-                           recorder=_recorder_for(args))
+                           recorder=_recorder_for(args), engine=args.engine)
     w = _timed_run(runner, args.iters, dev, out, resilient=args.resilient,
                    checkpoint_every=args.checkpoint_every)
     print(f"in-process run: {args.iters} rounds in {out['run_s']:.3f}s "
@@ -614,14 +686,27 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     if args.protocol == "mpc":
         return _run_mpc(args, dev)
+    if args.model == "mlp":
+        return _run_mlp(args, dev)
 
-    cfg = protocol.CPMLConfig(N=args.workers, K=args.parallel,
-                              T=args.privacy, r=args.degree, c=args.classes,
-                              batch_rows=args.batch_rows)
+    from repro_torch.core.protocol import alcc_engine
+    from repro_torch.core.protocol.draws import TorchALCCDraws
+
+    alcc = args.engine == "alcc"
+    if alcc:
+        cfg = alcc_engine.ALCCConfig(N=args.workers, K=args.parallel,
+                                     T=args.privacy, r=args.degree,
+                                     c=args.classes, sigma=args.sigma,
+                                     batch_rows=args.batch_rows)
+    else:
+        cfg = protocol.CPMLConfig(N=args.workers, K=args.parallel,
+                                  T=args.privacy, r=args.degree,
+                                  c=args.classes, batch_rows=args.batch_rows)
     mode = (args.latency if args.transport == "inprocess"
             else f"socket x{cfg.N} procs")
-    print(f"CPML cluster [exact]: N={cfg.N} K={cfg.K} T={cfg.T} r={cfg.r} "
-          f"c={cfg.c} threshold={cfg.threshold} [{mode}] device={dev}")
+    print(f"CPML cluster [{args.engine}]: N={cfg.N} K={cfg.K} T={cfg.T} "
+          f"r={cfg.r} c={cfg.c} threshold={cfg.threshold} [{mode}] "
+          f"device={dev}")
     if cfg.c == 1:
         x_np, y_np = synthetic.mnist_like(1, m=args.m, d=args.d, margin=12.0)
     else:
@@ -629,7 +714,7 @@ def main(argv: list[str] | None = None) -> int:
                                                      c=cfg.c)
     x = torch.as_tensor(x_np, device=dev)
     y = torch.as_tensor(y_np, device=dev)
-    draws = protocol.TorchDraws(args.seed, dev)
+    draws = (TorchALCCDraws if alcc else protocol.TorchDraws)(args.seed, dev)
 
     out: dict = {}
     if args.transport == "socket":
@@ -642,13 +727,25 @@ def main(argv: list[str] | None = None) -> int:
     if not args.no_verify:
         # runner.cfg is the spare-extended config when elastic: the replay
         # runs the same N + spares scheme over the observed trace
-        w_ref, _ = protocol.train_reference(
+        w_ref, _ = (alcc_engine if alcc else protocol).train_reference(
             runner.cfg, x, y, args.iters, eta=runner.eta,
             survivor_fn=runner.survivor_fn(), draws=draws, device=dev)
-        same = bool(torch.equal(w, w_ref))
-        print(f"bit-identical to train_reference over the observed "
-              f"responder trace: {same}")
-        if not same:
+        if alcc and args.transport == "socket":
+            # the workers' float32 products sum in another order than the
+            # replay's batched product: a tolerance, as in the reference
+            gap = float((w - w_ref).abs().max())
+            out["replay_max_abs_diff"] = gap
+            ok = gap <= ALCC_SOCKET_TOL
+            print(f"train_reference replay over the observed responder "
+                  f"trace: max|Δw| = {gap:.2e} "
+                  f"(tolerance {ALCC_SOCKET_TOL:.0e}): "
+                  f"{'OK' if ok else 'FAILED'}")
+        else:
+            same = ok = (_same_bits(w, w_ref) if alcc
+                         else bool(torch.equal(w, w_ref)))
+            print(f"bit-identical to train_reference over the observed "
+                  f"responder trace: {same}")
+        if not ok:
             rc = 1
 
     _emit_obs(args, runner, cfg.threshold)
@@ -685,20 +782,44 @@ def main(argv: list[str] | None = None) -> int:
               f"{allw['total']:.3f}s wait-all "
               f"({allw['total'] / coded['total']:.2f}x speedup)")
 
-    # accuracy against the cleartext quantized baseline, same step count
-    wc, xq = protocol.cleartext_baseline(cfg, x, y, args.iters)
     metric = (protocol.loss_and_accuracy if cfg.c == 1
               else protocol.multiclass_loss_and_accuracy)
-    _, acc = metric(w, xq, y)
-    _, acc_ref = metric(wc, xq, y)
-    print(f"accuracy: coded {float(acc):.2%} vs cleartext baseline "
-          f"{float(acc_ref):.2%}")
+    if alcc:
+        a = stats["alcc"]
+        print(f"alcc decode: cond p95 {a['cond']['p95']:.1f}, error budget "
+              f"p95 {a['abs_err_budget']['p95']:.2e}, "
+              f"{int(a['fallbacks']['n'])} fallback(s)")
+        # against the UNCODED float oracle (same surrogate, batches and
+        # steps): the gap is the coding's float error alone
+        w_oracle = alcc_engine.float_oracle(cfg, x, y, args.iters,
+                                            eta=runner.eta, draws=draws,
+                                            device=dev)
+        out["oracle_max_abs_diff"] = float((w - w_oracle).abs().max())
+        out["weights_finite"] = bool(torch.isfinite(w).all())
+        out["alcc_decode"] = runner.alcc_info
+        if not out["weights_finite"]:
+            print("weights not finite: the float32 worker results overflowed "
+                  "(see the error budget)")
+        x_eval = runner.state.xq_real[: runner.state.m]
+        _, acc = metric(w, x_eval, y)
+        _, acc_ref = metric(w_oracle, x_eval, y)
+        print(f"accuracy: coded {float(acc):.2%} vs uncoded float oracle "
+              f"{float(acc_ref):.2%} (max|Δw| {out['oracle_max_abs_diff']:.2e})")
+    else:
+        # against the cleartext quantized baseline, same step count
+        wc, xq = protocol.cleartext_baseline(cfg, x, y, args.iters)
+        _, acc = metric(w, xq, y)
+        _, acc_ref = metric(wc, xq, y)
+        print(f"accuracy: coded {float(acc):.2%} vs cleartext baseline "
+              f"{float(acc_ref):.2%}")
 
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(_json_finite({
                 "config": {"N": cfg.N, "K": cfg.K, "T": cfg.T, "r": cfg.r,
                            "c": cfg.c, "m": args.m, "d": args.d,
+                           "engine": args.engine,
+                           "sigma": args.sigma if alcc else None,
                            "batch_rows": cfg.batch_rows,
                            "spares": args.spares,
                            "transport": args.transport,
@@ -715,6 +836,141 @@ def main(argv: list[str] | None = None) -> int:
                 "acc_coded": float(acc),
                 "acc_baseline": float(acc_ref), **out}), f, indent=2)
     return rc
+
+
+def _run_mlp(args, dev) -> int:
+    """--model mlp: the two-phase coded gelu MLP under ALCC."""
+    import torch
+
+    from repro_torch.cluster.alcc_mlp import ALCCMLPRunner, train_reference
+    from repro_torch.cluster.latency import make_latency
+    from repro_torch.core.protocol import alcc_engine
+    from repro_torch.core.protocol.draws import TorchALCCDraws
+    from repro_torch.data import synthetic
+
+    c = max(args.classes, 2)        # softmax head: binary becomes 2-class
+    cfg = alcc_engine.ALCCConfig(N=args.workers, K=args.parallel,
+                                 T=args.privacy, c=c, sigma=args.sigma,
+                                 batch_rows=args.batch_rows)
+    mode = (args.latency if args.transport == "inprocess"
+            else f"socket x{cfg.N} procs")
+    print(f"ALCC MLP cluster: N={cfg.N} K={cfg.K} T={cfg.T} c={c} "
+          f"hidden={args.hidden} sigma={cfg.sigma} "
+          f"phase-threshold={cfg.mlp_threshold} [{mode}] device={dev}")
+    x_np, y_np = synthetic.multiclass_mnist_like(1, m=args.m, d=args.d, c=c)
+    x = torch.as_tensor(x_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    draws = TorchALCCDraws(args.seed, dev)
+    out: dict = {}
+    rc = 0
+    if args.transport == "socket":
+        timeout = args.round_timeout
+        if math.isinf(timeout):
+            timeout = 120.0
+        sleep = ({args.straggle_worker: args.straggle_sleep}
+                 if args.straggle_worker is not None else None)
+        die = ({w: args.kill_at_round for w in args.kill_worker}
+               if args.kill_worker is not None else None)
+        reports: list[dict] = []
+        with local_socket_cluster(cfg.N, port=args.port, sleep_s=sleep,
+                                  die_at_round=die,
+                                  wire_version=int(args.wire[1:]),
+                                  device=dev.type, reports=reports) as tr:
+            print(f"{cfg.N} worker processes connected in "
+                  f"{tr.startup_s:.1f}s")
+            runner = ALCCMLPRunner(cfg, x, y, args.hidden, latency=None,
+                                   draws=draws, device=dev, transport=tr,
+                                   eta=args.eta, round_timeout_s=timeout,
+                                   recorder=_recorder_for(args))
+            runner.provision(timeout_s=300.0)
+            provision_s = runner.metrics.gauge("cpml_provision_seconds").value
+            print(f"provisioned in {provision_s:.1f}s")
+            w1, w2 = _timed_run(runner, args.iters, dev, out)
+            runner.shutdown_workers()
+        out.update(startup_s=tr.startup_s, provision_s=provision_s,
+                   worker_reports=sorted(reports, key=lambda r: r["worker"]))
+        print(f"socket MLP run: {args.iters} steps (2 coded phases each) "
+              f"over TCP in {out['run_s']:.2f}s "
+              f"({out['run_s'] / args.iters * 1e3:.1f} ms/step)")
+        print(f"worker reports: {len(reports)}, devices "
+              f"{sorted({r['device'] for r in reports})}")
+    else:
+        latency = make_latency(args.latency, seed=args.latency_seed)
+        runner = ALCCMLPRunner(cfg, x, y, args.hidden, latency,
+                               draws=draws, device=dev, eta=args.eta,
+                               round_timeout_s=args.round_timeout,
+                               recorder=_recorder_for(args))
+        w1, w2 = _timed_run(runner, args.iters, dev, out)
+        print(f"in-process MLP run: {args.iters} steps in "
+              f"{out['run_s']:.3f}s "
+              f"({out['run_s'] / args.iters * 1e3:.2f} ms/step, host "
+              f"clock, {dev})")
+    if args.trace_out or args.metrics_out:
+        _emit_obs(args, runner, cfg.mlp_threshold)
+    stats = runner.wait_stats()
+    a = stats["alcc"]
+    print(f"alcc decode: cond p95 {a['cond']['p95']:.1f}, error budget "
+          f"p95 {a['abs_err_budget']['p95']:.2e}, "
+          f"{int(a['fallbacks']['n'])} fallback(s)")
+    coded = stats["coded_T"]
+    print(f"per-phase wait  coded-T: mean {coded['mean']:.4f}s  "
+          f"p50 {coded['p50']:.4f}s  p95 {coded['p95']:.4f}s")
+    out["alcc_decode"] = runner.alcc_info
+    loss, acc = runner.metrics_now()
+    ow1, ow2 = alcc_engine.mlp_oracle(cfg, x, y, args.hidden, args.iters,
+                                      args.eta, draws=draws, device=dev)
+    oloss, oacc = alcc_engine.mlp_metrics(runner.state, ow1, ow2)
+    print(f"MLP loss {loss:.4f} / acc {acc:.2%} vs plaintext autograd "
+          f"oracle {oloss:.4f} / {oacc:.2%} "
+          f"(|Δloss| = {abs(loss - oloss):.2e}, "
+          f"tolerance {ALCC_MLP_LOSS_TOL})")
+    if abs(loss - oloss) > ALCC_MLP_LOSS_TOL:
+        rc = 1
+    same = None
+    if not args.no_verify:
+        w1r, w2r, _ = train_reference(cfg, x, y, args.hidden, args.iters,
+                                      args.eta,
+                                      survivor_fn=runner.survivor_fn(),
+                                      draws=draws, device=dev)
+        gap = max(float((w1 - w1r).abs().max()),
+                  float((w2 - w2r).abs().max()))
+        out["replay_max_abs_diff"] = gap
+        if args.transport == "socket":
+            ok = gap <= ALCC_SOCKET_TOL
+            print(f"train_reference replay: max|Δw| = {gap:.2e} "
+                  f"(tolerance {ALCC_SOCKET_TOL:.0e}): "
+                  f"{'OK' if ok else 'FAILED'}")
+        else:
+            same = ok = _same_bits(w1, w1r) and _same_bits(w2, w2r)
+            print(f"bit-identical to train_reference over the observed "
+                  f"responder trace: {ok}")
+        if not ok:
+            rc = 1
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(_json_finite(
+                {"config": {"N": cfg.N, "K": cfg.K, "T": cfg.T, "c": c,
+                            "m": args.m, "d": args.d,
+                            "engine": "alcc", "model": "mlp",
+                            "hidden": args.hidden, "sigma": cfg.sigma,
+                            "eta": args.eta,
+                            "transport": args.transport,
+                            "iters": args.iters},
+                 "device": str(dev),
+                 "bit_identical": same,
+                 "wait_stats": stats,
+                 "loss_coded": loss, "acc_coded": acc,
+                 "loss_oracle": oloss, "acc_oracle": oacc,
+                 **out}), f, indent=2)
+    return rc
+
+
+def _same_bits(a, b) -> bool:
+    """Float32 tensors equal bit for bit, NaN payloads included (a diverged
+    ALCC run still replays exactly)."""
+    import torch
+    return a.shape == b.shape and bool(torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
 
 
 def _json_finite(obj):

@@ -3,10 +3,12 @@
     python -m repro_torch.launch.cpml_worker --port 9000 --worker 3
     python -m repro_torch.launch.cpml_worker --port 9000 --worker 3 --device cpu
 
-Mirrors the ``"cpml"`` and ``"mpc"`` modes of
-``repro/launch/cpml_worker.py``; it speaks the same wire (v1 or v2), so
-either package's master can drive it in the ``"cpml"`` mode.  One process
-is one of the paper's N workers:
+Mirrors ``repro/launch/cpml_worker.py`` and its five modes: ``"cpml"``,
+``"mpc"``, ``"serve"``, ``"alcc"`` and ``"alcc_mlp"``.  It speaks the same
+wire (v1 or v2; the ALCC modes' float frames are v2), so the reference's
+master drives it in every mode but ``"mpc"`` (whose reshare masks come
+from seeds only the port's master ships).  One process is one of the
+paper's N workers:
 
   1. PROVISION: an EncodeShare with ``round == PROVISION_ROUND`` carrying
      {cfg kwargs, the dataset share, the coefficients c̄}.  The share goes
@@ -15,9 +17,12 @@ is one of the paper's N workers:
      worker ack with a Heartbeat: round 0 is not charged for start-up.
      ``"protocol": "mpc"`` selects the BGW baseline: the share is a Shamir
      share of the whole dataset X̄_i, kept on the device beside its
-     transpose.  The reference's ``"serve"``, ``"alcc"`` and ``"alcc_mlp"``
-     provisions are refused (ROADMAP.md queue 1 items 8 and 9): the worker
-     exits 2.
+     transpose.  ``"serve"`` carries the model share W̃_i (int32, kept on
+     the device for the deployment) and the flush's row count; the
+     warm-up is one product at that shape.  ``"alcc"`` carries a float32
+     dataset share and the real surrogate's coefficients; ``"alcc_mlp"``
+     a float32 dataset share and the hidden width, and warms up both
+     phases' products.
   2. ROUNDS, "cpml": each EncodeShare(t, i, {"w_share", "batch",
      "next_batch"}) is acked with a Heartbeat, then answered with
      WorkerResult(t, i, compute_s, f(X̃_i[batch], W̃_i)), where f is
@@ -33,6 +38,11 @@ is one of the paper's N workers:
      all N sub-shares are in), then g = X̄_iᵀ·s, answered with
      CombineResult(t, i, compute_s, g).  Two ``modmatmul`` launches a
      round on the card.
+     ROUNDS, "serve": each EncodeShare(t, i, {"x_share"}) is one coded
+     flush, answered with X̃_i·W̃_i mod p: one ``modmatmul`` launch.
+     ROUNDS, "alcc": f(X̃_i[batch], W̃_i) = X̃ᵀ ĝ(X̃ W̃) in float32;
+     "alcc_mlp": by round parity, X̃_i[batch] @ W̃1_i (even rounds) or
+     X̃_i[batch]ᵀ @ δ̃1_i (odd), both float32 matmuls, no custom kernel.
   3. SHUTDOWN: ``round == SHUTDOWN_ROUND``, or the master hanging up.
 
 On leaving its serve loop the worker prints one JSON line to stdout: its
@@ -43,9 +53,10 @@ the kernel launches of its rounds (``launches``) and those of the warm-up
 ``--die-at-round R`` exits without replying when round R's share arrives;
 ``--sleep-s S`` sleeps S seconds before every reply (a real straggler; in
 the "mpc" mode before every phase's sends, which stalls every peer at the
-barrier); ``--barrier-timeout S`` bounds the wait at a reshare barrier;
-``--join-at-round R`` announces an elastic JOIN for round R's fence.  Runs
-on CUDA unless ``--device cpu``; without CUDA it exits 2.
+barrier); ``--barrier-timeout S`` bounds the wait at a reshare barrier,
+and a master that hangs up ends it at once; ``--join-at-round R``
+announces an elastic JOIN for round R's fence.  Runs on CUDA unless
+``--device cpu``; without CUDA it exits 2.
 """
 from __future__ import annotations
 
@@ -57,10 +68,6 @@ import sys
 import time
 
 _T0 = time.monotonic()    # before torch is imported: start-up seconds
-
-# the reference's other provisions and the ROADMAP items that port them
-_NOT_PORTED = {"serve": "queue 1 item 8", "alcc": "queue 1 item 9",
-               "alcc_mlp": "queue 1 item 9"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,10 +98,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-class _Refused(Exception):
-    """A provision this port cannot serve."""
-
-
 def serve(args, dev) -> int:
     import numpy as np
     import torch
@@ -105,7 +108,7 @@ def serve(args, dev) -> int:
     from repro_torch.cluster.socket_transport import SocketTransport
     from repro_torch.core import field
     from repro_torch.core import mpc_baseline as mpc
-    from repro_torch.core.protocol import compute
+    from repro_torch.core.protocol import alcc_engine, compute
     from repro_torch.core.protocol.config import CPMLConfig
     from repro_torch.core.protocol.draws import TorchMPCDraws
     from repro_torch.kernels import LAUNCHES
@@ -154,16 +157,28 @@ def serve(args, dev) -> int:
             elif isinstance(msg, EncodeShare):
                 pending.append((at, msg))
 
+    def warmed(t_c0: float) -> None:
+        """End of a warm-up begun at ``t_c0``: its seconds and launches
+        go apart from the rounds'."""
+        report["warmup_s"] = time.monotonic() - t_c0
+        report["warmup_launches"] = dict(LAUNCHES)
+        if state["trace"]:
+            # rides the first traced result, like the reference's
+            # warm_compile span
+            state["carry"] = [["warm_compile", t_c0, time.monotonic()]]
+
     def provision(p: dict) -> None:
         protocol = p.get("protocol", "cpml")
-        if protocol in _NOT_PORTED:
-            raise _Refused(
-                f"{me}: the {protocol!r} worker mode is not ported yet "
-                f"(ROADMAP.md {_NOT_PORTED[protocol]})")
         state["trace"] = bool(p.get("trace"))
         state["protocol"] = protocol
         if protocol == "mpc":
             provision_mpc(p)
+            return
+        if protocol == "serve":
+            provision_serve(p)
+            return
+        if protocol in ("alcc", "alcc_mlp"):
+            provision_alcc(p)
             return
         cfg = CPMLConfig(**p["cfg"])
         state["f"] = compute.worker_fn(cfg, to_dev(p["cbar"], np.int32))
@@ -178,13 +193,7 @@ def serve(args, dev) -> int:
         ww = torch.zeros((x_share.shape[1], cfg.c, cfg.r), dtype=torch.int32,
                          device=dev)
         state["f"](xw, ww).cpu()
-        report["warmup_s"] = time.monotonic() - t_c0
-        # the rounds' launches are counted from here on
-        report["warmup_launches"] = dict(LAUNCHES)
-        if state["trace"]:
-            # rides the first traced result, like the reference's
-            # warm_compile span
-            state["carry"] = [["warm_compile", t_c0, time.monotonic()]]
+        warmed(t_c0)
 
     def provision_mpc(p: dict) -> None:
         cfg = mpc.MPCConfig(**p["cfg"])
@@ -201,10 +210,40 @@ def serve(args, dev) -> int:
                            torch.zeros((d, cfg.r), dtype=torch.int32,
                                        device=dev))
         mpc.worker_final(cfg, x_share, z[:, 0]).cpu()
-        report["warmup_s"] = time.monotonic() - t_c0
-        report["warmup_launches"] = dict(LAUNCHES)
-        if state["trace"]:
-            state["carry"] = [["warm_compile", t_c0, time.monotonic()]]
+        warmed(t_c0)
+
+    def provision_serve(p: dict) -> None:
+        # the model share W̃_i stays on the device for the deployment;
+        # every flush is padded to the same (rows, d)
+        state["p"] = int(p["p"])
+        w_share = to_dev(p["w_share"], np.int32)               # (d, c)
+        state["w_share"] = w_share
+        t_c0 = time.monotonic()
+        xw = torch.zeros((int(p["rows"]), w_share.shape[0]),
+                         dtype=torch.int32, device=dev)
+        field.matmul(xw, w_share, state["p"]).cpu()
+        warmed(t_c0)
+
+    def provision_alcc(p: dict) -> None:
+        x_share = to_dev(p["x_share"], np.float32)             # (mk, d)
+        state["x_share"] = x_share
+        rows = int(p["cfg"].get("batch_rows") or x_share.shape[0])
+        xw = torch.zeros((rows, x_share.shape[1]), dtype=torch.float32,
+                         device=dev)
+        t_c0 = time.monotonic()
+        if state["protocol"] == "alcc":
+            state["cbar"] = to_dev(p["cbar"], np.float32)
+            alcc_engine.worker_eval(
+                state["cbar"], xw,
+                torch.zeros((x_share.shape[1], int(p["cfg"]["c"])),
+                            dtype=torch.float32, device=dev)).cpu()
+        else:
+            h = int(p["hidden"])
+            alcc_engine.mlp_worker_eval(0, xw, torch.zeros(
+                (x_share.shape[1], h), dtype=torch.float32, device=dev)).cpu()
+            alcc_engine.mlp_worker_eval(1, xw, torch.zeros(
+                (rows, h), dtype=torch.float32, device=dev)).cpu()
+        warmed(t_c0)
 
     def reshare_barrier(cfg, t: int, phase: int, seed: int, value):
         """One BGW degree reduction from this worker's seat: re-share, send
@@ -226,6 +265,9 @@ def serve(args, dev) -> int:
                 got[src] = payload
             if len(got) == cfg.N:
                 break
+            if tr.peer_closed:
+                raise RuntimeError(f"{me}: master hung up during the reshare "
+                                   f"barrier (round {t}, phase {phase})")
             if time.monotonic() > deadline:
                 raise RuntimeError(
                     f"{me}: reshare barrier (round {t}, phase {phase}) "
@@ -279,7 +321,8 @@ def serve(args, dev) -> int:
         for key in [k for k in subshares if k[0] <= t]:
             del subshares[key]
 
-    def cpml_round(at: float, msg) -> None:
+    def straggle(at: float):
+        """A round's start: its spans, and the injected sleep."""
         t0 = time.monotonic()
         spans = state.pop("carry", []) if state.get("trace") else None
         if spans is not None:
@@ -288,6 +331,51 @@ def serve(args, dev) -> int:
             time.sleep(args.sleep_s)
             if spans is not None:
                 spans.append(["straggle", t0, time.monotonic()])
+        return t0, spans
+
+    def reply(msg, t0: float, t1: float, r, spans) -> None:
+        """Time the computation begun at ``t1`` that ends with ``r``, send
+        ``r`` back as the round's WorkerResult, and count the round."""
+        sync()
+        t2 = time.monotonic()
+        if spans is not None:
+            spans.append(["compute", t1, t2])
+        result = r.cpu().numpy()
+        t3 = time.monotonic()
+        if spans is not None:
+            spans.append(["serialize", t2, t3])
+        tr.send(MASTER,
+                WorkerResult(msg.round, args.worker,
+                             compute_s=time.monotonic() - t0,
+                             payload=result, trace=spans))
+        report["rounds"] += 1
+        if spans is not None:
+            state["carry"] = [["send", t3, time.monotonic()]]
+
+    def serve_round(at: float, msg) -> None:
+        """One coded prediction flush: X̃_i arrives, X̃_i·W̃_i goes back."""
+        t0, spans = straggle(at)
+        t1 = time.monotonic()
+        xb = to_dev(msg.payload["x_share"], np.int32)          # (rows, d)
+        reply(msg, t0, t1, field.matmul(xb, state["w_share"], state["p"]),
+              spans)
+
+    def alcc_round(at: float, msg) -> None:
+        """One ALCC float round; the MLP's phase is the round's parity."""
+        t0, spans = straggle(at)
+        t1 = time.monotonic()
+        share = to_dev(msg.payload["w_share"], np.float32)
+        batch = msg.payload.get("batch")
+        xb = (state["x_share"] if batch is None
+              else state["x_share"].index_select(0, to_dev(batch, np.int64)))
+        if state["protocol"] == "alcc_mlp":
+            r = alcc_engine.mlp_worker_eval(msg.round % 2, xb, share)
+        else:
+            r = alcc_engine.worker_eval(state["cbar"], xb, share)
+        reply(msg, t0, t1, r, spans)
+
+    def cpml_round(at: float, msg) -> None:
+        t0, spans = straggle(at)
         t1 = time.monotonic()
         w_share = to_dev(msg.payload["w_share"], np.int32)
         batch = msg.payload.get("batch")
@@ -299,22 +387,7 @@ def serve(args, dev) -> int:
             xb = cached[1]            # pre-sliced from last round's next_batch
         else:
             xb = x_share.index_select(0, to_dev(batch, np.int64))
-        r = state["f"](xb, w_share)
-        sync()
-        t2 = time.monotonic()
-        if spans is not None:
-            spans.append(["compute", t1, t2])
-        result = r.cpu().numpy()                          # int32 (d, c)
-        t3 = time.monotonic()
-        if spans is not None:
-            spans.append(["serialize", t2, t3])
-        tr.send(MASTER,
-                WorkerResult(msg.round, args.worker,
-                             compute_s=time.monotonic() - t0,
-                             payload=result, trace=spans))
-        report["rounds"] += 1
-        if spans is not None:
-            state["carry"] = [["send", t3, time.monotonic()]]
+        reply(msg, t0, t1, state["f"](xb, w_share), spans)   # int32 (d, c)
         nxt = msg.payload.get("next_batch")
         state["xb_cache"] = (
             None if nxt is None
@@ -343,15 +416,16 @@ def serve(args, dev) -> int:
             if "protocol" not in state:
                 raise RuntimeError(f"{me}: round {msg.round} share arrived "
                                    f"before provisioning")
-            if state["protocol"] == "mpc":
+            protocol = state["protocol"]
+            if protocol == "mpc":
                 mpc_round(at, msg)
+            elif protocol == "serve":
+                serve_round(at, msg)
+            elif protocol in ("alcc", "alcc_mlp"):
+                alcc_round(at, msg)
             else:
                 cpml_round(at, msg)
         return 0
-    except _Refused as e:
-        report["exit"] = "refused"
-        print(e, file=sys.stderr)
-        return 2
     finally:
         tr.close()
         base = report.get("warmup_launches", {})

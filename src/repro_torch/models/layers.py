@@ -1,8 +1,8 @@
 """Substrate layers; mirrors ``repro/models/layers.py``.
 
-Only what the mamba path needs so far: the parameter template leaf and
-``rmsnorm``.  Attention, MLPs and rope wait for the dense and hybrid slice
-(ROADMAP queue 1 item 11).
+The parameter template leaf, ``rmsnorm`` (the mamba path) and
+``gelu_mlp`` (the ALCC MLP).  Attention, the other MLPs and rope wait for
+the dense and hybrid slice (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -31,3 +31,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+             ) -> torch.Tensor:
+    """gelu(x @ w1) @ w2 with the tanh gelu, ``jax.nn.gelu``'s default."""
+    return torch.nn.functional.gelu(x @ w1, approximate="tanh") @ w2

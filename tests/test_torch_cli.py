@@ -57,13 +57,15 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "assert not bad, bad\n"
         "for m in ('cluster.runner', 'cluster.socket_transport',\n"
         "          'launch.cpml_worker', 'launch.cpml_cluster',\n"
-        "          'obs.export', 'runtime.resilience'):\n"
+        "          'obs.export', 'runtime.resilience', 'cluster.serve',\n"
+        "          'cluster.alcc_mlp', 'core.alcc',\n"
+        "          'core.protocol.alcc_engine', 'launch.cpml_serve'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "n = sum(1 for k in sys.modules if k.startswith('repro_torch.'))\n"
         "print('modules', n)\n")
     res = run(["-c", code])
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 63
+    assert int(res.stdout.split()[-1]) >= 68
 
 
 def test_chip_smoke_without_cuda_exits_nonzero_and_prints_no_result():
@@ -78,15 +80,53 @@ CLUSTER_SMALL = ["--device", "cpu", "--m", "200", "--d", "12", "--iters", "4"]
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--engine", "alcc"], "queue 1 item 9"),
-    (["--model", "mlp"], "queue 1 item 9"),
+    (["--engine", "alcc", "--pipeline", "full"], "exact-engine only"),
+    (["--model", "mlp"], "needs --engine alcc"),
     (["--masters", "2"], "queue 1 item 6"),
 ])
 def test_cpml_cluster_refuses_unported_flags(flags, item):
+    """``--masters 2`` is not ported; ``--engine alcc`` and ``--model mlp``
+    are, and refuse what the reference refuses, in its words."""
     res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
                *flags])
     assert res.returncode == 2
-    assert "not ported" in res.stderr and item in res.stderr
+    assert item in res.stderr
+    assert ("not ported" in res.stderr) == (flags[0] == "--masters")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "alcc", "--latency", "lognormal"],
+    ["--engine", "alcc", "--model", "mlp", "--classes", "4", "--hidden", "8"],
+])
+def test_cpml_cluster_alcc_cpu_smoke(tmp_path, flags):
+    """In process on the CPU: bit-identical to the port's replay, the
+    decode's conditioning printed, the JSON on the CPU."""
+    out = tmp_path / "a.json"
+    res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
+               *flags, "--json-out", str(out)])
+    assert res.returncode == 0, res.stderr
+    assert "bit-identical to train_reference over the observed " \
+           "responder trace: True" in res.stdout
+    assert "alcc decode: cond p95" in res.stdout
+    got = json.loads(out.read_text())
+    assert got["bit_identical"] is True and got["device"] == "cpu"
+    assert got["config"]["engine"] == "alcc"
+    assert got["launches_run"] == {"modmatmul": 0, "coded_grad": 0,
+                                   "selective_scan": 0}
+
+
+def test_cpml_serve_cpu_smoke(tmp_path):
+    """In process on the CPU, open loop: every flush bit-identical to the
+    oracle, latencies under both policies, the JSON on the CPU."""
+    out = tmp_path / "s.json"
+    res = run(["-m", "repro_torch.launch.cpml_serve", "--device", "cpu",
+               "--d", "16", "--queries", "24", "--json-out", str(out)])
+    assert res.returncode == 0, res.stderr
+    assert "bit-identical to the uncoded plaintext oracle: True" in res.stdout
+    assert "latency wait-for-all" in res.stdout
+    got = json.loads(out.read_text())
+    assert got["device"] == "cpu" and got["stats"]["queries"] == 24
+    assert got["stats"]["oracle"]["checked"] == got["stats"]["rounds"] > 0
 
 
 def test_cpml_cluster_needs_cuda_unless_cpu_is_asked_for():
@@ -96,6 +136,10 @@ def test_cpml_cluster_needs_cuda_unless_cpu_is_asked_for():
             ("repro_torch.launch.cpml_cluster", []),
             ("repro_torch.launch.cpml_cluster", ["--protocol", "mpc"]),
             ("repro_torch.launch.cpml_cluster", ["--resilient"]),
+            ("repro_torch.launch.cpml_cluster", ["--engine", "alcc"]),
+            ("repro_torch.launch.cpml_cluster", ["--engine", "alcc",
+                                                 "--model", "mlp"]),
+            ("repro_torch.launch.cpml_serve", []),
             ("repro_torch.launch.cpml_worker", ["--port", "1", "--worker",
                                                 "0"])):
         res = run(["-m", module, *extra])

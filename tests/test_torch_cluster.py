@@ -42,6 +42,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.cluster import latency as tlat  # noqa: E402
 from repro_torch.cluster.runner import ClusterRunner as TRunner  # noqa: E402
 from repro_torch.core import protocol as tp  # noqa: E402
+from repro_torch.core.protocol import alcc_engine  # noqa: E402
 from repro_torch.core.protocol import decode as tdecode  # noqa: E402
 from repro_torch.core.protocol import engine as te  # noqa: E402
 from test_torch_protocol import W_ATOL_TRAIN, JaxDraws  # noqa: E402
@@ -237,8 +238,15 @@ def test_runner_refusals():
     x, y = dataset(1, m=40, d=4)
     ct = tp.CPMLConfig(**BINARY)
     lat = latency(tlat, "deterministic")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        TRunner(ct, x, y, lat, device="cpu", engine="alcc")
+    # the ALCC engine refuses what the reference's does
+    # (tests/test_alcc.py::test_cluster_runner_alcc_rejects_elastic_and_pipeline)
+    ca = alcc_engine.ALCCConfig(N=8, K=2, T=1)
+    with pytest.raises(ValueError, match="exact-engine only"):
+        TRunner(ca, x, y, lat, device="cpu", engine="alcc", pipeline="full")
+    with pytest.raises(ValueError, match="exact-engine only"):
+        TRunner(ca, x, y, lat, device="cpu", engine="alcc", masters=2)
+    with pytest.raises(ValueError, match="unknown engine"):
+        TRunner(ct, x, y, lat, device="cpu", engine="sideways")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         TRunner(ct, x, y, lat, device="cpu", masters=2)
     with pytest.raises(ValueError):

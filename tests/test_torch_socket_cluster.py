@@ -9,7 +9,14 @@ wire v2 frames over localhost TCP.
   (b) the port's master drives the reference's workers: bit-identical to
       the port's train_reference;
   (c) the port's master drives the port's workers with a real straggler:
-      first-T beats wait-all, bit-identical to the port's train_reference.
+      first-T beats wait-all, bit-identical to the port's train_reference;
+  (d) the reference's PredictionServer drives the port's workers in their
+      "serve" mode, one of them killed: every prediction bit-identical to
+      the reference's uncoded oracle;
+  (e) the reference's ALCC masters (ClusterRunner(engine="alcc") and
+      ALCCMLPRunner) drive the port's workers in their "alcc" and
+      "alcc_mlp" modes: within the reference's ALCC_SOCKET_TOL of the
+      reference's train_reference over the observed trace.
 
 They spawn processes, so they are marked ``slow`` like
 tests/test_socket_cluster.py.
@@ -161,3 +168,57 @@ def test_port_master_drives_port_workers_with_straggler():
                                   survivor_fn=runner.survivor_fn(),
                                   draws=draws, device="cpu")
     assert torch.equal(w, w_ref)
+
+
+def test_reference_server_drives_port_serve_workers():
+    from repro.cluster.serve import (PredictionServer, ServeConfig,
+                                     open_loop_queries)
+    cfg = ServeConfig(N=6, K=2, T=1, max_batch=8, max_wait_s=0.02)
+    w = 0.5 * jax.random.normal(jax.random.PRNGKey(1), (12, 5))
+    qs = open_loop_queries(10, rows=4, d=12, rate_qps=100.0, seed=6)
+    with cluster(JSocket, PORT_WORKER, cfg.N, die_at_round={4: 2}) as tr:
+        srv = PredictionServer(cfg, w, jax.random.PRNGKey(2), transport=tr,
+                               round_timeout_s=120.0, verify=True)
+        srv.provision()
+        srv.run(qs)
+        srv.shutdown_workers()
+    stats = srv.stats()
+    assert stats["queries"] == 10 and stats["rounds"] >= 3
+    assert stats["oracle"]["bit_identical"]
+    for q in qs:
+        assert np.array_equal(np.asarray(srv.results[q.qid].y),
+                              srv.oracle_logits(q.x))
+    assert 4 not in srv.traces[max(srv.traces)].responders
+
+
+def test_reference_alcc_masters_drive_port_workers(binary_data):
+    from repro.cluster import alcc_mlp as jmlp
+    from repro.core.protocol import alcc_engine as je
+    from repro.launch.cpml_cluster import ALCC_SOCKET_TOL
+    x, y = binary_data
+    cfg = je.ALCCConfig(N=8, K=2, T=1)
+    key = jax.random.PRNGKey(7)
+    with cluster(JSocket, PORT_WORKER, cfg.N) as tr:
+        runner = JRunner(cfg, key, x, y, latency=None, transport=tr,
+                         round_timeout_s=120.0, engine="alcc")
+        runner.provision()
+        w = runner.run(4)
+        runner.shutdown_workers()
+    w_ref, _ = je.train_reference(cfg, key, x, y, 4,
+                                  survivor_fn=runner.survivor_fn())
+    assert np.max(np.abs(np.asarray(w) - np.asarray(w_ref))) <= ALCC_SOCKET_TOL
+
+    xm, ym = jsyn.multiclass_mnist_like(jax.random.PRNGKey(2), m=96, d=12,
+                                        c=4)
+    cm = je.ALCCConfig(N=8, K=2, T=1, c=4)
+    with cluster(JSocket, PORT_WORKER, cm.N) as tr:
+        mlp = jmlp.ALCCMLPRunner(cm, key, xm, ym, 8, latency=None,
+                                 transport=tr, eta=0.1,
+                                 round_timeout_s=120.0)
+        mlp.provision()
+        w1, w2 = mlp.run(3)
+        mlp.shutdown_workers()
+    w1r, w2r, _ = jmlp.train_reference(cm, key, xm, ym, 8, 3, 0.1,
+                                       survivor_fn=mlp.survivor_fn())
+    for a, b in ((w1, w1r), (w2, w2r)):
+        assert np.max(np.abs(np.asarray(a) - np.asarray(b))) <= ALCC_SOCKET_TOL

@@ -9,7 +9,9 @@ swapped for the port's object of the same module path and name (the
 reference's own test files already run the cases as they are).  The
 module's own helper functions and classes are rebound to the swapped
 globals, and an ``import`` inside them resolves to the port, so a helper
-the case calls sees the port too.
+the case calls sees the port too.  With ``properties=True`` the module's
+hypothesis tests are listed too: each runs its own strategies and
+settings, its body rebound to the port.
 """
 from __future__ import annotations
 
@@ -71,6 +73,13 @@ def _port_object(name: str, v):
 
 
 def _rebind(fn: types.FunctionType, g: dict) -> types.FunctionType:
+    if hasattr(fn, "hypothesis"):
+        # a property test: rebind the body, then re-apply its strategies and
+        # settings (hypothesis keeps both on the wrapper)
+        from hypothesis import given
+        body = _rebind(fn.hypothesis.inner_test, g)
+        return fn._hypothesis_internal_use_settings(
+            given(**fn.hypothesis._given_kwargs)(body))
     new = types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__,
                              fn.__closure__)
     new.__kwdefaults__ = fn.__kwdefaults__
@@ -142,15 +151,17 @@ def _param_sets(fn) -> list[dict]:
     return combos
 
 
-def reference_cases(module_name: str, exclude=()) -> list:
+def reference_cases(module_name: str, exclude=(), properties: bool = False
+                    ) -> list:
     """``pytest.param(module, test name, params)`` for every case of the
     module that reaches no ``REFERENCE_ONLY`` name (and is not named in
-    ``exclude``); property tests (hypothesis) are left out."""
+    ``exclude``); property tests (hypothesis) only with ``properties``."""
     module = importlib.import_module(module_name)
     out = []
     for name, fn in vars(module).items():
         if (not name.startswith("test_") or not isinstance(fn, types.FunctionType)
-                or hasattr(fn, "hypothesis") or name in exclude
+                or (hasattr(fn, "hypothesis") and not properties)
+                or name in exclude
                 or _reached_names(module, fn) & REFERENCE_ONLY):
             continue
         for i, params in enumerate(_param_sets(fn)):
@@ -164,6 +175,9 @@ def run_case(module_name: str, name: str, params: dict, request) -> None:
     are fixtures, resolved through ``request``."""
     fn = port_namespace(module_name)[name]
     kwargs = dict(params)
+    if hasattr(fn, "hypothesis"):
+        fn()                       # hypothesis draws every argument
+        return
     for arg in inspect.signature(fn).parameters:
         if arg not in kwargs:
             kwargs[arg] = request.getfixturevalue(arg)
