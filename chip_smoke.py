@@ -16,7 +16,8 @@ iterating on a kernel); such a partial run prints no ok line.
             boundary, ``modmatmul``'s row templates (M = 1, 4, 6, 17, 40),
             fold interval (K = L, L+1, 2L+1, also in one K-slice) and K-split
             edges (K = 4096, N = 1, 255, 16256), and ``modmatmul`` at the
-            coded LM head's shapes (P30); ``coded_grad`` at Case 1 with
+            coded LM head's shapes for falcon-mamba, tinyllama and hymba
+            (P30); ``coded_grad`` at Case 1 with
             c = 1, 10 and 33 heads, one socket worker's N = 1, c = 17 r = 2 and c = 5 r = 7 (c*r
             above 32), r = 33 with a random c̄, all-(p-1) inputs at P30
             with a thread's columns and the rows per tile at L-1, L, L+1
@@ -25,8 +26,9 @@ iterating on a kernel); such a partial run prints no ok line.
             serve shape (x and dt bf16 as
             served, dt f32, x f32, non-zero h0), S = 1, S = 33, di = 8200,
             n in {1, 3, 4, 16} with di not a multiple of the block's
-            channels (and rows not 16-byte aligned), B 1 x di 96 and
-            S = 8192; ``modmatmul`` at the BGW baseline's two local
+            channels (and rows not 16-byte aligned), B 1 x di 96,
+            S = 8192 and hymba's serve shape (d_inner 3200);
+            ``modmatmul`` at the BGW baseline's two local
             products at Case 1 in both orientations; and times each
             main-path shape (CUDA events; the
             field kernels also replayed from a CUDA graph, the device's time
@@ -56,6 +58,27 @@ iterating on a kernel); such a partial run prints no ok line.
   coded_head   ``serve --coded-head --kill-shard 2`` at full width, then
             the decoded field values bit-equal to (h_q @ w_q) mod p from
             the plain version
+  serve_dense  ``serve`` for tinyllama-1.1b at full width and all 22
+            layers, bf16, batch 4, prompt 2048, 32 tokens: no kernel
+            launched, tokens in range, logits finite; prefill seconds,
+            decode tokens/s, peak device memory; then the coded_head check
+            for tinyllama (``modmatmul`` launched)
+  serve_hybrid  the same for hymba-1.5b (all 32 layers; the prompt passes
+            its 1024-token window): ``selective_scan`` launched exactly 32
+            times, all in the prefill
+  serve_swa ``serve`` for h2o-danube-3-4b at full width and all 24 layers,
+            batch 1, prompt 4608 past its 4096-token window, 16 tokens
+  serve_wide  qwen2-72b at full width (QKV bias, rope_theta 1e6, head_dim
+            128, vocab 152,064) cut to 2 layers, batch 1, prompt 512, 4
+            tokens, through ``serve.greedy_decode``
+  consistency_dense  float32 at full width, 2 layers: tinyllama and hymba
+            (one global and one windowed layer) prefill on the card
+            against the CPU, and prefill + 3 decode steps against
+            ``backbone`` over S+3; h2o-danube at S = 4100 past its window
+            on the card; all within 1e-3
+  profile_dense  the profile phase for tinyllama, hymba and h2o-danube
+            at their serve shapes, with attention's device ms a prefill
+            and its share
   cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
             Case 1 for 25 rounds under lognormal latencies with ``--pipeline
             off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
@@ -171,11 +194,20 @@ SCAN_ATOL = 1e-4
 # the full forward, the reference model tests' own tolerance.
 MODEL_ATOL = 1e-3
 SERVE = dict(arch="falcon-mamba-7b", batch=4, prompt_len=2048, gen=32)
+# the dense and hybrid serving runs (PERF.md section 4): full width and
+# depth, except qwen2-72b's 80 layers, cut to 2 to fit one card; danube's
+# prompt passes its 4096-token window, hymba's its 1024
+SERVE_DENSE = dict(arch="tinyllama-1.1b", batch=4, prompt_len=2048, gen=32)
+SERVE_HYBRID = dict(arch="hymba-1.5b", batch=4, prompt_len=2048, gen=32)
+SERVE_SWA = dict(arch="h2o-danube-3-4b", batch=1, prompt_len=4608, gen=16)
+SERVE_WIDE = dict(arch="qwen2-72b", layers=2, batch=1, prompt_len=512, gen=4)
 CODED = dict(batch=4, prompt_len=16, gen=4, kill_shard=2)
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
 PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
-          "consistency", "coded_head", "cluster", "socket", "mpc",
+          "consistency", "coded_head", "serve_dense", "serve_hybrid",
+          "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
+          "cluster", "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
 
@@ -442,8 +474,9 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
 
 def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
     """``modmatmul`` at the coded LM head's shapes, P30: one shard's
-    product (4 x 4096)·(4096 x 16256) and the head encode
-    (6 x 5)·(5 x 4096·16256).  Bit-equal, then timed."""
+    product (4 x d)·(d x V/4) and the head encode (6 x 5)·(5 x d·V/4) for
+    falcon-mamba (d 4096, V 65024), tinyllama (2048, 32000) and hymba
+    (1600, its 32001 cut to 32000).  Bit-equal, then timed."""
     from repro_torch.core import field
     from repro_torch.kernels import ref
     from repro_torch.kernels import modmatmul as mm
@@ -453,9 +486,11 @@ def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
     rand = lambda shape: torch.randint(0, p, shape, generator=gen,  # noqa: E731
                                        dtype=torch.int32, device="cuda")
     timings = []
-    for case, a, b in (("coded_head_shard", rand((4, 4096)), rand((4096, 16256))),
-                       ("coded_head_encode", rand((6, 5)),
-                        rand((5, 4096 * 16256)))):
+    heads = (("", 4096, 16256), ("_tinyllama", 2048, 8000),
+             ("_hymba", 1600, 8000))
+    for case, a, b in [c for tag, d, v in heads for c in (
+            (f"coded_head_shard{tag}", rand((4, d)), rand((d, v))),
+            (f"coded_head_encode{tag}", rand((6, 5)), rand((5, d * v))))]:
         checks.compare("modmatmul", case, mm.modmatmul(a, b, p),
                        ref.modmatmul_ref(a, b, p), p=p,
                        shape=[a.shape[0], a.shape[1], b.shape[1]])
@@ -568,6 +603,8 @@ def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
         ("di1001_n16_x_bf16", (3, 40, 1001, 16), bf16, 0.5, f32),
         ("B1_di96", (1, 300, 96, 16), bf16, 0.5, bf16),
         ("long_S8192", (1, 8192, di, n), bf16, 0.5, f32),
+        # hymba's hybrid layers at its serve shape (d_inner 3200)
+        ("hymba_serve_x_dt_bf16", (B, S, 3200, n), bf16, 0.0, bf16),
     ]
     for case, shape, x_dtype, h0_scale, dt_dtype in cases:
         args = scan_inputs(torch, gen, *shape, x_dtype, h0_scale, dt_dtype)
@@ -576,7 +613,9 @@ def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
                      shape=list(shape), x_dtype=str(x_dtype),
                      dt_dtype=str(dt_dtype))
     timings = []
-    for case, dt_dtype in (("serve_x_dt_bf16", bf16), ("serve_x_bf16", f32)):
+    for case, di, dt_dtype in (("serve_x_dt_bf16", 8192, bf16),
+                               ("serve_x_bf16", 8192, f32),
+                               ("hymba_serve_x_dt_bf16", 3200, bf16)):
         args = scan_inputs(torch, gen, B, S, di, n, bf16, 0.0, dt_dtype)
         # each input read once in its dtype (x, dt; Bm/Cm/A_log/D/h0 f32),
         # each output written once (y, h_last f32); one exp and ~6 flops
@@ -732,8 +771,7 @@ def phase_teacher(torch) -> dict:
     return info
 
 
-def _read_serve(out: Path, batch: int, gen: int, vocab: int) -> dict:
-    res = json.loads(out.read_text())
+def _check_served(res: dict, batch: int, gen: int, vocab: int) -> dict:
     toks = res["tokens"]
     if (len(toks) != batch or any(len(t) != gen for t in toks)
             or not all(0 <= x < vocab for t in toks for x in t)):
@@ -743,17 +781,19 @@ def _read_serve(out: Path, batch: int, gen: int, vocab: int) -> dict:
     return res
 
 
-def phase_serve(torch, out_dir: Path) -> dict:
-    """``repro_torch.launch.serve`` at full width and depth on the card."""
+def _serve_cli(torch, spec: dict, out: Path, extra: tuple = ()
+               ) -> tuple[list, dict, dict]:
+    """``repro_torch.launch.serve`` for ``spec`` on the card, as a user runs
+    it: (argv, its JSON checked for shape, range and finite logits, the
+    kernel launches of the run).  Launch counts and the peak memory are
+    reset just before."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    cfg = registry.get_config(SERVE["arch"])
-    out = out_dir / "serve.json"
-    argv = ["--arch", SERVE["arch"], "--batch", str(SERVE["batch"]),
-            "--prompt-len", str(SERVE["prompt_len"]), "--gen",
-            str(SERVE["gen"]), "--seed", "0", "--device", "cuda",
+    argv = ["--arch", spec["arch"], "--batch", str(spec["batch"]),
+            "--prompt-len", str(spec["prompt_len"]), "--gen",
+            str(spec["gen"]), *extra, "--seed", "0", "--device", "cuda",
             "--json-out", str(out)]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -761,23 +801,110 @@ def phase_serve(torch, out_dir: Path) -> dict:
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     if rc != 0:
-        raise AssertionError(f"serve exited {rc}")
-    res = _read_serve(out, SERVE["batch"], SERVE["gen"], cfg.vocab_size)
-    info = {"phase": "serve", "argv": argv, "launches": launches,
+        raise AssertionError(f"serve {' '.join(argv)} exited {rc}")
+    vocab = registry.get_config(spec["arch"]).vocab_size
+    res = _check_served(json.loads(out.read_text()), spec["batch"],
+                        spec["gen"], vocab)
+    return argv, res, launches
+
+
+def _lm_serve_info(torch, phase: str, spec: dict, cfg, res: dict,
+                   launches: dict) -> dict:
+    return {"phase": phase, "launches": launches,
             "layers": cfg.num_layers, "d_model": cfg.d_model,
             "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
-            "decode_tok_per_s": res["decode_tok_per_s"],
-            "prefill_tok_per_s": SERVE["batch"] * SERVE["prompt_len"]
+            "decode_tok_per_s": spec["batch"] * spec["gen"] / res["decode_s"],
+            "prefill_tok_per_s": spec["batch"] * spec["prompt_len"]
             / res["prefill_s"],
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "logits_finite": res["logits_finite"],
             "sample": res["tokens"][0][:8]}
+
+
+def _expect_launches(what: str, launches: dict, scans: int) -> None:
+    """``scans`` selective_scan launches and no field kernel."""
+    if launches != {"modmatmul": 0, "coded_grad": 0, "selective_scan": scans}:
+        raise AssertionError(f"kernel launches while serving {what}: "
+                             f"{launches}")
+
+
+def phase_serve(torch, out_dir: Path) -> dict:
+    """``repro_torch.launch.serve`` at full width and depth on the card."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(SERVE["arch"])
+    argv, res, launches = _serve_cli(torch, SERVE, out_dir / "serve.json")
+    info = dict(_lm_serve_info(torch, "serve", SERVE, cfg, res, launches),
+                argv=argv)
     emit(info)
     # one selective_scan launch per layer, all in the prefill; no field
     # kernel on the plain head
-    if launches != {"modmatmul": 0, "coded_grad": 0,
-                    "selective_scan": cfg.num_layers}:
-        raise AssertionError(f"kernel launches while serving: {launches}")
+    _expect_launches(SERVE["arch"], launches, cfg.num_layers)
+    return info
+
+
+def phase_serve_lm(torch, out_dir: Path, phase: str, spec: dict,
+                   coded: bool = True) -> dict:
+    """A dense or hybrid model served at full width and depth on the card
+    (``selective_scan`` once per hybrid layer, all in the prefill), then,
+    with ``coded``, ``--coded-head --kill-shard 2`` with its field values
+    checked against the direct product."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(spec["arch"])
+    argv, res, launches = _serve_cli(torch, spec, out_dir / f"{phase}.json")
+    info = dict(_lm_serve_info(torch, phase, spec, cfg, res, launches),
+                argv=argv)
+    emit(info)
+    hybrid = sum(c for k, c in cfg.block_pattern if k.startswith("hybrid"))
+    _expect_launches(spec["arch"], launches, hybrid)
+    if not coded:
+        return info
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the CLI's one-shot head check runs the backbone once more: a second
+    # scan per hybrid layer
+    info["coded_head"] = coded_head_check(torch, out_dir, spec["arch"],
+                                          f"{phase}_coded_head",
+                                          scans=2 * hybrid)
+    return info
+
+
+def phase_serve_wide(torch) -> dict:
+    """qwen2-72b at full width (d 8192, 64 heads of 128, QKV bias,
+    rope_theta 1e6, vocab 152,064) cut to 2 layers, through
+    ``serve.greedy_decode`` (the CLI serves whole models only, and 80
+    layers do not fit on one card)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    spec = SERVE_WIDE
+    cfg = dataclasses.replace(registry.get_config(spec["arch"]),
+                              num_layers=spec["layers"],
+                              block_pattern=(("dense", spec["layers"]),))
+    S, dev = spec["prompt_len"], torch.device("cuda")
+    rc = RunConfig(q_block=min(512, S), kv_block=min(1024, S))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        prompt = serve.make_prompt(cfg, spec["batch"], S, 0, dev)
+        stats: dict = {}
+        ops.reset_launches()
+        toks = serve.greedy_decode(cfg, rc, model, prompt, spec["gen"],
+                                   stats=stats)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+    res = dict(stats, tokens=toks.cpu().tolist())
+    info = dict(_lm_serve_info(torch, "serve_wide", spec, cfg, res, launches),
+                reduced={"num_layers": [80, spec["layers"]]},
+                qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
+                head_dim=cfg.head_dim, vocab=cfg.vocab_size)
+    emit(info)
+    _check_served(res, spec["batch"], spec["gen"], cfg.vocab_size)
+    _expect_launches(spec["arch"], launches, 0)
     return info
 
 
@@ -821,11 +948,11 @@ def device_profile(torch, step, n: int) -> dict:
             "kernels_per_step": kernels / n}
 
 
-def phase_profile(torch) -> dict:
-    """Where the serve path's time goes: one prefill at the serve shape and
-    8 decode steps under ``torch.profiler``: device time by kernel group,
-    and the device's busy share of the host-clock time (the profiler's own
-    host cost included, so the idle share is an upper bound)."""
+def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8) -> dict:
+    """One prefill of ``arch`` at full width and depth and ``steps`` decode
+    steps, each under ``torch.profiler``: device time by kernel group and
+    the device's busy share of the host-clock time (the profiler's own host
+    cost included, so the idle share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -834,11 +961,10 @@ def phase_profile(torch) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = registry.get_config(SERVE["arch"])
+    cfg = registry.get_config(arch)
     rc = RunConfig()
     dev = torch.device("cuda")
-    B, S, steps = SERVE["batch"], SERVE["prompt_len"], 8
-    info: dict = {"phase": "profile", "batch": B, "prompt_len": S,
+    info: dict = {"arch": arch, "batch": B, "prompt_len": S,
                   "decode_steps": steps}
     with torch.inference_mode():
         model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
@@ -883,24 +1009,76 @@ def phase_profile(torch) -> dict:
                           "device_busy_share": busy / wall_ms,
                           "kernel_launches": launches,
                           "top_kernels_ms": {k[:80]: v for k, v in top}}
+        info["decode"]["kernel_launches_per_step"] = (
+            info["decode"]["kernel_launches"] / steps)
+        if cfg.num_heads:
+            info["prefill"]["attention"] = attention_share(
+                torch, cfg, rc, B, S, info["prefill"]["device_ms"])
+    return info
+
+
+def attention_share(torch, cfg, rc, B: int, S: int, prefill_ms: float
+                    ) -> dict:
+    """``blockwise_attention`` alone at a prefill's shapes (CUDA events),
+    once per attention kind of ``cfg`` (full or windowed), summed over its
+    layers: attention's device ms in one prefill and its share of
+    ``prefill_ms``."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = (B, S, cfg.num_heads, cfg.head_dim)
+    kv = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for s in (shape, kv, kv))
+    layers_by_window: dict = {}
+    for kind, count in cfg.block_pattern:
+        w = None if kind.endswith("_global") else cfg.sliding_window
+        layers_by_window[w] = layers_by_window.get(w, 0) + count
+    per_layer, total = {}, 0.0
+    for w, count in layers_by_window.items():
+        ms = time_ms(torch, lambda: layers.blockwise_attention(
+            q, k, v, window=w, q_block=rc.q_block, kv_block=rc.kv_block,
+            softcap=cfg.attn_logit_softcap, compute_dtype=rc.attn_dtype), 3)
+        per_layer[str(w)] = {"layers": count, "ms_per_layer": ms}
+        total += count * ms
+    return {"by_window": per_layer, "ms_per_prefill": total,
+            "share_of_prefill_device_ms": total / prefill_ms}
+
+
+def phase_profile(torch) -> dict:
+    """Where the serve path's time goes: falcon-mamba's prefill at the serve
+    shape and 8 decode steps under ``torch.profiler``."""
+    info = {"phase": "profile",
+            **serve_profile(torch, SERVE["arch"], SERVE["batch"],
+                            SERVE["prompt_len"])}
+    del info["arch"]
     emit(info)
     return info
 
 
-def phase_consistency(torch) -> dict:
-    """falcon-mamba at full width, 2 layers, float32: the card against the
-    CPU, and decode against the full forward on the card."""
-    from repro_torch.configs import registry
+def phase_profile_dense(torch) -> dict:
+    """The same for tinyllama, hymba and h2o-danube at their serve shapes,
+    with attention's share of the prefill's device time."""
+    info: dict = {"phase": "profile_dense"}
+    for spec in (SERVE_DENSE, SERVE_HYBRID, SERVE_SWA):
+        info[spec["arch"]] = serve_profile(torch, spec["arch"], spec["batch"],
+                                           spec["prompt_len"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(info)
+    return info
+
+
+def consistency(torch, cfg, B: int, S: int, extra: int, on_cpu: bool
+                ) -> dict:
+    """float32 parameters from seed 0 on the card: prefill against the CPU
+    (plain versions) when ``on_cpu``, and prefill + ``extra`` decode steps
+    against ``backbone`` over S + extra; max abs errors by quantity."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(registry.get_config(SERVE["arch"]), num_layers=2,
-                              block_pattern=(("mamba", 2),))
     rc = RunConfig()
     gpu = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
-    cpu = M.Model(cfg, dtype=torch.float32, device="cpu", seed=None)
-    cpu.load_state_dict(gpu.state_dict())
-    B, S, extra = 2, 32, 3
     gen = torch.Generator(device="cuda").manual_seed(5)
     toks = torch.randint(0, cfg.vocab_size, (B, S + extra), generator=gen,
                          dtype=torch.int32, device="cuda")
@@ -908,59 +1086,107 @@ def phase_consistency(torch) -> dict:
     def err(a, b):
         return float((a.cpu().float() - b.cpu().float()).abs().max())
 
+    errs = {}
     with torch.inference_mode():
         lg, cg = M.prefill(cfg, rc, gpu, {"tokens": toks[:, :S]},
                            cache_len=S + extra)
-        lc, cc = M.prefill(cfg, rc, cpu, {"tokens": toks[:, :S].cpu()},
-                           cache_len=S + extra)
-        errs = {"prefill_logits": err(lg, lc),
-                "prefill_ssm": err(cg["seg0"]["ssm"], cc["seg0"]["ssm"]),
-                "prefill_conv": err(cg["seg0"]["conv"], cc["seg0"]["conv"])}
+        if on_cpu:
+            cpu = M.Model(cfg, dtype=torch.float32, device="cpu", seed=None)
+            cpu.load_state_dict(gpu.state_dict())
+            lc, cc = M.prefill(cfg, rc, cpu, {"tokens": toks[:, :S].cpu()},
+                               cache_len=S + extra)
+            del cpu
+            errs["prefill_logits"] = err(lg, lc)
+            for si in range(len(cfg.block_pattern)):
+                for name in cg[f"seg{si}"]:
+                    errs[f"prefill_seg{si}_{name}"] = err(
+                        cg[f"seg{si}"][name], cc[f"seg{si}"][name])
         h, _ = M.backbone(cfg, rc, gpu, {"tokens": toks})
         want = M.lm_head(cfg, gpu, h[:, -1:])
         logits, cache = lg, cg
         for t in range(extra):
             logits, cache = M.decode_step(cfg, rc, gpu, cache,
                                           {"tokens": toks[:, S + t: S + t + 1]})
-        errs["decode3_vs_backbone"] = err(logits, want)
+        errs[f"decode{extra}_vs_backbone"] = err(logits, want)
+    return errs
+
+
+def phase_consistency(torch) -> dict:
+    """falcon-mamba at full width, 2 layers, float32: the card against the
+    CPU, and decode against the full forward on the card."""
+    from repro_torch.configs import registry
+
+    cfg = dataclasses.replace(registry.get_config(SERVE["arch"]), num_layers=2,
+                              block_pattern=(("mamba", 2),))
+    B, S, extra = 2, 32, 3
+    errs = consistency(torch, cfg, B, S, extra, on_cpu=True)
     info = {"phase": "consistency", "layers": 2, "d_model": cfg.d_model,
             "batch": B, "prompt_len": S, "max_abs_err": errs,
             "tolerance": MODEL_ATOL}
     emit(info)
-    bad = {k: v for k, v in errs.items() if not v <= MODEL_ATOL}
-    if bad:
-        raise AssertionError(f"consistency beyond {MODEL_ATOL}: {bad}")
+    _within(info)
     return info
 
 
-def phase_coded_head(torch, out_dir: Path) -> dict:
-    """``serve --coded-head --kill-shard 2`` at full width, then the decoded
-    field values of the same head, prompt and survivors against the direct
-    product (h_q @ w_q) mod p from the plain version."""
+def _within(info: dict) -> None:
+    bad = {k: v for k, v in info["max_abs_err"].items()
+           if not v <= MODEL_ATOL}
+    if bad:
+        raise AssertionError(f"{info['phase']} beyond {MODEL_ATOL}: {bad}")
+
+
+# consistency_dense's cuts: 2 layers each, float32 at full width; hymba
+# keeps one global and one windowed layer, danube's prompt passes its
+# 4096-token window
+CONSISTENCY_DENSE = (
+    ("tinyllama-1.1b", (("dense", 2),), 2, 32, True),
+    ("hymba-1.5b", (("hybrid_global", 1), ("hybrid", 1)), 2, 32, True),
+    ("h2o-danube-3-4b", (("dense", 2),), 1, 4100, False),
+)
+
+
+def phase_consistency_dense(torch) -> dict:
+    """tinyllama and hymba at full width, 2 layers, float32: prefill on the
+    card against the CPU and prefill + 3 decode steps against the full
+    forward; h2o-danube past its window on the card only."""
+    from repro_torch.configs import registry
+
+    info: dict = {"phase": "consistency_dense", "tolerance": MODEL_ATOL,
+                  "max_abs_err": {}, "runs": {}}
+    for arch, pattern, B, S, on_cpu in CONSISTENCY_DENSE:
+        cfg = dataclasses.replace(registry.get_config(arch), num_layers=2,
+                                  block_pattern=pattern)
+        errs = consistency(torch, cfg, B, S, 3, on_cpu)
+        info["runs"][arch] = {"pattern": pattern, "batch": B,
+                              "prompt_len": S, "card_vs_cpu": on_cpu}
+        info["max_abs_err"].update({f"{arch}/{k}": v for k, v in errs.items()})
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(info)
+    _within(info)
+    return info
+
+
+def coded_head_check(torch, out_dir: Path, arch: str, phase: str,
+                     scans: int) -> dict:
+    """``serve --coded-head --kill-shard 2`` for ``arch`` at full width,
+    then the decoded field values of the same head, prompt and survivors
+    against the direct product (h_q @ w_q) mod p from the plain version.
+    The CLI run must launch ``modmatmul`` and ``scans`` selective scans."""
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import coded_linear as CL
     from repro_torch.core import quantize
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = registry.get_config(SERVE["arch"])
-    out = out_dir / "serve_coded.json"
-    argv = ["--arch", SERVE["arch"], "--batch", str(CODED["batch"]),
-            "--prompt-len", str(CODED["prompt_len"]), "--gen",
-            str(CODED["gen"]), "--coded-head", "--kill-shard",
-            str(CODED["kill_shard"]), "--seed", "0", "--device", "cuda",
-            "--json-out", str(out)]
-    ops.reset_launches()
-    rc = serve.main(argv)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    if rc != 0:
-        raise AssertionError(f"serve --coded-head exited {rc}")
-    res = _read_serve(out, CODED["batch"], CODED["gen"], cfg.vocab_size)
+    cfg = registry.get_config(arch)
+    argv, res, launches = _serve_cli(
+        torch, dict(CODED, arch=arch), out_dir / f"{phase}.json",
+        ("--coded-head", "--kill-shard", str(CODED["kill_shard"])))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -985,7 +1211,8 @@ def phase_coded_head(torch, out_dir: Path) -> dict:
         torch.cuda.synchronize()
         bit_equal = bool(torch.equal(got, want))
         check = serve.coded_head_check(ccfg, h, w, shares, survivors)
-    info = {"phase": "coded_head", "argv": argv, "launches": launches,
+    info = {"phase": phase, "argv": argv, "launches": launches,
+            "head_shape": list(w.shape),
             "survivors_used": used.tolist(), "field_shape": list(got.shape),
             "field_bit_equal_to_direct_product": bit_equal,
             "rel_err": check["rel_err"],
@@ -995,11 +1222,22 @@ def phase_coded_head(torch, out_dir: Path) -> dict:
             "decode_tok_per_s": res["decode_tok_per_s"]}
     emit(info)
     if not bit_equal:
-        raise AssertionError("coded head: decoded field values != (h_q @ w_q)"
+        raise AssertionError(f"{phase}: decoded field values != (h_q @ w_q)"
                              " mod p")
-    if launches["modmatmul"] == 0:
-        raise AssertionError(f"coded head ran no modmatmul: {launches}")
+    if launches["modmatmul"] == 0 or launches["selective_scan"] != scans:
+        raise AssertionError(f"{phase}: launches {launches} (modmatmul > 0 "
+                             f"and {scans} selective_scan expected)")
     return info
+
+
+def phase_coded_head(torch, out_dir: Path) -> dict:
+    """``serve --coded-head --kill-shard 2`` for falcon-mamba at full width,
+    checked against the direct product (``coded_head_check``)."""
+    from repro_torch.configs import registry
+
+    return coded_head_check(torch, out_dir, SERVE["arch"], "coded_head",
+                            scans=2 * registry.get_config(
+                                SERVE["arch"]).num_layers)
 
 
 # The cluster phases' configurations (PERF.md section 4): Case 1 has
@@ -1876,6 +2114,15 @@ def main(argv: list[str] | None = None) -> int:
             ("profile", phase_profile, (torch,)),
             ("consistency", phase_consistency, (torch,)),
             ("coded_head", phase_coded_head, (torch, out_dir)),
+            ("serve_dense", phase_serve_lm,
+             (torch, out_dir, "serve_dense", SERVE_DENSE)),
+            ("serve_hybrid", phase_serve_lm,
+             (torch, out_dir, "serve_hybrid", SERVE_HYBRID)),
+            ("serve_swa", phase_serve_lm,
+             (torch, out_dir, "serve_swa", SERVE_SWA, False)),
+            ("serve_wide", phase_serve_wide, (torch,)),
+            ("consistency_dense", phase_consistency_dense, (torch,)),
+            ("profile_dense", phase_profile_dense, (torch,)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
             ("mpc", phase_mpc, (torch, out_dir)),
@@ -1928,6 +2175,10 @@ def main(argv: list[str] | None = None) -> int:
                     for k, v in (("train", "train"), ("train_c33", "train_c33"),
                                  ("serve", "serve"),
                                  ("serve_coded_head", "coded_head"),
+                                 ("serve_dense", "serve_dense"),
+                                 ("serve_hybrid", "serve_hybrid"),
+                                 ("serve_swa", "serve_swa"),
+                                 ("serve_wide", "serve_wide"),
                                  ("cluster_inprocess", "cluster"),
                                  ("cluster_socket", "socket"),
                                  ("mpc_inprocess", "mpc"),
@@ -1939,12 +2190,20 @@ def main(argv: list[str] | None = None) -> int:
                                  ("alcc_socket", "alcc_socket"),
                                  ("alcc_mlp", "alcc_mlp"))
                     if v in ran}})
-            if name == "modmatmul":
-                # the serving path's shapes, each timed beside its bound
-                kernels[-1]["predict_cases"] = [
-                    {k: x[k] for k in ("case", "shape", "ms", "graph_ms",
-                                       "plain_ms", "bound_ms", "bound_by")}
-                    for x in timings if x["case"].startswith("predict_")]
+            kernels[-1]["launches_by_path"].update({
+                f"{v}_coded_head": ran[v]["coded_head"]["launches"][name]
+                for v in ("serve_dense", "serve_hybrid") if v in ran})
+            # the serving paths' shapes, each timed beside its bound
+            for key, prefix in (("predict_cases", "predict_"),
+                                ("coded_head_cases", "coded_head_"),
+                                ("hymba_cases", "hymba_")):
+                cases = [{k: x[k] for k in ("case", "shape", "ms", "graph_ms",
+                                            "plain_ms", "bound_ms", "bound_by")
+                          if k in x}
+                         for x in timings if x["kernel"] == name
+                         and x["case"].startswith(prefix)]
+                if cases:
+                    kernels[-1][key] = cases
         emit({"kernels": kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -1,7 +1,7 @@
 """Serving driver on the GPU: batched prefill + greedy decode, optionally
 through the Lagrange-coded LM head; mirrors ``repro/launch/serve.py``.
 
-    python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch 4 --prompt-len 2048 --gen 32 [--coded-head --kill-shard 2]
 
 ``--coded-head`` routes the vocab projection through ``core/coded_linear``:
@@ -9,8 +9,10 @@ the head is Lagrange-encoded over N shards (K data + T privacy masks), so
 any K+T shard results give the exact field logits; ``--kill-shard i``
 drops one.  Weights are random, drawn from ``--seed`` (the prompt from
 seed+1, the head's masks from seed+2).  Runs on CUDA unless ``--device
-cpu``.  Only architectures whose blocks are all ported run (falcon-mamba
-so far); any other ``--arch`` exits 2 naming its ROADMAP item.
+cpu``.  Architectures whose blocks are all ported run: the dense ones
+(tinyllama-1.1b, h2o-danube-3-4b, qwen2-72b, mistral-large-123b,
+qwen2-vl-7b), falcon-mamba-7b and hybrid hymba-1.5b; an MoE or
+encoder-decoder ``--arch`` exits 2 naming its ROADMAP item.
 """
 from __future__ import annotations
 

@@ -1,14 +1,31 @@
 """Substrate layers; mirrors ``repro/models/layers.py``.
 
-The parameter template leaf, ``rmsnorm`` (the mamba path) and
-``gelu_mlp`` (the ALCC MLP).  Attention, the other MLPs and rope wait for
-the dense and hybrid slice (ROADMAP queue 1 item 11).
+The parameter template leaf, ``rmsnorm``, the MLPs (``swiglu``,
+``gelu_mlp``), ``rope`` and attention: blockwise online-softmax attention
+for training and prefill, single-position attention against a cache for
+decode, and the QKV/O projection block around them.
+
+Attention is plain PyTorch on the reference's own algorithm: a Python loop
+over query blocks, each walking only its statically valid kv tiles
+``[lo, hi)`` (causal upper bound, sliding-window lower bound) with the
+online softmax carrying (m, l, acc), so masked tiles are never computed.
+It is not routed through a fused library attention: their summation order
+and bf16 handling differ from the reference's, and ``RunConfig.attn_dtype``
+would stop meaning what it means there.
+
+``context_parallel_attention`` (sequence-sharded attention over a device
+mesh) is not ported: it waits for the sharding item (ROADMAP.md list 1b
+item 7).
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, RunConfig
 
 
 class ParamSpec(NamedTuple):
@@ -25,6 +42,13 @@ class ParamSpec(NamedTuple):
     init: str = "normal"      # normal | zeros | ones
 
 
+Params = Mapping[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# primitive forwards
+# ---------------------------------------------------------------------------
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """float32 inside, cast back to x's dtype."""
     dt = x.dtype
@@ -33,7 +57,246 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * scale.float()).to(dt)
 
 
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+           w2: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
              ) -> torch.Tensor:
     """gelu(x @ w1) @ w2 with the tanh gelu, ``jax.nn.gelu``'s default."""
-    return torch.nn.functional.gelu(x @ w1, approximate="tanh") @ w2
+    return F.gelu(x @ w1, approximate="tanh") @ w2
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding, rotate-half.  x: (B, S, H, D), positions: (B, S).
+
+    The angles are float32; x times cos/sin promotes to float32 and the
+    result is cast back to x's dtype, as in the reference."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs            # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# blockwise attention (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: int | None) -> torch.Tensor:
+    """(qb, kb) additive bias: 0 valid, -inf invalid."""
+    valid = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                       device=q_pos.device)
+    if causal:
+        valid &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        valid &= (q_pos[:, None] - k_pos[None, :]) < window
+    return torch.zeros(valid.shape, dtype=torch.float32,
+                       device=q_pos.device).masked_fill_(~valid, -torch.inf)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        q_block: int = 512, kv_block: int = 1024,
+                        softcap: float | None = None,
+                        compute_dtype: str = "f32",
+                        row_offset: int | torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Online-softmax attention.  q: (B,S,H,D), k/v: (B,Sk,KH,D) -> (B,S,H,D).
+
+    Query head h reads kv head h // (H // KH) (grouped-query attention).
+    Per query block the kv tile range is static: [window lower bound,
+    causal upper bound), so masked tiles are never computed.  q is scaled
+    by D**-0.5 and rounded to its dtype first.  ``compute_dtype="bf16"``
+    rounds the QK and PV matmul inputs to bf16 and multiplies in float32
+    (bf16 inputs, float32 accumulation, as the reference's
+    ``preferred_element_type``).  A given ``row_offset`` (query i at
+    absolute position row_offset + i) makes every tile live and masked;
+    without one the causal offset is Sk - S.
+    """
+    in_dt = torch.bfloat16 if compute_dtype == "bf16" else torch.float32
+    B, S, H, D = q.shape
+    _, Sk, KH, _ = k.shape
+    G = H // KH
+    q_block = min(q_block, S)
+    kv_block = min(kv_block, Sk)
+    nq = -(-S // q_block)
+    nk_total = -(-Sk // kv_block)
+    q = (q * (D ** -0.5)).to(q.dtype)
+    Sp, Skp = nq * q_block, nk_total * kv_block
+    if Sp != S:
+        q = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
+    if Skp != Sk:
+        k = F.pad(k, (0, 0, 0, 0, 0, Skp - Sk))
+        v = F.pad(v, (0, 0, 0, 0, 0, Skp - Sk))
+    # q as (B, KH, nq, G*qb, D) and k/v as (B, KH, Skp, D), so each tile's
+    # products are one batched matmul per kv head; in the matmul input
+    # dtype, then float32 (bf16 products are exact in float32)
+    qg = (q.reshape(B, nq, q_block, KH, G, D).permute(0, 3, 1, 4, 2, 5)
+          .to(in_dt).float().reshape(B, KH, nq, G * q_block, D))
+    kt = k.permute(0, 2, 1, 3).to(in_dt).float()
+    vt = v.permute(0, 2, 1, 3).to(in_dt).float()
+    dev = q.device
+    fixed = row_offset is not None
+    offset = row_offset if fixed else Sk - S
+    outs = []
+    for i in range(nq):
+        qi = qg[:, :, i]                                    # (B,KH,G*qb,D)
+        q_pos = offset + i * q_block + torch.arange(q_block, device=dev)
+        if fixed:
+            lo, hi = 0, nk_total
+        else:
+            hi = (min(nk_total, -(-(offset + (i + 1) * q_block) // kv_block))
+                  if causal else nk_total)
+            lo = 0
+            if window is not None:
+                lo = max(0, (offset + i * q_block - window + 1) // kv_block)
+            hi = max(hi, lo + 1)
+        m = torch.full((B, KH, G, q_block), -torch.inf, device=dev)
+        l = torch.zeros((B, KH, G, q_block), device=dev)
+        acc = torch.zeros((B, KH, G, q_block, D), device=dev)
+        for j in range(lo, hi):
+            kj = kt[:, :, j * kv_block:(j + 1) * kv_block]
+            vj = vt[:, :, j * kv_block:(j + 1) * kv_block]
+            k_pos = j * kv_block + torch.arange(kv_block, device=dev)
+            s = (qi @ kj.transpose(-1, -2)).view(B, KH, G, q_block, kv_block)
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            bias = _mask_bias(q_pos, k_pos, causal, window)
+            bias.masked_fill_((k_pos >= Sk)[None, :], -torch.inf)
+            s = s + bias
+            m_new = torch.maximum(m, s.amax(-1))
+            # fully masked rows (sliding-window rows whose window misses
+            # this tile) leave m_new = -inf; exp(-inf - -inf) = nan, so
+            # they are zeroed instead
+            dead = torch.isneginf(m_new)
+            p = torch.where(dead[..., None], 0.0,
+                            torch.exp(s - m_new[..., None]))
+            corr = torch.where(dead, 0.0, torch.exp(m - m_new))
+            l = l * corr + p.sum(-1)
+            pv = (p.to(in_dt).float().view(B, KH, G * q_block, kv_block)
+                  @ vj).view(B, KH, G, q_block, D)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))             # (B,qb,KH,G,D)
+    out = torch.cat(outs, dim=1)[:, :S]
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int, *,
+                     window: int | None = None) -> torch.Tensor:
+    """Single-position attention against a cache.
+
+    q: (B, 1, H, D); k/v_cache: (B, Smax, KH, D); cache_len: the number of
+    valid cache positions including the current token.  Scaled in float32,
+    with no rounding of q (unlike the prefill).
+    """
+    B, _, H, D = q.shape
+    _, Smax, KH, _ = k_cache.shape
+    G = H // KH
+    qg = q.reshape(B, KH, G, D).float() * (D ** -0.5)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())
+    k_pos = torch.arange(Smax, device=q.device)
+    valid = k_pos < cache_len
+    if window is not None:
+        valid &= k_pos > (cache_len - 1 - window)
+    s = s.masked_fill(~valid, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention block (params + forward)
+# ---------------------------------------------------------------------------
+
+def attn_template(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    """QKV/O projections, with the Q/K/V biases where ``cfg.qkv_bias``."""
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hq, hkv = f"heads[{h}]", f"heads[{kh}]"
+    t = {
+        "wq": ParamSpec((d, h * hd), ("embed", hq)),
+        "wk": ParamSpec((d, kh * hd), ("embed", hkv)),
+        "wv": ParamSpec((d, kh * hd), ("embed", hkv)),
+        "wo": ParamSpec((h * hd, d), (hq, "embed")),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = ParamSpec((h * hd,), (hq,), init="zeros")
+        t["bk"] = ParamSpec((kh * hd,), (hkv,), init="zeros")
+        t["bv"] = ParamSpec((kh * hd,), (hkv,), init="zeros")
+    return t
+
+
+def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+             positions: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> roped q (B,S,H,hd), roped k and v (B,S,KH,hd)."""
+    B, S, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q.reshape(B, S, h, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, kh, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(B, S, kh, hd)
+
+
+def attn_forward(cfg: ModelConfig, rc: RunConfig, p: Params, x: torch.Tensor,
+                 positions: torch.Tensor, *, causal: bool = True,
+                 window: int | None = None) -> torch.Tensor:
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    out = blockwise_attention(q, k, v, causal=causal, window=window,
+                              q_block=rc.q_block, kv_block=rc.kv_block,
+                              softcap=cfg.attn_logit_softcap,
+                              compute_dtype=rc.attn_dtype)
+    B, S, _ = x.shape
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                cache: Mapping[str, torch.Tensor], cache_index: int, *,
+                window: int | None = None
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """x: (B, 1, d); cache: k, v (B, Smax, KH, hd), left unmodified.
+    Returns (out, new cache) with this token's k/v at ``cache_index``."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_index, dtype=torch.int32,
+                           device=x.device)
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
+    k_cache[:, cache_index] = k[:, 0]
+    v_cache[:, cache_index] = v[:, 0]
+    out = decode_attention(q, k_cache, v_cache, cache_index + 1,
+                           window=window)
+    return out.reshape(B, 1, -1) @ p["wo"], {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# MLP block
+# ---------------------------------------------------------------------------
+
+def mlp_template(cfg: ModelConfig, ff: int | None = None
+                 ) -> dict[str, ParamSpec]:
+    d = cfg.d_model
+    ff = ff or cfg.d_ff
+    if cfg.act == "silu":
+        return {"w1": ParamSpec((d, ff), ("embed", "ffn")),
+                "w3": ParamSpec((d, ff), ("embed", "ffn")),
+                "w2": ParamSpec((ff, d), ("ffn", "embed"))}
+    return {"w1": ParamSpec((d, ff), ("embed", "ffn")),
+            "w2": ParamSpec((ff, d), ("ffn", "embed"))}
+
+
+def mlp_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "silu":
+        return swiglu(x, p["w1"], p["w3"], p["w2"])
+    return gelu_mlp(x, p["w1"], p["w2"])

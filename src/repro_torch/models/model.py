@@ -1,18 +1,23 @@
-"""Model assembly; mirrors ``repro/models/model.py`` for the mamba blocks.
+"""Model assembly; mirrors ``repro/models/model.py`` for the dense, mamba
+and hybrid blocks.
 
 A model is a sequence of SEGMENTS from ``ModelConfig.block_pattern``, each
 a list of homogeneous blocks.  The reference scans a segment over stacked
 layer parameters; here every layer is its own module, and a Python loop
 walks them.  Ported kinds:
 
-  mamba        mamba-1 block                    (falcon-mamba)
+  dense         attn + mlp                       (llama/mistral/qwen family)
+  dense_global  dense with full attention even when cfg.sliding_window is set
+  mamba         mamba-1 block                    (falcon-mamba)
+  hybrid        parallel attn ∥ mamba heads + mlp (hymba); SWA by default
+  hybrid_global hybrid with full attention       (hymba's few global layers)
 
-The other kinds (dense, moe, hybrid, enc, dec) raise NotImplementedError
-naming their ROADMAP item.  Forward modes: ``backbone`` / ``prefill``
-(returns the decode cache) and ``decode_step`` (one token, cache update).
-Training (``loss_fn``) is not ported: parameters are created without
-gradients.  The reference's sharding hints (``constrain``) have no
-counterpart on one device.
+The other kinds (moe, enc, dec) raise NotImplementedError naming their
+ROADMAP item.  Forward modes: ``backbone`` / ``prefill`` (returns the
+decode cache) and ``decode_step`` (one token, cache update).  Training
+(``loss_fn``) is not ported: parameters are created without gradients.
+The reference's sharding hints (``constrain``) and its context-parallel
+attention branch have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -28,12 +33,12 @@ from repro_torch.models.layers import ParamSpec
 
 # Block kinds not ported yet -> their item in ROADMAP.md's LM substrate list.
 UNPORTED = {
-    "dense": "queue 1b item 1 (attention, MLP, rope)",
     "moe": "queue 1b item 2 (MoE)",
-    "hybrid": "queue 1b item 3 (hybrid attention + mamba)",
     "enc": "queue 1b item 4 (encoder/decoder)",
     "dec": "queue 1b item 4 (encoder/decoder)",
 }
+_ATTN = ("dense", "hybrid")          # ported kinds with attention + mlp
+_SSM = ("mamba", "hybrid")           # ported kinds with a mamba mixer
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -55,6 +60,24 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def _norm(cfg: ModelConfig) -> ParamSpec:
     return ParamSpec((cfg.d_model,), (None,), init="ones")
+
+
+def block_template(cfg: ModelConfig, kind: str) -> dict[str, Any]:
+    """One layer's leaves by the reference's names, for the ported kinds."""
+    base = kind.replace("_global", "")
+    t: dict[str, Any] = {}
+    if base in _ATTN:
+        t["norm1"] = _norm(cfg)
+        t["attn"] = layers.attn_template(cfg)
+        t["norm2"] = _norm(cfg)
+        t["mlp"] = layers.mlp_template(cfg)
+    if base == "mamba":
+        t["norm1"] = _norm(cfg)
+        t["mamba"] = mamba.mamba_template(cfg)
+    if base == "hybrid":
+        t["norm_m"] = _norm(cfg)
+        t["mamba"] = mamba.mamba_template(cfg)
+    return t
 
 
 class _Init:
@@ -84,15 +107,16 @@ class _Init:
         return nn.Parameter(t, requires_grad=False)
 
 
-class MambaBlock(nn.Module):
-    """rmsnorm -> mamba mixer, residual.  ``mamba`` holds the
-    ``mamba_template`` leaves by the reference's names."""
+class Block(nn.Module):
+    """One layer: ``block_template(cfg, kind)`` made into parameters, under
+    the reference's names (``norm1``, ``attn``, ``norm2``, ``mlp``,
+    ``norm_m``, ``mamba``; the sub-dicts as ``ParameterDict``s)."""
 
-    def __init__(self, cfg: ModelConfig, init: _Init):
+    def __init__(self, cfg: ModelConfig, kind: str, init: _Init):
         super().__init__()
-        self.norm1 = init(_norm(cfg))
-        self.mamba = nn.ParameterDict(
-            {k: init(s) for k, s in mamba.mamba_template(cfg).items()})
+        for name, leaf in block_template(cfg, kind).items():
+            setattr(self, name, init(leaf) if isinstance(leaf, ParamSpec) else
+                    nn.ParameterDict({k: init(s) for k, s in leaf.items()}))
 
 
 class Model(nn.Module):
@@ -114,13 +138,19 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else
                         init(ParamSpec((d, v), ("embed", "vocab"))))
         self.segments = nn.ModuleList(
-            nn.ModuleList(MambaBlock(cfg, init) for _ in range(count))
-            for _, count in cfg.block_pattern)
+            nn.ModuleList(Block(cfg, kind, init) for _ in range(count))
+            for kind, count in cfg.block_pattern)
 
 
 # ---------------------------------------------------------------------------
 # forwards
 # ---------------------------------------------------------------------------
+
+def _window(cfg: ModelConfig, kind: str) -> int | None:
+    if kind.endswith("_global"):
+        return None
+    return cfg.sliding_window
+
 
 def _conv_tail(x_in: torch.Tensor, cw: int) -> torch.Tensor:
     """The last cw-1 pre-conv inputs (zeros before the sequence start), as
@@ -131,20 +161,48 @@ def _conv_tail(x_in: torch.Tensor, cw: int) -> torch.Tensor:
     return x_in[:, x_in.shape[1] - (cw - 1):].clone()
 
 
-def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str,
-                  block: MambaBlock, x: torch.Tensor,
-                  collect_cache: bool = False):
-    """One block.  Returns (x, cache_entry_or_None)."""
-    if kind != "mamba":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    p = block.mamba
-    h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
+def _mamba_branch(cfg: ModelConfig, rc: RunConfig, p, h: torch.Tensor,
+                  cache: dict | None) -> torch.Tensor:
+    """The mamba mixer on the normed input h: (ym * silu(z)) @ out_proj.
+    Puts the conv tail and the last state into ``cache`` when given."""
     x_in, z = (h @ p["in_proj"]).chunk(2, dim=-1)
     ym, h_last = mamba.mamba_mix(cfg, rc, p, x_in)
-    cache = None
-    if collect_cache:
-        cache = {"conv": _conv_tail(x_in, cfg.conv_width), "ssm": h_last}
-    x = x + (ym * F.silu(z)) @ p["out_proj"]
+    if cache is not None:
+        cache["conv"] = _conv_tail(x_in, cfg.conv_width)
+        cache["ssm"] = h_last
+    return (ym * F.silu(z)) @ p["out_proj"]
+
+
+def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  collect_cache: bool = False):
+    """One block.  Returns (x, cache_entry_or_None)."""
+    base = kind.replace("_global", "")
+    cache: dict | None = {} if collect_cache else None
+    if base in _ATTN:
+        h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
+        q, k, v = layers.attn_qkv(cfg, block.attn, h, positions)
+        if cache is not None:
+            cache["k"], cache["v"] = k, v
+        attn_out = layers.blockwise_attention(
+            q, k, v, causal=True, window=_window(cfg, kind),
+            q_block=rc.q_block, kv_block=rc.kv_block,
+            softcap=cfg.attn_logit_softcap, compute_dtype=rc.attn_dtype)
+        B, S, _ = x.shape
+        attn_out = attn_out.reshape(B, S, -1) @ block.attn["wo"]
+        if base == "hybrid":
+            # parallel heads: both branches read the same x
+            hm = layers.rmsnorm(x, block.norm_m, cfg.norm_eps)
+            x = x + attn_out + _mamba_branch(cfg, rc, block.mamba, hm, cache)
+        else:
+            x = x + attn_out
+        h2 = layers.rmsnorm(x, block.norm2, cfg.norm_eps)
+        x = x + layers.mlp_forward(cfg, block.mlp, h2)
+    elif base == "mamba":
+        h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
+        x = x + _mamba_branch(cfg, rc, block.mamba, h, cache)
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     return x, cache
 
 
@@ -163,12 +221,16 @@ def backbone(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
              collect_cache: bool = False):
     """Runs embedding + all segments.  Returns (hidden, caches)."""
     x = embed_input(cfg, model, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
     caches = {}
     for si, ((kind, _), seg) in enumerate(zip(cfg.block_pattern,
                                               model.segments)):
         entries = []
         for block in seg:
-            x, cache = block_forward(cfg, rc, kind, block, x, collect_cache)
+            x, cache = block_forward(cfg, rc, kind, block, x, positions,
+                                     collect_cache)
             entries.append(cache)
         if collect_cache:
             caches[f"seg{si}"] = _stack(entries)
@@ -196,44 +258,115 @@ def prefill(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
                        device=h.device)
     for si in range(len(cfg.block_pattern)):
         src, dst = caches[f"seg{si}"], cache[f"seg{si}"]
-        dst["ssm"] = src["ssm"].float()
-        dst["conv"] = src["conv"]
+        if "k" in dst:
+            size = dst["k"].shape[2]
+            for name in ("k", "v"):
+                if S >= size:
+                    # ring alignment: token t lives at slot t % size
+                    dst[name] = torch.roll(src[name][:, :, S - size:],
+                                           S % size, dims=2)
+                else:
+                    dst[name][:, :, :S] = src[name]
+        if "ssm" in dst:
+            dst["ssm"] = src["ssm"].float()
+            dst["conv"] = src["conv"]
     cache["index"] = S
     if return_hidden:
         return logits, cache, h[:, -1:]
     return logits, cache
 
 
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
+
 def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cpu") -> dict[str, Any]:
-    """Decode cache: mamba segments get O(1) state, conv (count, B, cw-1,
-    di) in ``dtype`` and ssm (count, B, di, n) float32; ``index`` is the
-    number of tokens seen.  ``max_len`` sizes the attention caches of the
-    kinds not ported yet."""
+    """Decode cache: attention segments get k/v (count, B, size, KH, hd) in
+    ``dtype``, with size the window for sliding-window segments (a ring
+    buffer) and ``max_len`` for full attention; mamba state is O(1): conv
+    (count, B, cw-1, di) in ``dtype`` and ssm (count, B, di, n) float32.
+    ``index`` is the number of tokens seen."""
     check_ported(cfg)
     cache: dict[str, Any] = {"index": 0}
-    for si, (_, count) in enumerate(cfg.block_pattern):
-        cache[f"seg{si}"] = {
-            "conv": torch.zeros((count, batch, cfg.conv_width - 1,
-                                 cfg.d_inner), dtype=dtype, device=device),
-            "ssm": torch.zeros((count, batch, cfg.d_inner, cfg.ssm_state),
-                               dtype=torch.float32, device=device),
-        }
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    for si, (kind, count) in enumerate(cfg.block_pattern):
+        base = kind.replace("_global", "")
+        seg: dict[str, torch.Tensor] = {}
+        if base in _ATTN:
+            window = _window(cfg, kind)
+            size = min(max_len, window) if window else max_len
+            for name in ("k", "v"):
+                seg[name] = torch.zeros((count, batch, size, kh, hd),
+                                        dtype=dtype, device=device)
+        if base in _SSM:
+            seg["conv"] = torch.zeros((count, batch, cfg.conv_width - 1,
+                                       cfg.d_inner), dtype=dtype, device=device)
+            seg["ssm"] = torch.zeros((count, batch, cfg.d_inner, cfg.ssm_state),
+                                     dtype=torch.float32, device=device)
+        cache[f"seg{si}"] = seg
     return cache
 
 
-def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str,
-                 block: MambaBlock, x: torch.Tensor,
-                 cache_layer: dict[str, torch.Tensor]):
-    """One block's single-token step.  Returns (x, new cache entry)."""
-    if kind != "mamba":
+def _decode_attn(cfg: ModelConfig, p, x: torch.Tensor,
+                 cache_layer: dict[str, torch.Tensor], index: int,
+                 window: int | None, positions: torch.Tensor):
+    """One layer's cached attention at decode time (a ring buffer for a
+    sliding window: the buffer is the window, so the attention itself is
+    called without one).  The given k/v are left unmodified."""
+    B = x.shape[0]
+    q, k, v = layers.attn_qkv(cfg, p, x, positions)
+    kc, vc = cache_layer["k"].clone(), cache_layer["v"].clone()
+    size = kc.shape[1]
+    slot = index % size if window else index
+    kc[:, slot] = k[:, 0]
+    vc[:, slot] = v[:, 0]
+    out = layers.decode_attention(q, kc, vc, min(index + 1, size), window=None)
+    return out.reshape(B, 1, -1) @ p["wo"], {"k": kc, "v": vc}
+
+
+def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
+                 x: torch.Tensor, cache_layer: dict[str, torch.Tensor],
+                 index: int):
+    """One block's single-token step at position ``index``.
+    Returns (x, new cache entry); ``cache_layer`` is left unmodified."""
+    base = kind.replace("_global", "")
+    new_cache: dict[str, torch.Tensor] = {}
+    if base in _ATTN:
+        B = x.shape[0]
+        positions = torch.full((B, 1), index, dtype=torch.int32,
+                               device=x.device)
+        hnorm = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
+        attn_out, kv = _decode_attn(cfg, block.attn, hnorm, cache_layer,
+                                    index, _window(cfg, kind), positions)
+        new_cache.update(kv)
+        if base == "hybrid":
+            hm = layers.rmsnorm(x, block.norm_m, cfg.norm_eps)
+            x = x + attn_out + _mamba_step(cfg, block.mamba, hm, cache_layer,
+                                           new_cache)
+        else:
+            x = x + attn_out
+        h2 = layers.rmsnorm(x, block.norm2, cfg.norm_eps)
+        x = x + layers.mlp_forward(cfg, block.mlp, h2)
+    elif base == "mamba":
+        hnorm = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
+        x = x + _mamba_step(cfg, block.mamba, hnorm, cache_layer, new_cache)
+    else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    p = block.mamba
-    hnorm = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
-    x_in, z = (hnorm @ p["in_proj"]).chunk(2, dim=-1)
-    ym, mcache = mamba.mamba_decode_core(cfg, p, x_in, cache_layer)
-    return x + (ym * F.silu(z)) @ p["out_proj"], mcache
+    return x, new_cache
+
+
+def _mamba_step(cfg: ModelConfig, p, h: torch.Tensor,
+                cache_layer: dict[str, torch.Tensor],
+                new_cache: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The mamba mixer's single-token step on the normed input h; puts the
+    new conv window and state into ``new_cache``."""
+    x_in, z = (h @ p["in_proj"]).chunk(2, dim=-1)
+    ym, mcache = mamba.mamba_decode_core(
+        cfg, p, x_in, {"conv": cache_layer["conv"], "ssm": cache_layer["ssm"]})
+    new_cache.update(mcache)
+    return (ym * F.silu(z)) @ p["out_proj"]
 
 
 def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
@@ -241,17 +374,22 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
     """One decode step: batch {'tokens': (B,1)} -> (logits (B,1,V), cache).
 
     ``return_hidden=True`` appends the post-final-norm hidden state
-    (B, 1, D), mirroring ``prefill``.  The given cache is not modified.
+    (B, 1, D), mirroring ``prefill``.  The given cache is not modified:
+    the new one is built whole, so a step copies every layer's cache
+    (each attention layer's k/v twice: the slot write's copy, then the
+    stack).
     """
     x = embed_input(cfg, model, batch)
-    new_cache: dict[str, Any] = {"index": cache["index"] + 1}
+    index = cache["index"]
+    new_cache: dict[str, Any] = {"index": index + 1}
     for si, ((kind, _), seg) in enumerate(zip(cfg.block_pattern,
                                               model.segments)):
         seg_cache = cache[f"seg{si}"]
         entries = []
         for li, block in enumerate(seg):
             x, nc = decode_block(cfg, rc, kind, block, x,
-                                 {k: v[li] for k, v in seg_cache.items()})
+                                 {k: v[li] for k, v in seg_cache.items()},
+                                 index)
             entries.append(nc)
         new_cache[f"seg{si}"] = _stack(entries)
     x = layers.rmsnorm(x, model.final_norm, cfg.norm_eps)

@@ -52,15 +52,16 @@ def close(got, want, dtype):
     assert err < tol, (err, tol)
 
 
-def cfgs():
-    return (jreg.reduced_config(jreg.get_config(ARCH)),
-            treg.reduced_config(treg.get_config(ARCH)))
+def cfgs(arch=ARCH):
+    return (jreg.reduced_config(jreg.get_config(arch)),
+            treg.reduced_config(treg.get_config(arch)))
 
 
-def carried(dtype):
-    """Reference parameters in ``dtype`` (A_log and D stay float32 in bf16,
-    as ``init_params`` makes them) and the port's model made from them."""
-    jcfg, tcfg = cfgs()
+def carried(dtype, arch=ARCH):
+    """Reference parameters of ``arch``'s reduced config in ``dtype`` (A_log
+    and D stay float32 in bf16, as ``init_params`` makes them) and the
+    port's model made from them."""
+    jcfg, tcfg = cfgs(arch)
     rng = np.random.default_rng(0)
 
     def redraw(t):                        # N(0, 1/fan_in); ones/zeros kept
@@ -243,7 +244,7 @@ def test_init_is_deterministic_per_seed_with_reference_distributions():
 
 
 def test_unported_kinds_and_options_raise():
-    cfg = treg.reduced_config(treg.get_config("tinyllama-1.1b"))
+    cfg = treg.reduced_config(treg.get_config("phi3.5-moe-42b-a6.6b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.Model(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
