@@ -16,8 +16,8 @@ iterating on a kernel); such a partial run prints no ok line.
             boundary, ``modmatmul``'s row templates (M = 1, 4, 6, 17, 40),
             fold interval (K = L, L+1, 2L+1, also in one K-slice) and K-split
             edges (K = 4096, N = 1, 255, 16256), and ``modmatmul`` at the
-            coded LM head's shapes for falcon-mamba, tinyllama and hymba
-            (P30); ``coded_grad`` at Case 1 with
+            coded LM head's shapes for falcon-mamba, tinyllama, hymba and
+            phi3.5-moe (P30); ``coded_grad`` at Case 1 with
             c = 1, 10 and 33 heads, one socket worker's N = 1, c = 17 r = 2 and c = 5 r = 7 (c*r
             above 32), r = 33 with a random c̄, all-(p-1) inputs at P30
             with a thread's columns and the rows per tile at L-1, L, L+1
@@ -79,6 +79,25 @@ iterating on a kernel); such a partial run prints no ok line.
   profile_dense  the profile phase for tinyllama, hymba and h2o-danube
             at their serve shapes, with attention's device ms a prefill
             and its share
+  serve_moe phi3.5-moe-42b-a6.6b at full width (16 experts of 6400, top-2)
+            cut to 16 of 32 layers, batch 4, prompt 2048, 32 tokens,
+            through ``serve.greedy_decode``: no kernel launched; then its
+            coded head at the same depth (batch 4, prompt 16, 4 tokens,
+            shard 2 lost): ``modmatmul`` launched, the field values
+            bit-equal to (h_q @ w_q) mod p; then ``serve --reduced`` for
+            phi3.5-moe and arctic-480b through the CLI
+  serve_arctic  arctic-480b at full width (128 experts of 4864, top-2,
+            the dense residual) cut to 2 of 35 layers, batch 4, prompt
+            2048, 8 tokens: no kernel launched
+  consistency_moe  phi3.5-moe at full width, 2 layers, float32, capacity
+            factor 8: prefill on the card against the CPU, prefill + 3
+            decode steps against the full forward, and the sort dispatch
+            against the einsum one on the card, within 1e-3; how many
+            tokens' top-2 expert sets agree between card and CPU
+  profile_moe  the profile phase for phi3.5-moe and arctic at their
+            serve_moe and serve_arctic shapes, with the prefill's device ms
+            by group: attention, the expert products, dispatch and combine,
+            the rest
   cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
             Case 1 for 25 rounds under lognormal latencies with ``--pipeline
             off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
@@ -201,12 +220,21 @@ SERVE_DENSE = dict(arch="tinyllama-1.1b", batch=4, prompt_len=2048, gen=32)
 SERVE_HYBRID = dict(arch="hymba-1.5b", batch=4, prompt_len=2048, gen=32)
 SERVE_SWA = dict(arch="h2o-danube-3-4b", batch=1, prompt_len=4608, gen=16)
 SERVE_WIDE = dict(arch="qwen2-72b", layers=2, batch=1, prompt_len=512, gen=4)
+# the MoE serving runs (PERF.md section 4): full width, depth cut to fit one
+# card (phi3.5-moe 16 of 32 layers, 42.1 GB of bf16; arctic 2 of 35, 55.4 GB)
+SERVE_MOE = dict(arch="phi3.5-moe-42b-a6.6b", layers=16, batch=4,
+                 prompt_len=2048, gen=32)
+SERVE_ARCTIC = dict(arch="arctic-480b", layers=2, batch=4, prompt_len=2048,
+                    gen=8)
+# the CLI's --reduced runs of the MoE archs on the card
+MOE_REDUCED = dict(batch=2, prompt_len=24, gen=4)
 CODED = dict(batch=4, prompt_len=16, gen=4, kill_shard=2)
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
 PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
           "consistency", "coded_head", "serve_dense", "serve_hybrid",
           "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
+          "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
           "cluster", "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
@@ -475,8 +503,9 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
 def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
     """``modmatmul`` at the coded LM head's shapes, P30: one shard's
     product (4 x d)·(d x V/4) and the head encode (6 x 5)·(5 x d·V/4) for
-    falcon-mamba (d 4096, V 65024), tinyllama (2048, 32000) and hymba
-    (1600, its 32001 cut to 32000).  Bit-equal, then timed."""
+    falcon-mamba (d 4096, V 65024), tinyllama (2048, 32000), hymba
+    (1600, its 32001 cut to 32000) and phi3.5-moe (4096, 32064).
+    Bit-equal, then timed."""
     from repro_torch.core import field
     from repro_torch.kernels import ref
     from repro_torch.kernels import modmatmul as mm
@@ -487,7 +516,7 @@ def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
                                        dtype=torch.int32, device="cuda")
     timings = []
     heads = (("", 4096, 16256), ("_tinyllama", 2048, 8000),
-             ("_hymba", 1600, 8000))
+             ("_hymba", 1600, 8000), ("_phi35_moe", 4096, 8016))
     for case, a, b in [c for tag, d, v in heads for c in (
             (f"coded_head_shard{tag}", rand((4, d)), rand((d, v))),
             (f"coded_head_encode{tag}", rand((6, 5)), rand((5, d * v))))]:
@@ -802,7 +831,10 @@ def _serve_cli(torch, spec: dict, out: Path, extra: tuple = ()
     launches = dict(ops.LAUNCHES)
     if rc != 0:
         raise AssertionError(f"serve {' '.join(argv)} exited {rc}")
-    vocab = registry.get_config(spec["arch"]).vocab_size
+    cfg = registry.get_config(spec["arch"])
+    if "--reduced" in extra:
+        cfg = registry.reduced_config(cfg)
+    vocab = cfg.vocab_size
     res = _check_served(json.loads(out.read_text()), spec["batch"],
                         spec["gen"], vocab)
     return argv, res, launches
@@ -870,42 +902,91 @@ def phase_serve_lm(torch, out_dir: Path, phase: str, spec: dict,
     return info
 
 
-def phase_serve_wide(torch) -> dict:
-    """qwen2-72b at full width (d 8192, 64 heads of 128, QKV bias,
-    rope_theta 1e6, vocab 152,064) cut to 2 layers, through
-    ``serve.greedy_decode`` (the CLI serves whole models only, and 80
-    layers do not fit on one card)."""
+def cut_config(spec: dict):
+    """``spec``'s model at full width with its one segment cut to
+    ``spec["layers"]`` layers: (the full config, the cut one)."""
     from repro_torch.configs import registry
+
+    full = registry.get_config(spec["arch"])
+    (kind, _), = full.block_pattern
+    return full, dataclasses.replace(full, num_layers=spec["layers"],
+                                     block_pattern=((kind, spec["layers"]),))
+
+
+def _serve_rc(S: int):
+    """``serve``'s run configuration for a prompt of S tokens."""
     from repro_torch.configs.base import RunConfig
+
+    return RunConfig(q_block=min(512, S), kv_block=min(1024, S))
+
+
+def serve_cut(torch, phase: str, spec: dict) -> dict:
+    """``spec``'s model at full width, depth cut (``cut_config``), through
+    ``serve.greedy_decode`` (the CLI serves whole models only, and these do
+    not fit on one card): no kernel launched, tokens in range, logits
+    finite; prefill seconds, decode tokens/s, peak device memory."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    spec = SERVE_WIDE
-    cfg = dataclasses.replace(registry.get_config(spec["arch"]),
-                              num_layers=spec["layers"],
-                              block_pattern=(("dense", spec["layers"]),))
+    full, cfg = cut_config(spec)
     S, dev = spec["prompt_len"], torch.device("cuda")
-    rc = RunConfig(q_block=min(512, S), kv_block=min(1024, S))
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
         prompt = serve.make_prompt(cfg, spec["batch"], S, 0, dev)
         stats: dict = {}
         ops.reset_launches()
-        toks = serve.greedy_decode(cfg, rc, model, prompt, spec["gen"],
-                                   stats=stats)
+        toks = serve.greedy_decode(cfg, _serve_rc(S), model, prompt,
+                                   spec["gen"], stats=stats)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
     res = dict(stats, tokens=toks.cpu().tolist())
-    info = dict(_lm_serve_info(torch, "serve_wide", spec, cfg, res, launches),
-                reduced={"num_layers": [80, spec["layers"]]},
-                qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
-                head_dim=cfg.head_dim, vocab=cfg.vocab_size)
+    info = dict(_lm_serve_info(torch, phase, spec, cfg, res, launches),
+                reduced={"num_layers": [full.num_layers, spec["layers"]]},
+                params=sum(p.numel() for p in model.parameters()),
+                batch=spec["batch"], prompt_len=S, gen=spec["gen"])
     emit(info)
     _check_served(res, spec["batch"], spec["gen"], cfg.vocab_size)
     _expect_launches(spec["arch"], launches, 0)
     return info
+
+
+def phase_serve_wide(torch) -> dict:
+    """qwen2-72b at full width (d 8192, 64 heads of 128, QKV bias,
+    rope_theta 1e6, vocab 152,064) cut to 2 layers (``serve_cut``)."""
+    info = serve_cut(torch, "serve_wide", SERVE_WIDE)
+    _, cfg = cut_config(SERVE_WIDE)
+    info.update(qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
+                head_dim=cfg.head_dim, vocab=cfg.vocab_size)
+    return info
+
+
+def phase_serve_moe(torch, out_dir: Path) -> dict:
+    """phi3.5-moe at full width cut to 16 layers (``serve_cut``), then its
+    coded head at the same depth (``coded_head_decode``), then
+    ``serve --reduced`` for phi3.5-moe and arctic through the CLI."""
+    info = serve_cut(torch, "serve_moe", SERVE_MOE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, cfg = cut_config(SERVE_MOE)
+    info["coded_head"] = coded_head_decode(torch, cfg, "serve_moe_coded_head")
+    info["cli_reduced"] = {}
+    for arch in (SERVE_MOE["arch"], SERVE_ARCTIC["arch"]):
+        argv, res, launches = _serve_cli(
+            torch, dict(MOE_REDUCED, arch=arch),
+            out_dir / f"serve_moe_reduced_{arch}.json", ("--reduced",))
+        _expect_launches(arch, launches, 0)
+        info["cli_reduced"][arch] = {"argv": argv, "launches": launches,
+                                     "sample": res["tokens"][0]}
+    emit({"phase": "serve_moe_cli_reduced", **info["cli_reduced"]})
+    return info
+
+
+def phase_serve_arctic(torch) -> dict:
+    """arctic-480b at full width (128 experts of 4864, top-2, the dense
+    residual) cut to 2 layers (``serve_cut``)."""
+    return serve_cut(torch, "serve_arctic", SERVE_ARCTIC)
 
 
 def _kernel_group(name: str) -> str:
@@ -948,11 +1029,13 @@ def device_profile(torch, step, n: int) -> dict:
             "kernels_per_step": kernels / n}
 
 
-def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8) -> dict:
-    """One prefill of ``arch`` at full width and depth and ``steps`` decode
-    steps, each under ``torch.profiler``: device time by kernel group and
-    the device's busy share of the host-clock time (the profiler's own host
-    cost included, so the idle share is an upper bound)."""
+def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8,
+                  cfg=None) -> dict:
+    """One prefill of ``arch`` at full width and depth (or of ``cfg``) and
+    ``steps`` decode steps, each under ``torch.profiler``: device time by
+    kernel group and the device's busy share of the host-clock time (the
+    profiler's own host cost included, so the idle share is an upper
+    bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -961,11 +1044,11 @@ def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = registry.get_config(arch)
+    cfg = cfg or registry.get_config(arch)
     rc = RunConfig()
     dev = torch.device("cuda")
-    info: dict = {"arch": arch, "batch": B, "prompt_len": S,
-                  "decode_steps": steps}
+    info: dict = {"arch": arch, "layers": cfg.num_layers, "batch": B,
+                  "prompt_len": S, "decode_steps": steps}
     with torch.inference_mode():
         model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
         prompt = serve.make_prompt(cfg, B, S, 0, dev)
@@ -1014,7 +1097,46 @@ def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8) -> dict:
         if cfg.num_heads:
             info["prefill"]["attention"] = attention_share(
                 torch, cfg, rc, B, S, info["prefill"]["device_ms"])
+        if cfg.num_experts:
+            info["prefill"]["moe"] = moe_share(
+                torch, cfg, rc, model, B, S, info["prefill"])
     return info
+
+
+def moe_share(torch, cfg, rc, model, B: int, S: int, prefill: dict) -> dict:
+    """The MoE layer alone at a prefill's shapes (CUDA events, the first
+    layer's parameters, bf16 inputs), summed over the layers: the whole
+    layer, its expert products (``moe.expert_ffn`` on the (B, E, C, d)
+    dispatched slabs) and the rest of it, the dispatch and combine work
+    (router, gating, one-hot and cumsum, the dispatch and combine
+    einsums).  Attention's ms (``attention_share``) and the MoE layer's
+    leave the rest of the prefill's device ms."""
+    from repro_torch.models import moe
+
+    p = model.segments[0][0].moe
+    E, k, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
+    C = min(max(4, int(-(-S * k * cfg.capacity_factor // E))), S)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((B, S, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    xe = torch.randn((B, E, C, d), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    L = cfg.num_layers
+    layer = time_ms(torch, lambda: moe.moe_forward(cfg, rc, p, x), 3)
+    experts = time_ms(torch, lambda: moe.expert_ffn(p, xe), 3)
+    flops = 3 * 2 * B * E * C * d * cfg.moe_d_ff
+    attn = prefill.get("attention", {}).get("ms_per_prefill", 0.0)
+    total = prefill["device_ms"]
+    ms = {"attention": attn, "expert_products": L * experts,
+          "dispatch_combine": L * (layer - experts),
+          "rest": total - attn - L * layer}
+    return {"capacity": C, "moe_ms_per_layer": layer,
+            "expert_products_ms_per_layer": experts,
+            "expert_products_tflop_per_layer": flops / 1e12,
+            "expert_products_tflop_per_s": flops / experts / 1e9,
+            "ms_per_prefill": ms,
+            "share_of_prefill_device_ms": {k: v / total
+                                           for k, v in ms.items()}}
 
 
 def attention_share(torch, cfg, rc, B: int, S: int, prefill_ms: float
@@ -1167,19 +1289,182 @@ def phase_consistency_dense(torch) -> dict:
     return info
 
 
+def _coded_survivors():
+    """The coded head of ``serve --coded-head``: N = 6, K = 4, T = 1, and
+    the survivors without shard ``CODED["kill_shard"]``."""
+    import numpy as np
+
+    from repro_torch.core import coded_linear as CL
+
+    ccfg = CL.CodedLinearConfig(N=6, K=4, T=1)
+    return ccfg, np.array([i for i in range(ccfg.N)
+                           if i != CODED["kill_shard"]])
+
+
+def phase_profile_moe(torch) -> dict:
+    """phi3.5-moe's and arctic's prefill at their serve_moe and serve_arctic
+    shapes (16 and 2 layers) and 8 decode steps under ``torch.profiler``,
+    with the prefill's device ms by group: attention, the expert products,
+    dispatch and combine, the rest."""
+    info: dict = {"phase": "profile_moe"}
+    for spec in (SERVE_MOE, SERVE_ARCTIC):
+        info[spec["arch"]] = serve_profile(
+            torch, spec["arch"], spec["batch"], spec["prompt_len"],
+            cfg=cut_config(spec)[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(info)
+    return info
+
+
+def _mem_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        kb = next(int(ln.split()[1]) for ln in f
+                  if ln.startswith("MemAvailable:"))
+    return kb / 2 ** 20
+
+
+class GatingLog:
+    """Records every call of ``moe._top_k_gating`` while active: the
+    device, the router logits and the chosen experts (on the host)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        inner = self.fn = self.moe._top_k_gating
+
+        def logged(cfg, logits):
+            w, idx = inner(cfg, logits)
+            self.calls.append((logits.device.type, logits.float().cpu(),
+                               idx.cpu()))
+            return w, idx
+
+        self.moe._top_k_gating = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k_gating = self.fn
+
+
+def topk_agreement(card: list, cpu: list, k: int) -> dict:
+    """Per layer's gating call, the tokens whose top-k expert sets agree
+    between the card and the CPU; where one differs, the card's margin
+    between its k-th and (k+1)-th logits there (a near tie flips)."""
+    agree = total = 0
+    margins = []
+    for (_, lg, ig), (_, _, ic) in zip(card, cpu):
+        same = (ig.sort(-1).values == ic.sort(-1).values).all(-1)
+        agree += int(same.sum())
+        total += same.numel()
+        if not bool(same.all()):
+            top = lg.sort(-1, descending=True).values
+            margins += (top[..., k - 1] - top[..., k])[~same].tolist()
+    return {"tokens_agree": agree, "tokens": total,
+            "margins_where_they_differ": margins}
+
+
+def phase_consistency_moe(torch) -> dict:
+    """phi3.5-moe at full width, 2 layers, float32, capacity factor 8 (no
+    token dropped, as the reference's test_decode_matches_full_forward):
+    prefill on the card against the CPU and prefill + 3 decode steps
+    against the full forward (``consistency``), the top-2 expert sets of
+    the card's and the CPU's prefills, then ``moe_impl="sort"`` against
+    ``"einsum"`` on the card; within 1e-3."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(registry.get_config(SERVE_MOE["arch"]),
+                              num_layers=2, block_pattern=(("moe", 2),),
+                              capacity_factor=8.0)
+    B, S, extra = 2, 32, 3
+    need_gb = 2 * cfg.param_count() * 4 / 2 ** 30
+    free_gb = _mem_available_gb()
+    if free_gb < need_gb + 8:
+        raise AssertionError(f"consistency_moe: {free_gb:.1f} GiB free on "
+                             f"the host, {need_gb:.1f} GiB needed")
+    with GatingLog() as log:
+        errs = consistency(torch, cfg, B, S, extra, on_cpu=True)
+    # consistency() runs the card's prefill first, then the CPU's
+    card = [c for c in log.calls if c[0] == "cuda"][:cfg.num_layers]
+    cpu = [c for c in log.calls if c[0] == "cpu"]
+    agreement = topk_agreement(card, cpu, cfg.experts_per_token)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        model = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
+        he, _ = M.backbone(cfg, RunConfig(), model, {"tokens": toks})
+        hs, _ = M.backbone(cfg, RunConfig(moe_impl="sort"), model,
+                           {"tokens": toks})
+        errs["sort_vs_einsum_hidden"] = float((hs - he).abs().max())
+        errs["sort_vs_einsum_logits"] = float(
+            (M.lm_head(cfg, model, hs) - M.lm_head(cfg, model, he))
+            .abs().max())
+        del model
+    info = {"phase": "consistency_moe", "layers": 2, "d_model": cfg.d_model,
+            "capacity_factor": cfg.capacity_factor, "batch": B,
+            "prompt_len": S, "host_gib_free": free_gb,
+            "max_abs_err": errs, "topk_card_vs_cpu": agreement,
+            "tolerance": MODEL_ATOL}
+    emit(info)
+    _within(info)
+    return info
+
+
+def coded_field_check(torch, cfg, model, prompt) -> dict:
+    """The coded head of ``model`` (masks from seed 0, as ``serve``) on the
+    prompt's last post-final-norm hidden state: the decoded field values
+    against the direct product (h_q @ w_q) mod p from the plain version,
+    and the float logits against h @ w."""
+    from repro_torch.core import coded_linear as CL
+    from repro_torch.core import quantize
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    ccfg, survivors = _coded_survivors()
+    S = prompt.shape[1]
+    w, shares = serve.encode_head(cfg, model, ccfg, 0)
+    _, _, h = M.prefill(cfg, _serve_rc(S), model, {"tokens": prompt},
+                        cache_len=S + 1, return_hidden=True)
+    h = h[:, -1].float()
+    results, used = CL.shard_results(ccfg, h, shares, survivors)
+    got = CL.decode_field(ccfg, results, used)
+    want = ref.modmatmul_ref(quantize.quantize_data(h, ccfg.lh, ccfg.p),
+                             quantize.quantize_data(w, ccfg.lw, ccfg.p),
+                             ccfg.p)
+    torch.cuda.synchronize()
+    check = serve.coded_head_check(ccfg, h, w, shares, survivors)
+    return {"head_shape": list(w.shape), "survivors_used": used.tolist(),
+            "field_shape": list(got.shape),
+            "field_bit_equal_to_direct_product": bool(torch.equal(got, want)),
+            "rel_err": check["rel_err"],
+            "argmax_agreement": check["argmax_agreement"]}
+
+
+def _coded_verdict(phase: str, info: dict, scans: int) -> None:
+    emit(info)
+    if not info["field_bit_equal_to_direct_product"]:
+        raise AssertionError(f"{phase}: decoded field values != (h_q @ w_q)"
+                             " mod p")
+    launches = info["launches"]
+    if launches["modmatmul"] == 0 or launches["selective_scan"] != scans:
+        raise AssertionError(f"{phase}: launches {launches} (modmatmul > 0 "
+                             f"and {scans} selective_scan expected)")
+
+
 def coded_head_check(torch, out_dir: Path, arch: str, phase: str,
                      scans: int) -> dict:
     """``serve --coded-head --kill-shard 2`` for ``arch`` at full width,
     then the decoded field values of the same head, prompt and survivors
-    against the direct product (h_q @ w_q) mod p from the plain version.
-    The CLI run must launch ``modmatmul`` and ``scans`` selective scans."""
-    import numpy as np
-
+    against the direct product (``coded_field_check``).  The CLI run must
+    launch ``modmatmul`` and ``scans`` selective scans."""
     from repro_torch.configs import registry
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.core import coded_linear as CL
-    from repro_torch.core import quantize
-    from repro_torch.kernels import ref
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
@@ -1189,44 +1474,56 @@ def coded_head_check(torch, out_dir: Path, arch: str, phase: str,
         ("--coded-head", "--kill-shard", str(CODED["kill_shard"])))
     gc.collect()
     torch.cuda.empty_cache()
-
     # the CLI's head, prompt and masks again, from the same seeds
-    ccfg = CL.CodedLinearConfig(N=6, K=4, T=1)
-    survivors = np.array([i for i in range(ccfg.N) if i != CODED["kill_shard"]])
     with torch.inference_mode():
         model = M.Model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
         prompt = serve.make_prompt(cfg, CODED["batch"], CODED["prompt_len"], 0,
                                    torch.device("cuda"))
-        w, shares = serve.encode_head(cfg, model, ccfg, 0)
-        _, _, h = M.prefill(cfg, RunConfig(), model, {"tokens": prompt},
-                            cache_len=CODED["prompt_len"] + 1,
-                            return_hidden=True)
+        field = coded_field_check(torch, cfg, model, prompt)
         del model
-        h = h[:, -1].float()
-        results, used = CL.shard_results(ccfg, h, shares, survivors)
-        got = CL.decode_field(ccfg, results, used)
-        want = ref.modmatmul_ref(quantize.quantize_data(h, ccfg.lh, ccfg.p),
-                                 quantize.quantize_data(w, ccfg.lw, ccfg.p),
-                                 ccfg.p)
-        torch.cuda.synchronize()
-        bit_equal = bool(torch.equal(got, want))
-        check = serve.coded_head_check(ccfg, h, w, shares, survivors)
-    info = {"phase": phase, "argv": argv, "launches": launches,
-            "head_shape": list(w.shape),
-            "survivors_used": used.tolist(), "field_shape": list(got.shape),
-            "field_bit_equal_to_direct_product": bit_equal,
-            "rel_err": check["rel_err"],
-            "argmax_agreement": check["argmax_agreement"],
+    info = {"phase": phase, "argv": argv, "launches": launches, **field,
             "cli_rel_err": res["coded_head"]["rel_err"],
             "cli_argmax_agreement": res["coded_head"]["argmax_agreement"],
             "decode_tok_per_s": res["decode_tok_per_s"]}
-    emit(info)
-    if not bit_equal:
-        raise AssertionError(f"{phase}: decoded field values != (h_q @ w_q)"
-                             " mod p")
-    if launches["modmatmul"] == 0 or launches["selective_scan"] != scans:
-        raise AssertionError(f"{phase}: launches {launches} (modmatmul > 0 "
-                             f"and {scans} selective_scan expected)")
+    _coded_verdict(phase, info, scans)
+    return info
+
+
+def coded_head_decode(torch, cfg, phase: str) -> dict:
+    """``serve.greedy_decode`` through the coded head (``CODED``'s batch,
+    prompt and tokens, shard 2 lost) for a config the CLI cannot serve (a
+    cut depth), launches counted from the head's encode on; then
+    ``coded_field_check`` on the same model.  ``modmatmul`` must launch,
+    the scan must not."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    ccfg, survivors = _coded_survivors()
+    S, dev = CODED["prompt_len"], torch.device("cuda")
+    with torch.inference_mode():
+        model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        prompt = serve.make_prompt(cfg, CODED["batch"], S, 0, dev)
+        ops.reset_launches()
+        _, shares = serve.encode_head(cfg, model, ccfg, 0)
+        stats: dict = {}
+        toks = serve.greedy_decode(cfg, _serve_rc(S), model, prompt,
+                                   CODED["gen"],
+                                   coded={"cfg": ccfg, "shares": shares},
+                                   survivors=survivors, stats=stats)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        del shares
+        field = coded_field_check(torch, cfg, model, prompt)
+        del model
+    res = dict(stats, tokens=toks.cpu().tolist())
+    _check_served(res, CODED["batch"], CODED["gen"], cfg.vocab_size)
+    info = {"phase": phase, "layers": cfg.num_layers, "launches": launches,
+            **field, "survivors": survivors.tolist(),
+            "prefill_s": stats["prefill_s"],
+            "decode_tok_per_s": CODED["batch"] * CODED["gen"]
+            / stats["decode_s"]}
+    _coded_verdict(phase, info, 0)
     return info
 
 
@@ -2123,6 +2420,10 @@ def main(argv: list[str] | None = None) -> int:
             ("serve_wide", phase_serve_wide, (torch,)),
             ("consistency_dense", phase_consistency_dense, (torch,)),
             ("profile_dense", phase_profile_dense, (torch,)),
+            ("serve_moe", phase_serve_moe, (torch, out_dir)),
+            ("serve_arctic", phase_serve_arctic, (torch,)),
+            ("consistency_moe", phase_consistency_moe, (torch,)),
+            ("profile_moe", phase_profile_moe, (torch,)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
             ("mpc", phase_mpc, (torch, out_dir)),
@@ -2179,6 +2480,8 @@ def main(argv: list[str] | None = None) -> int:
                                  ("serve_hybrid", "serve_hybrid"),
                                  ("serve_swa", "serve_swa"),
                                  ("serve_wide", "serve_wide"),
+                                 ("serve_moe", "serve_moe"),
+                                 ("serve_arctic", "serve_arctic"),
                                  ("cluster_inprocess", "cluster"),
                                  ("cluster_socket", "socket"),
                                  ("mpc_inprocess", "mpc"),
@@ -2192,7 +2495,8 @@ def main(argv: list[str] | None = None) -> int:
                     if v in ran}})
             kernels[-1]["launches_by_path"].update({
                 f"{v}_coded_head": ran[v]["coded_head"]["launches"][name]
-                for v in ("serve_dense", "serve_hybrid") if v in ran})
+                for v in ("serve_dense", "serve_hybrid", "serve_moe")
+                if v in ran})
             # the serving paths' shapes, each timed beside its bound
             for key, prefix in (("predict_cases", "predict_"),
                                 ("coded_head_cases", "coded_head_"),

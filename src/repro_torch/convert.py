@@ -80,7 +80,9 @@ def params_from_reference(cfg: ModelConfig, tree: dict,
 
     A segment with count > 1 stacks its layers on a leading axis in the
     reference (``repro/models/model.py``); here each layer is its own
-    module, so that axis is unstacked.
+    module, so that axis is unstacked.  A block's sub-dicts (``attn``,
+    ``mlp``, ``moe``, ``mamba``) become dotted names, the MoE experts'
+    (E, d, ff) leaves and the float32 router among them.
     """
     from repro_torch.models import model as M
 

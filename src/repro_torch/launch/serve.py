@@ -11,8 +11,9 @@ drops one.  Weights are random, drawn from ``--seed`` (the prompt from
 seed+1, the head's masks from seed+2).  Runs on CUDA unless ``--device
 cpu``.  Architectures whose blocks are all ported run: the dense ones
 (tinyllama-1.1b, h2o-danube-3-4b, qwen2-72b, mistral-large-123b,
-qwen2-vl-7b), falcon-mamba-7b and hybrid hymba-1.5b; an MoE or
-encoder-decoder ``--arch`` exits 2 naming its ROADMAP item.
+qwen2-vl-7b), falcon-mamba-7b, hybrid hymba-1.5b and the MoE ones
+(phi3.5-moe-42b-a6.6b, arctic-480b); the encoder-decoder whisper-tiny
+exits 2 naming its ROADMAP item.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Substrate layers; mirrors ``repro/models/layers.py``.
 
-The parameter template leaf, ``rmsnorm``, the MLPs (``swiglu``,
-``gelu_mlp``), ``rope`` and attention: blockwise online-softmax attention
+The parameter template leaf, ``rmsnorm``, the activations (``silu``,
+``softplus``), the MLPs (``swiglu``, ``gelu_mlp``), ``rope`` and attention: blockwise online-softmax attention
 for training and prefill, single-position attention against a cache for
 decode, and the QKV/O projection block around them.
 
@@ -57,9 +57,22 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * scale.float()).to(dt)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) as ``jax.nn.silu`` computes it: x / (1 + exp(-x)) with
+    every step rounded to x's dtype (``F.silu`` rounds once, and differs
+    from the reference in about a third of bf16 outputs)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it:
+    max(x, 0) + log1p(exp(-|x|)), every step rounded to x's dtype."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w1) * (x @ w3)) @ w2
+    return (silu(x @ w1) * (x @ w3)) @ w2
 
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
+from repro_torch.models import layers
 from repro_torch.models.layers import ParamSpec
 
 Params = Mapping[str, torch.Tensor]
@@ -59,8 +60,8 @@ def _ssm_params(p: Params, x: torch.Tensor
     dtr = p["dt_proj"].shape[0]
     n = (p["x_proj"].shape[1] - dtr) // 2
     proj = x @ p["x_proj"]                                   # (B, L, dtr+2n)
-    dt = F.softplus(proj[..., :dtr] @ p["dt_proj"]
-                    + p["dt_bias"].to(proj.dtype))           # (B, L, di)
+    dt = layers.softplus(proj[..., :dtr] @ p["dt_proj"]
+                         + p["dt_bias"].to(proj.dtype))      # (B, L, di)
     Bm = proj[..., dtr: dtr + n]                             # (B, L, n)
     Cm = proj[..., dtr + n:]                                 # (B, L, n)
     return dt, Bm, Cm
@@ -90,7 +91,7 @@ def mamba_mix(cfg: ModelConfig, rc: RunConfig, p: Params, x_in: torch.Tensor,
     # reference's order (F.conv1d rounds bf16 differently)
     xp = F.pad(x_in, (0, 0, cw - 1, 0))
     x = sum(xp[:, i: i + S] * p["conv_w"][i] for i in range(cw))
-    x = F.silu(x + p["conv_b"].to(x.dtype))
+    x = layers.silu(x + p["conv_b"].to(x.dtype))
     dt, Bm, Cm = _ssm_params(p, x)
     if h0 is None:
         h0 = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
@@ -105,7 +106,7 @@ def mamba_forward(cfg: ModelConfig, rc: RunConfig, p: Params, x: torch.Tensor
     xz = x @ p["in_proj"]
     x_in, z = xz.chunk(2, dim=-1)
     y, _ = mamba_mix(cfg, rc, p, x_in)
-    return (y * F.silu(z)) @ p["out_proj"]
+    return (y * layers.silu(z)) @ p["out_proj"]
 
 
 def mamba_decode_core(cfg: ModelConfig, p: Params, x_in: torch.Tensor,
@@ -119,7 +120,7 @@ def mamba_decode_core(cfg: ModelConfig, p: Params, x_in: torch.Tensor,
     conv_buf = torch.cat([cache["conv"].to(x_in.dtype), x_in],
                          dim=1)                             # (B, cw, di)
     xc = torch.einsum("bwi,wi->bi", conv_buf, p["conv_w"])[:, None]
-    xc = F.silu(xc + p["conv_b"].to(xc.dtype))
+    xc = layers.silu(xc + p["conv_b"].to(xc.dtype))
     dt, Bm, Cm = (t.float() for t in _ssm_params(p, xc))   # (B, 1, ...)
     a, b = _discretize(p, dt, Bm, xc)            # (B, 1, di, n)
     h = a[:, 0] * cache["ssm"] + b[:, 0]         # (B, di, n)
@@ -135,4 +136,4 @@ def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     xz = x @ p["in_proj"]
     x_in, z = xz.chunk(2, dim=-1)                # (B, 1, di)
     y, new_cache = mamba_decode_core(cfg, p, x_in, cache)
-    return (y * F.silu(z)) @ p["out_proj"], new_cache
+    return (y * layers.silu(z)) @ p["out_proj"], new_cache

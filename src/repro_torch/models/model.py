@@ -1,5 +1,5 @@
-"""Model assembly; mirrors ``repro/models/model.py`` for the dense, mamba
-and hybrid blocks.
+"""Model assembly; mirrors ``repro/models/model.py`` for the dense, MoE,
+mamba and hybrid blocks.
 
 A model is a sequence of SEGMENTS from ``ModelConfig.block_pattern``, each
 a list of homogeneous blocks.  The reference scans a segment over stacked
@@ -8,12 +8,13 @@ walks them.  Ported kinds:
 
   dense         attn + mlp                       (llama/mistral/qwen family)
   dense_global  dense with full attention even when cfg.sliding_window is set
+  moe           attn + MoE (+ the parallel dense residual of arctic)
   mamba         mamba-1 block                    (falcon-mamba)
   hybrid        parallel attn ∥ mamba heads + mlp (hymba); SWA by default
   hybrid_global hybrid with full attention       (hymba's few global layers)
 
-The other kinds (moe, enc, dec) raise NotImplementedError naming their
-ROADMAP item.  Forward modes: ``backbone`` / ``prefill`` (returns the
+The encoder/decoder kinds (enc, dec) raise NotImplementedError naming
+their ROADMAP item.  Forward modes: ``backbone`` / ``prefill`` (returns the
 decode cache) and ``decode_step`` (one token, cache update).  Training
 (``loss_fn``) is not ported: parameters are created without gradients.
 The reference's sharding hints (``constrain``) and its context-parallel
@@ -28,16 +29,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models import layers, mamba
+from repro_torch.models import layers, mamba, moe
 from repro_torch.models.layers import ParamSpec
 
 # Block kinds not ported yet -> their item in ROADMAP.md's LM substrate list.
 UNPORTED = {
-    "moe": "queue 1b item 2 (MoE)",
     "enc": "queue 1b item 4 (encoder/decoder)",
     "dec": "queue 1b item 4 (encoder/decoder)",
 }
-_ATTN = ("dense", "hybrid")          # ported kinds with attention + mlp
+_ATTN = ("dense", "moe", "hybrid")   # ported kinds with attention (k/v cache)
 _SSM = ("mamba", "hybrid")           # ported kinds with a mamba mixer
 
 
@@ -70,7 +70,10 @@ def block_template(cfg: ModelConfig, kind: str) -> dict[str, Any]:
         t["norm1"] = _norm(cfg)
         t["attn"] = layers.attn_template(cfg)
         t["norm2"] = _norm(cfg)
-        t["mlp"] = layers.mlp_template(cfg)
+        if base == "moe":
+            t["moe"] = moe.moe_template(cfg)
+        else:
+            t["mlp"] = layers.mlp_template(cfg)
     if base == "mamba":
         t["norm1"] = _norm(cfg)
         t["mamba"] = mamba.mamba_template(cfg)
@@ -109,8 +112,8 @@ class _Init:
 
 class Block(nn.Module):
     """One layer: ``block_template(cfg, kind)`` made into parameters, under
-    the reference's names (``norm1``, ``attn``, ``norm2``, ``mlp``,
-    ``norm_m``, ``mamba``; the sub-dicts as ``ParameterDict``s)."""
+    the reference's names (``norm1``, ``attn``, ``norm2``, ``mlp`` or
+    ``moe``, ``norm_m``, ``mamba``; the sub-dicts as ``ParameterDict``s)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, init: _Init):
         super().__init__()
@@ -170,7 +173,7 @@ def _mamba_branch(cfg: ModelConfig, rc: RunConfig, p, h: torch.Tensor,
     if cache is not None:
         cache["conv"] = _conv_tail(x_in, cfg.conv_width)
         cache["ssm"] = h_last
-    return (ym * F.silu(z)) @ p["out_proj"]
+    return (ym * layers.silu(z)) @ p["out_proj"]
 
 
 def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
@@ -196,14 +199,22 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
             x = x + attn_out + _mamba_branch(cfg, rc, block.mamba, hm, cache)
         else:
             x = x + attn_out
-        h2 = layers.rmsnorm(x, block.norm2, cfg.norm_eps)
-        x = x + layers.mlp_forward(cfg, block.mlp, h2)
+        x = x + _ffn(cfg, rc, base, block, x)
     elif base == "mamba":
         h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
         x = x + _mamba_branch(cfg, rc, block.mamba, h, cache)
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     return x, cache
+
+
+def _ffn(cfg: ModelConfig, rc: RunConfig, base: str, block: Block,
+         x: torch.Tensor) -> torch.Tensor:
+    """The block's second half on norm2(x): the MoE layer or the MLP."""
+    h2 = layers.rmsnorm(x, block.norm2, cfg.norm_eps)
+    if base == "moe":
+        return moe.moe_forward(cfg, rc, block.moe, h2)
+    return layers.mlp_forward(cfg, block.mlp, h2)
 
 
 def _stack(entries: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
@@ -347,8 +358,7 @@ def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
                                            new_cache)
         else:
             x = x + attn_out
-        h2 = layers.rmsnorm(x, block.norm2, cfg.norm_eps)
-        x = x + layers.mlp_forward(cfg, block.mlp, h2)
+        x = x + _ffn(cfg, rc, base, block, x)
     elif base == "mamba":
         hnorm = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
         x = x + _mamba_step(cfg, block.mamba, hnorm, cache_layer, new_cache)
@@ -366,7 +376,7 @@ def _mamba_step(cfg: ModelConfig, p, h: torch.Tensor,
     ym, mcache = mamba.mamba_decode_core(
         cfg, p, x_in, {"conv": cache_layer["conv"], "ssm": cache_layer["ssm"]})
     new_cache.update(mcache)
-    return (ym * F.silu(z)) @ p["out_proj"]
+    return (ym * layers.silu(z)) @ p["out_proj"]
 
 
 def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,

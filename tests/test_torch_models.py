@@ -244,7 +244,7 @@ def test_init_is_deterministic_per_seed_with_reference_distributions():
 
 
 def test_unported_kinds_and_options_raise():
-    cfg = treg.reduced_config(treg.get_config("phi3.5-moe-42b-a6.6b"))
+    cfg = treg.reduced_config(treg.get_config("whisper-tiny"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.Model(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
