@@ -27,7 +27,12 @@ iterating on a kernel); such a partial run prints no ok line.
             served, dt f32, x f32, non-zero h0), S = 1, S = 33, di = 8200,
             n in {1, 3, 4, 16} with di not a multiple of the block's
             channels (and rows not 16-byte aligned), B 1 x di 96,
-            S = 8192 and hymba's serve shape (d_inner 3200);
+            S = 8192 and hymba's serve shape (d_inner 3200); the scan's bf16
+            a/b mode (``ssm_dtype="bf16"``, chunks of 128) within 1e-4 of
+            its plain version at falcon's and hymba's serve shapes with a
+            non-zero h0, S = 45 with chunks of 7, S = 300, chunks of 1, and
+            falcon-mamba's ``mamba_mix`` at 2 layers in that mode, card
+            against CPU within 2^-7 of the largest output (``ab16_mix``);
             ``modmatmul`` at the BGW baseline's two local
             products at Case 1 in both orientations; and times each
             main-path shape (CUDA events; the
@@ -98,6 +103,21 @@ iterating on a kernel); such a partial run prints no ok line.
             serve_moe and serve_arctic shapes, with the prefill's device ms
             by group: attention, the expert products, dispatch and combine,
             the rest
+  serve_whisper  whisper-tiny at its published config (4 encoder and 4
+            decoder layers, d 384, vocab 51865), bf16, batch 16 of 1500
+            stub frames, a 4-token prompt, 60 tokens through
+            ``serve.greedy_decode(..., enc_embeds=...)``: no kernel
+            launched; encoder and decoder-prefill ms, decode tokens/s, peak
+            device memory; the encoder, prefill and 8 decode steps under
+            torch.profiler (launches a step, busy share, attention's share);
+            then its coded head (batch 16, prompt 4, 4 tokens, shard 2
+            lost): field values bit-equal to (h_q @ w_q) mod p and exactly
+            25 ``modmatmul`` launches
+  consistency_whisper  whisper-tiny at full width and depth, float32, batch
+            2, 1500 frames, prompt 16: the card against the CPU (encoder
+            output, prefill logits and caches) and 3 decode steps against
+            the full forward, within 1e-3; the share of 2^20 bf16 ``gelu``
+            outputs that differ between card and CPU (a finding)
   cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
             Case 1 for 25 rounds under lognormal latencies with ``--pipeline
             off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
@@ -209,6 +229,20 @@ WEIGHT_ATOL = 1e-5  # float32 summation order: cuBLAS vs CPU in xqᵀ·targets
 # The selective scan: the same float32 recurrence summed in another order
 # (the reference's kernel test uses 1e-4 too).
 SCAN_ATOL = 1e-4
+# The scan's bf16 a/b mode (RunConfig.ssm_dtype="bf16") against its plain
+# version on the card: both take the same float32 operations in the same
+# order (exp by expf, the products and the h update rounded singly), so
+# they round a, b, A_c and B_c alike, and only y's 17-term sum is summed in
+# another order: the float32 recurrence's tolerance.
+AB16_ATOL = 1e-4
+# mamba_mix in the bf16 a/b mode, card against CPU: the card's expf and the
+# CPU's vectorised exp (and the two float32 x_proj products) differ in the
+# last bit of some a_t and b_t; where that straddles a bf16 rounding
+# boundary, the value moves one bf16 step (at most 2^-7 of it), and A_c or
+# B_c with it for the rest of the chunk: within 2^-7 of the largest output.
+AB16_MIX_REL = 2.0 ** -7
+# the chunk length of the bf16 a/b cases: RunConfig()'s scan_chunk
+AB16_CHUNK = 128
 # falcon-mamba at full width, float32 parameters: card vs CPU and decode vs
 # the full forward, the reference model tests' own tolerance.
 MODEL_ATOL = 1e-3
@@ -229,13 +263,25 @@ SERVE_ARCTIC = dict(arch="arctic-480b", layers=2, batch=4, prompt_len=2048,
 # the CLI's --reduced runs of the MoE archs on the card
 MOE_REDUCED = dict(batch=2, prompt_len=24, gen=4)
 CODED = dict(batch=4, prompt_len=16, gen=4, kill_shard=2)
+# whisper-tiny at its published config (PERF.md section 4): batch 16 of
+# 30-second chunks (1500 stub frames each), a 4-token decoder prompt (the
+# length of whisper's start-of-transcript prefix), 60 tokens; its coded
+# head at the same batch and prompt for 4 tokens
+SERVE_WHISPER = dict(arch="whisper-tiny", batch=16, prompt_len=4, gen=60)
+WHISPER_CODED = dict(batch=16, prompt_len=4, gen=4)
+# float32 card-vs-CPU and decode-vs-full-forward run of consistency_whisper
+CONSISTENCY_WHISPER = dict(batch=2, prompt_len=16, extra=3)
+# the falcon-mamba mamba_mix run of the bf16 a/b mode: 2 layers at full
+# width, float32 parameters, S not a multiple of the chunk
+AB16_MIX = dict(layers=2, batch=2, prompt_len=300)
+GELU_SAMPLES = 1 << 20
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
 PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
           "consistency", "coded_head", "serve_dense", "serve_hybrid",
           "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
           "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
-          "cluster", "socket", "mpc",
+          "serve_whisper", "consistency_whisper", "cluster", "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
 
@@ -502,10 +548,11 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
 
 def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
     """``modmatmul`` at the coded LM head's shapes, P30: one shard's
-    product (4 x d)·(d x V/4) and the head encode (6 x 5)·(5 x d·V/4) for
-    falcon-mamba (d 4096, V 65024), tinyllama (2048, 32000), hymba
-    (1600, its 32001 cut to 32000) and phi3.5-moe (4096, 32064).
-    Bit-equal, then timed."""
+    product (B x d)·(d x V/4) and the head encode (6 x 5)·(5 x d·V/4) for
+    falcon-mamba (B 4, d 4096, V 65024), tinyllama (4, 2048, 32000), hymba
+    (4, 1600, its 32001 cut to 32000), phi3.5-moe (4, 4096, 32064) and
+    whisper-tiny (16, 384, its 51865 cut to 51864).  Bit-equal, then
+    timed."""
     from repro_torch.core import field
     from repro_torch.kernels import ref
     from repro_torch.kernels import modmatmul as mm
@@ -515,10 +562,11 @@ def phase_kernels_coded_head(torch, checks: Checks) -> list[dict]:
     rand = lambda shape: torch.randint(0, p, shape, generator=gen,  # noqa: E731
                                        dtype=torch.int32, device="cuda")
     timings = []
-    heads = (("", 4096, 16256), ("_tinyllama", 2048, 8000),
-             ("_hymba", 1600, 8000), ("_phi35_moe", 4096, 8016))
-    for case, a, b in [c for tag, d, v in heads for c in (
-            (f"coded_head_shard{tag}", rand((4, d)), rand((d, v))),
+    heads = (("", 4, 4096, 16256), ("_tinyllama", 4, 2048, 8000),
+             ("_hymba", 4, 1600, 8000), ("_phi35_moe", 4, 4096, 8016),
+             ("_whisper", SERVE_WHISPER["batch"], 384, 12966))
+    for case, a, b in [c for tag, m, d, v in heads for c in (
+            (f"coded_head_shard{tag}", rand((m, d)), rand((d, v))),
             (f"coded_head_encode{tag}", rand((6, 5)), rand((5, d * v))))]:
         checks.compare("modmatmul", case, mm.modmatmul(a, b, p),
                        ref.modmatmul_ref(a, b, p), p=p,
@@ -607,7 +655,9 @@ def scan_inputs(torch, gen, B, S, di, n, x_dtype, h0_scale,
 def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
     """The selective-scan kernel against its plain version on the card,
     then timed at the serve shape as the serve path calls it (x and dt
-    bf16, h0 = 0), and with dt float32 as the first kernel was timed."""
+    bf16, h0 = 0), and with dt float32 as the first kernel was timed; then
+    the bf16 a/b mode (``ssm_dtype="bf16"``, chunks of 128) at falcon's and
+    hymba's serve shapes and odd shapes, timed at the serve shapes."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import mamba_scan as ms
 
@@ -641,10 +691,29 @@ def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
                      ref.selective_scan_ref(*args), SCAN_ATOL,
                      shape=list(shape), x_dtype=str(x_dtype),
                      dt_dtype=str(dt_dtype))
+    # the bf16 a/b mode: (case, shape, x/dt dtype, h0 scale, chunk)
+    ab16_cases = [
+        ("ab16_falcon_serve_h0", (B, S, di, n), bf16, 0.5, AB16_CHUNK),
+        ("ab16_hymba_serve_h0", (B, S, 3200, n), bf16, 0.5, AB16_CHUNK),
+        # S not a multiple of the chunk, odd widths, states below 16
+        ("ab16_S45_chunk7_di1001_n3", (2, 45, 1001, 3), f32, 0.5, 7),
+        ("ab16_S300_di8200_n16", (2, 300, 8200, 16), bf16, 0.5, AB16_CHUNK),
+        ("ab16_chunk1", (2, 33, 96, 16), f32, 0.5, 1),
+    ]
+    for case, shape, x_dtype, h0_scale, chunk in ab16_cases:
+        args = scan_inputs(torch, gen, *shape, x_dtype, h0_scale, x_dtype)
+        checks.close("selective_scan", case,
+                     ms.selective_scan(*args, "bf16", chunk),
+                     ref.selective_scan_ref(*args, "bf16", chunk), AB16_ATOL,
+                     shape=list(shape), x_dtype=str(x_dtype),
+                     ssm_dtype="bf16", chunk=chunk)
     timings = []
-    for case, di, dt_dtype in (("serve_x_dt_bf16", 8192, bf16),
-                               ("serve_x_bf16", 8192, f32),
-                               ("hymba_serve_x_dt_bf16", 3200, bf16)):
+    for case, di, dt_dtype, mode in (
+            ("serve_x_dt_bf16", 8192, bf16, ()),
+            ("serve_x_bf16", 8192, f32, ()),
+            ("hymba_serve_x_dt_bf16", 3200, bf16, ()),
+            ("ab16_falcon_serve", 8192, bf16, ("bf16", AB16_CHUNK)),
+            ("ab16_hymba_serve", 3200, bf16, ("bf16", AB16_CHUNK))):
         args = scan_inputs(torch, gen, B, S, di, n, bf16, 0.0, dt_dtype)
         # each input read once in its dtype (x, dt; Bm/Cm/A_log/D/h0 f32),
         # each output written once (y, h_last f32); one exp and ~6 flops
@@ -657,14 +726,76 @@ def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
         timings.append({
             "kernel": "selective_scan", "case": case,
             "shape": [B, S, di, n], "dt_dtype": str(dt_dtype),
-            "ms": time_ms(torch, lambda: ms.selective_scan(*args), 10),
-            "plain_ms": time_ms(torch, lambda: ref.selective_scan_ref(*args),
-                                1),
+            "ms": time_ms(torch, lambda: ms.selective_scan(*args, *mode), 10),
+            "plain_ms": time_ms(
+                torch, lambda: ref.selective_scan_ref(*args, *mode), 1),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "exp_ms": (B * S * di * n + di * n) / SPECIAL_OPS_PER_S * 1e3})
+        if mode:
+            timings[-1].update(
+                ssm_dtype="bf16", chunk=AB16_CHUNK,
+                graph_ms=graph_ms(torch,
+                                  lambda: ms.selective_scan(*args, *mode), 5))
         emit({"phase": "kernels", "timing": timings[-1]})
     return timings
+
+
+def phase_ab16_mix(torch) -> dict:
+    """falcon-mamba at full width, 2 layers, float32 parameters (seed 0):
+    each layer's ``mamba_mix`` with ``ssm_dtype="bf16"`` on one random
+    input on the card (the kernel; launches counted just before and after)
+    and on the CPU (the plain version), within ``AB16_MIX_REL`` of the
+    largest output; beside it the CPU's float32 mode, as a finding: how
+    much closer the card's bf16 result lies to the CPU's bf16 result than
+    the float32 mode does (RMS)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba
+    from repro_torch.models import model as M
+
+    full, cfg = cut_config(dict(arch=SERVE["arch"], layers=AB16_MIX["layers"]))
+    rc = RunConfig(ssm_dtype="bf16")
+    B, S = AB16_MIX["batch"], AB16_MIX["prompt_len"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((B, S, cfg.d_inner), generator=gen, device="cuda")
+    info: dict = {"layers": cfg.num_layers, "shape": [B, S, cfg.d_inner,
+                                                      cfg.ssm_state],
+                  "chunk": rc.scan_chunk, "tolerance_rel": AB16_MIX_REL,
+                  "reduced": {"num_layers": [full.num_layers,
+                                             cfg.num_layers]},
+                  "max_abs_err": {}, "rms_card_vs_cpu": {},
+                  "rms_f32_mode_vs_cpu": {}}
+    with torch.inference_mode():
+        gpu = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
+        cpu = M.Model(cfg, dtype=torch.float32, device="cpu", seed=None)
+        cpu.load_state_dict(gpu.state_dict())
+        ops.reset_launches()
+        card = [mamba.mamba_mix(cfg, rc, blk.mamba, x)
+                for blk in gpu.segments[0]]
+        torch.cuda.synchronize()
+        info["launches"] = dict(ops.LAUNCHES)
+        for li, blk in enumerate(cpu.segments[0]):
+            want = mamba.mamba_mix(cfg, rc, blk.mamba, x.cpu())
+            f32 = mamba.mamba_mix(cfg, RunConfig(), blk.mamba, x.cpu())
+            for name, g, w, f in zip(("y", "h_last"), card[li], want, f32):
+                g = g.cpu()
+                key = f"layer{li}_{name}"
+                err = float((g - w).abs().max())
+                info["max_abs_err"][key] = err
+                info["rms_card_vs_cpu"][key] = float((g - w).pow(2).mean()
+                                                     .sqrt())
+                info["rms_f32_mode_vs_cpu"][key] = float((f - w).pow(2).mean()
+                                                         .sqrt())
+                tol = AB16_MIX_REL * float(w.abs().max())
+                if not err <= tol:
+                    raise AssertionError(f"ab16_mix {key}: card vs CPU "
+                                         f"{err} > {tol}")
+        del gpu, cpu
+    emit({"phase": "kernels", "ab16_mix": info})
+    _expect_launches("mamba_mix with ssm_dtype='bf16'", info["launches"],
+                     cfg.num_layers)
+    return info
 
 
 def phase_train(torch, out_dir: Path) -> dict:
@@ -1029,16 +1160,47 @@ def device_profile(torch, step, n: int) -> dict:
             "kernels_per_step": kernels / n}
 
 
-def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8,
-                  cfg=None) -> dict:
-    """One prefill of ``arch`` at full width and depth (or of ``cfg``) and
-    ``steps`` decode steps, each under ``torch.profiler``: device time by
-    kernel group and the device's busy share of the host-clock time (the
-    profiler's own host cost included, so the idle share is an upper
-    bound)."""
+def profile_window(torch, fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: device time by kernel group
+    and by kernel (the top 8), kernel launches, and the device's busy share
+    of the host-clock time (the profiler's own host cost included, so the
+    idle share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.device_time_total / 1e3)
+            launches += 1
+    groups: dict[str, float] = {}
+    for k, ms in by_name.items():
+        groups[_kernel_group(k)] = groups.get(_kernel_group(k), 0) + ms
+    busy = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"host_ms": wall_ms, "device_ms": busy,
+            "device_ms_by_group": groups,
+            "selective_scan_share_of_device_ms":
+                groups.get("selective_scan", 0.0) / busy,
+            "device_busy_share": busy / wall_ms,
+            "kernel_launches": launches,
+            "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8,
+                  cfg=None) -> dict:
+    """One prefill of ``arch`` at full width and depth (or of ``cfg``) and
+    ``steps`` decode steps, each under ``torch.profiler``
+    (``profile_window``)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch import serve
@@ -1066,32 +1228,7 @@ def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8,
                                               {"tokens": tok})
 
         for name, fn in (("prefill", prefill), ("decode", decode)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            by_name: dict[str, float] = {}
-            launches = 0
-            for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
-                    by_name[e.name] = (by_name.get(e.name, 0.0)
-                                       + e.device_time_total / 1e3)
-                    launches += 1
-            groups: dict[str, float] = {}
-            for k, ms in by_name.items():
-                groups[_kernel_group(k)] = groups.get(_kernel_group(k), 0) + ms
-            busy = sum(groups.values())
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-            info[name] = {"host_ms": wall_ms, "device_ms": busy,
-                          "device_ms_by_group": groups,
-                          "selective_scan_share_of_device_ms":
-                              groups.get("selective_scan", 0.0) / busy,
-                          "device_busy_share": busy / wall_ms,
-                          "kernel_launches": launches,
-                          "top_kernels_ms": {k[:80]: v for k, v in top}}
+            info[name] = profile_window(torch, fn)
         info["decode"]["kernel_launches_per_step"] = (
             info["decode"]["kernel_launches"] / steps)
         if cfg.num_heads:
@@ -1195,7 +1332,9 @@ def consistency(torch, cfg, B: int, S: int, extra: int, on_cpu: bool
                 ) -> dict:
     """float32 parameters from seed 0 on the card: prefill against the CPU
     (plain versions) when ``on_cpu``, and prefill + ``extra`` decode steps
-    against ``backbone`` over S + extra; max abs errors by quantity."""
+    against ``backbone`` over S + extra; max abs errors by quantity.  An
+    encoder-decoder model reads random float32 frames (the encoder output
+    compared too), and its decode steps the card's encoder output."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import model as M
 
@@ -1204,31 +1343,44 @@ def consistency(torch, cfg, B: int, S: int, extra: int, on_cpu: bool
     gen = torch.Generator(device="cuda").manual_seed(5)
     toks = torch.randint(0, cfg.vocab_size, (B, S + extra), generator=gen,
                          dtype=torch.int32, device="cuda")
+    frames = {}
+    if cfg.is_encoder_decoder:
+        frames["enc_embeds"] = torch.randn(
+            (B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+            device="cuda")
 
     def err(a, b):
         return float((a.cpu().float() - b.cpu().float()).abs().max())
 
     errs = {}
     with torch.inference_mode():
-        lg, cg = M.prefill(cfg, rc, gpu, {"tokens": toks[:, :S]},
+        lg, cg = M.prefill(cfg, rc, gpu, {"tokens": toks[:, :S], **frames},
                            cache_len=S + extra)
+        enc = ({"enc_out": M.encode(cfg, rc, gpu, frames["enc_embeds"])}
+               if frames else {})
         if on_cpu:
             cpu = M.Model(cfg, dtype=torch.float32, device="cpu", seed=None)
             cpu.load_state_dict(gpu.state_dict())
-            lc, cc = M.prefill(cfg, rc, cpu, {"tokens": toks[:, :S].cpu()},
+            cpu_frames = {k: v.cpu() for k, v in frames.items()}
+            lc, cc = M.prefill(cfg, rc, cpu, {"tokens": toks[:, :S].cpu(),
+                                              **cpu_frames},
                                cache_len=S + extra)
+            if frames:
+                errs["encode"] = err(enc["enc_out"], M.encode(
+                    cfg, rc, cpu, cpu_frames["enc_embeds"]))
             del cpu
             errs["prefill_logits"] = err(lg, lc)
             for si in range(len(cfg.block_pattern)):
                 for name in cg[f"seg{si}"]:
                     errs[f"prefill_seg{si}_{name}"] = err(
                         cg[f"seg{si}"][name], cc[f"seg{si}"][name])
-        h, _ = M.backbone(cfg, rc, gpu, {"tokens": toks})
+        h, _ = M.backbone(cfg, rc, gpu, {"tokens": toks, **frames})
         want = M.lm_head(cfg, gpu, h[:, -1:])
         logits, cache = lg, cg
         for t in range(extra):
-            logits, cache = M.decode_step(cfg, rc, gpu, cache,
-                                          {"tokens": toks[:, S + t: S + t + 1]})
+            logits, cache = M.decode_step(
+                cfg, rc, gpu, cache, {"tokens": toks[:, S + t: S + t + 1],
+                                      **enc})
         errs[f"decode{extra}_vs_backbone"] = err(logits, want)
     return errs
 
@@ -1314,6 +1466,176 @@ def phase_profile_moe(torch) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     emit(info)
+    return info
+
+
+def whisper_attention(torch, cfg, rc, B: int, S: int) -> dict:
+    """``blockwise_attention`` alone at whisper's prefill shapes (CUDA
+    events, bf16 inputs), times its layers: the encoder's non-causal
+    self-attention over the frames, and the decoder's causal
+    self-attention and its cross-attention (S queries over the frames, at
+    the default float32 compute dtype)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    Se, H, KH, hd = cfg.encoder_seq_len, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    qe, ke, ve = rand(B, Se, H, hd), rand(B, Se, KH, hd), rand(B, Se, KH, hd)
+    qd, kd, vd = rand(B, S, H, hd), rand(B, S, KH, hd), rand(B, S, KH, hd)
+    blocks = dict(q_block=rc.q_block, kv_block=rc.kv_block)
+    per_layer = {
+        "encoder_self": time_ms(torch, lambda: layers.blockwise_attention(
+            qe, ke, ve, causal=False, compute_dtype=rc.attn_dtype, **blocks),
+            3),
+        "decoder_self": time_ms(torch, lambda: layers.blockwise_attention(
+            qd, kd, vd, compute_dtype=rc.attn_dtype, **blocks), 3),
+        "decoder_cross": time_ms(torch, lambda: layers.blockwise_attention(
+            qd, ke, ve, causal=False, **blocks), 3)}
+    layers_of = {"encoder_self": cfg.num_encoder_layers,
+                 "decoder_self": cfg.num_layers,
+                 "decoder_cross": cfg.num_layers}
+    return {"ms_per_layer": per_layer,
+            "ms_per_prefill": {k: v * layers_of[k]
+                               for k, v in per_layer.items()}}
+
+
+def whisper_profile(torch, cfg, rc, model, prompt, frames,
+                    steps: int = 8) -> dict:
+    """whisper's encoder, its decoder's prefill and ``steps`` decode steps,
+    each under ``torch.profiler`` (``profile_window``), then attention's
+    share of the encoder's and prefill's device ms
+    (``whisper_attention``)."""
+    from repro_torch.models import model as M
+
+    B, S = prompt.shape
+    state: dict = {}
+
+    def encode():
+        state["enc_out"] = M.encode(cfg, rc, model, frames)
+
+    def prefill():
+        state["logits"], state["cache"] = M.prefill(
+            cfg, rc, model, {"tokens": prompt, "enc_out": state["enc_out"]},
+            cache_len=S + steps)
+
+    def decode():
+        logits, cache = state["logits"], state["cache"]
+        for _ in range(steps):
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            logits, cache = M.decode_step(
+                cfg, rc, model, cache, {"tokens": tok,
+                                        "enc_out": state["enc_out"]})
+
+    info: dict = {"decode_steps": steps}
+    for name, fn in (("encode", encode), ("prefill", prefill),
+                     ("decode", decode)):
+        info[name] = profile_window(torch, fn)
+    dec = info["decode"]
+    dec["kernel_launches_per_step"] = dec["kernel_launches"] / steps
+    dec["device_ms_per_step"] = dec["device_ms"] / steps
+    attn = whisper_attention(torch, cfg, rc, B, S)
+    total = info["encode"]["device_ms"] + info["prefill"]["device_ms"]
+    attn["share_of_encode_and_prefill_device_ms"] = {
+        k: v / total for k, v in attn["ms_per_prefill"].items()}
+    info["attention"] = attn
+    return info
+
+
+def phase_serve_whisper(torch) -> dict:
+    """whisper-tiny at its published config (4 encoder and 4 decoder
+    layers, d 384, 6 heads of 64, d_ff 1536, vocab 51865, 1500 frames),
+    bf16, random weights from seed 0: batch 16 of stub frames, a 4-token
+    prompt, 60 tokens through ``serve.greedy_decode(..., enc_embeds=...)``
+    (the CLI takes tokens only, as the reference's): no kernel launched,
+    tokens in range, logits finite; encoder and decoder-prefill ms, decode
+    tokens/s, peak device memory; then ``whisper_profile``; then its coded
+    head at batch 16 and prompt 4 (``coded_head_decode``): field values
+    bit-equal to (h_q @ w_q) mod p, ``modmatmul`` launches as counted."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    spec = SERVE_WHISPER
+    cfg = registry.get_config(spec["arch"])
+    B, S, gen = spec["batch"], spec["prompt_len"], spec["gen"]
+    # RunConfig()'s 512 and 1024 attention blocks, not serve's rule
+    # min(512, prompt_len), which sizes them by the 4-token decoder prompt
+    # and would cut the encoder's 1500-frame self-attention into 375 x 375
+    # tiles of 4; blockwise_attention clamps them to each call's lengths
+    rc = RunConfig()
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        prompt = serve.make_prompt(cfg, B, S, 0, dev)
+        frames = serve.make_frames(cfg, B, 0, dev)
+        stats: dict = {}
+        ops.reset_launches()
+        toks = serve.greedy_decode(cfg, rc, model, prompt, gen, stats=stats,
+                                   enc_embeds=frames)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profile = whisper_profile(torch, cfg, rc, model, prompt, frames)
+        del model
+    res = dict(stats, tokens=toks.cpu().tolist())
+    info = {"phase": "serve_whisper", "launches": launches,
+            "layers": {"encoder": cfg.num_encoder_layers,
+                       "decoder": cfg.num_layers},
+            "d_model": cfg.d_model, "batch": B, "frames": cfg.encoder_seq_len,
+            "prompt_len": S, "gen": gen,
+            "params": cfg.param_count() + cfg.d_model,
+            "encode_ms": stats["encode_s"] * 1e3,
+            "prefill_ms": stats["prefill_s"] * 1e3,
+            "decode_s": stats["decode_s"],
+            "decode_tok_per_s": B * gen / stats["decode_s"],
+            "max_memory_allocated_gb": peak_gb,
+            "logits_finite": stats["logits_finite"],
+            "sample": res["tokens"][0][:8], "profile": profile}
+    emit(info)
+    _check_served(res, B, gen, cfg.vocab_size)
+    _expect_launches(spec["arch"], launches, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    info["coded_head"] = coded_head_decode(
+        torch, cfg, "serve_whisper_coded_head", WHISPER_CODED, frames=True)
+    return info
+
+
+def phase_consistency_whisper(torch) -> dict:
+    """whisper-tiny at full width and depth, float32: prefill (encoder
+    included) on the card against the CPU, and prefill + 3 decode steps
+    against the full forward on the card, within 1e-3; then, as a finding
+    (no gate), the share of bf16 ``gelu`` outputs that differ between the
+    card and the CPU on the same 2^20 inputs from N(0, 16)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers
+
+    cfg = registry.get_config(SERVE_WHISPER["arch"])
+    spec = CONSISTENCY_WHISPER
+    errs = consistency(torch, cfg, spec["batch"], spec["prompt_len"],
+                       spec["extra"], on_cpu=True)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = (torch.randn(GELU_SAMPLES, generator=gen, device="cuda") * 4
+         ).bfloat16()
+    card, cpu = layers.gelu(x).cpu(), layers.gelu(x.cpu())
+    info = {"phase": "consistency_whisper", "layers": cfg.num_layers,
+            "encoder_layers": cfg.num_encoder_layers,
+            "d_model": cfg.d_model, "frames": cfg.encoder_seq_len, **spec,
+            "max_abs_err": errs, "tolerance": MODEL_ATOL,
+            "gelu_bf16_card_vs_cpu": {
+                "samples": GELU_SAMPLES,
+                "share_differing": float((card != cpu).float().mean()),
+                "max_abs_diff": float((card.float() - cpu.float()).abs()
+                                      .max())}}
+    emit(info)
+    _within(info)
     return info
 
 
@@ -1416,11 +1738,13 @@ def phase_consistency_moe(torch) -> dict:
     return info
 
 
-def coded_field_check(torch, cfg, model, prompt) -> dict:
+def coded_field_check(torch, cfg, model, prompt, frames=None, rc=None
+                      ) -> dict:
     """The coded head of ``model`` (masks from seed 0, as ``serve``) on the
-    prompt's last post-final-norm hidden state: the decoded field values
-    against the direct product (h_q @ w_q) mod p from the plain version,
-    and the float logits against h @ w."""
+    prompt's last post-final-norm hidden state (an encoder-decoder model
+    reads ``frames``; ``rc`` defaults to ``serve``'s): the decoded field
+    values against the direct product (h_q @ w_q) mod p from the plain
+    version, and the float logits against h @ w."""
     from repro_torch.core import coded_linear as CL
     from repro_torch.core import quantize
     from repro_torch.kernels import ref
@@ -1430,7 +1754,10 @@ def coded_field_check(torch, cfg, model, prompt) -> dict:
     ccfg, survivors = _coded_survivors()
     S = prompt.shape[1]
     w, shares = serve.encode_head(cfg, model, ccfg, 0)
-    _, _, h = M.prefill(cfg, _serve_rc(S), model, {"tokens": prompt},
+    batch = {"tokens": prompt}
+    if frames is not None:
+        batch["enc_embeds"] = frames
+    _, _, h = M.prefill(cfg, rc or _serve_rc(S), model, batch,
                         cache_len=S + 1, return_hidden=True)
     h = h[:, -1].float()
     results, used = CL.shard_results(ccfg, h, shares, survivors)
@@ -1489,41 +1816,53 @@ def coded_head_check(torch, out_dir: Path, arch: str, phase: str,
     return info
 
 
-def coded_head_decode(torch, cfg, phase: str) -> dict:
-    """``serve.greedy_decode`` through the coded head (``CODED``'s batch,
+def coded_head_decode(torch, cfg, phase: str, spec: dict = CODED,
+                      frames: bool = False) -> dict:
+    """``serve.greedy_decode`` through the coded head (``spec``'s batch,
     prompt and tokens, shard 2 lost) for a config the CLI cannot serve (a
-    cut depth), launches counted from the head's encode on; then
-    ``coded_field_check`` on the same model.  ``modmatmul`` must launch,
-    the scan must not."""
+    cut depth, or an encoder-decoder model, which reads stub ``frames``
+    and runs at ``RunConfig()``'s attention blocks), launches counted from
+    the head's encode on; then ``coded_field_check`` on the same model.
+    ``modmatmul`` must launch exactly 1 + gen · (K + T + 1) times (the
+    head's encode, then a token's K + T shard products and its decode),
+    the scan never."""
+    from repro_torch.configs.base import RunConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
     ccfg, survivors = _coded_survivors()
-    S, dev = CODED["prompt_len"], torch.device("cuda")
+    B, S, gen = spec["batch"], spec["prompt_len"], spec["gen"]
+    dev = torch.device("cuda")
+    rc = RunConfig() if frames else _serve_rc(S)
     with torch.inference_mode():
         model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
-        prompt = serve.make_prompt(cfg, CODED["batch"], S, 0, dev)
+        prompt = serve.make_prompt(cfg, B, S, 0, dev)
+        enc = serve.make_frames(cfg, B, 0, dev) if frames else None
         ops.reset_launches()
         _, shares = serve.encode_head(cfg, model, ccfg, 0)
         stats: dict = {}
-        toks = serve.greedy_decode(cfg, _serve_rc(S), model, prompt,
-                                   CODED["gen"],
+        toks = serve.greedy_decode(cfg, rc, model, prompt, gen,
                                    coded={"cfg": ccfg, "shares": shares},
-                                   survivors=survivors, stats=stats)
+                                   survivors=survivors, stats=stats,
+                                   enc_embeds=enc)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         del shares
-        field = coded_field_check(torch, cfg, model, prompt)
+        field = coded_field_check(torch, cfg, model, prompt, enc, rc)
         del model
     res = dict(stats, tokens=toks.cpu().tolist())
-    _check_served(res, CODED["batch"], CODED["gen"], cfg.vocab_size)
+    _check_served(res, B, gen, cfg.vocab_size)
+    expected = 1 + gen * (ccfg.threshold + 1)
     info = {"phase": phase, "layers": cfg.num_layers, "launches": launches,
-            **field, "survivors": survivors.tolist(),
-            "prefill_s": stats["prefill_s"],
-            "decode_tok_per_s": CODED["batch"] * CODED["gen"]
-            / stats["decode_s"]}
+            "modmatmul_expected": expected, **field,
+            "survivors": survivors.tolist(), "batch": B, "prompt_len": S,
+            "gen": gen, "prefill_s": stats["prefill_s"],
+            "decode_tok_per_s": B * gen / stats["decode_s"]}
     _coded_verdict(phase, info, 0)
+    if launches["modmatmul"] != expected:
+        raise AssertionError(f"{phase}: {launches['modmatmul']} modmatmul "
+                             f"launches, {expected} expected")
     return info
 
 
@@ -2400,6 +2739,7 @@ def main(argv: list[str] | None = None) -> int:
                              torch, checks)
         timings += run_phase("kernels_mpc", phase_kernels_mpc, torch, checks)
         timings += run_phase("kernels_scan", phase_kernels_scan, torch, checks)
+        ran["ab16_mix"] = run_phase("kernels_ab16_mix", phase_ab16_mix, torch)
         timings += run_phase("kernels_predict", phase_kernels_predict, torch,
                              checks)
         free()
@@ -2424,6 +2764,8 @@ def main(argv: list[str] | None = None) -> int:
             ("serve_arctic", phase_serve_arctic, (torch,)),
             ("consistency_moe", phase_consistency_moe, (torch,)),
             ("profile_moe", phase_profile_moe, (torch,)),
+            ("serve_whisper", phase_serve_whisper, (torch,)),
+            ("consistency_whisper", phase_consistency_whisper, (torch,)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
             ("mpc", phase_mpc, (torch, out_dir)),
@@ -2482,6 +2824,8 @@ def main(argv: list[str] | None = None) -> int:
                                  ("serve_wide", "serve_wide"),
                                  ("serve_moe", "serve_moe"),
                                  ("serve_arctic", "serve_arctic"),
+                                 ("serve_whisper", "serve_whisper"),
+                                 ("mamba_mix_ssm_bf16", "ab16_mix"),
                                  ("cluster_inprocess", "cluster"),
                                  ("cluster_socket", "socket"),
                                  ("mpc_inprocess", "mpc"),
@@ -2495,14 +2839,17 @@ def main(argv: list[str] | None = None) -> int:
                     if v in ran}})
             kernels[-1]["launches_by_path"].update({
                 f"{v}_coded_head": ran[v]["coded_head"]["launches"][name]
-                for v in ("serve_dense", "serve_hybrid", "serve_moe")
+                for v in ("serve_dense", "serve_hybrid", "serve_moe",
+                          "serve_whisper")
                 if v in ran})
             # the serving paths' shapes, each timed beside its bound
             for key, prefix in (("predict_cases", "predict_"),
                                 ("coded_head_cases", "coded_head_"),
-                                ("hymba_cases", "hymba_")):
+                                ("hymba_cases", "hymba_"),
+                                ("ab16_cases", "ab16_")):
                 cases = [{k: x[k] for k in ("case", "shape", "ms", "graph_ms",
-                                            "plain_ms", "bound_ms", "bound_by")
+                                            "plain_ms", "bound_ms", "bound_by",
+                                            "chunk")
                           if k in x}
                          for x in timings if x["kernel"] == name
                          and x["case"].startswith(prefix)]

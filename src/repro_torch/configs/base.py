@@ -184,11 +184,9 @@ class RunConfig:
     q_block: int = 512               # blockwise attention tiles
     kv_block: int = 1024
     attn_dtype: str = "f32"          # score/PV matmul input dtype (bf16|f32)
-    scan_chunk: int = 128            # mamba chunked-scan length (reference
-                                     # only: the port's selective_scan kernel
-                                     # walks the whole sequence, no chunks)
-    ssm_dtype: str = "f32"           # mamba a/b tensor dtype (bf16|f32); the
-                                     # port runs "f32" only
+    scan_chunk: int = 128            # mamba chunk length: where the bf16
+                                     # a/b scan carries h in float32
+    ssm_dtype: str = "f32"           # mamba a/b tensor dtype (bf16|f32)
     moe_impl: str = "einsum"         # einsum | sort
     moe_combine_dtype: str = "f32"   # GShard combine-weights dtype
     moe_group_size: int = 0          # tokens per dispatch group (0 = one

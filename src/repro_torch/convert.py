@@ -81,17 +81,22 @@ def params_from_reference(cfg: ModelConfig, tree: dict,
     A segment with count > 1 stacks its layers on a leading axis in the
     reference (``repro/models/model.py``); here each layer is its own
     module, so that axis is unstacked.  A block's sub-dicts (``attn``,
-    ``mlp``, ``moe``, ``mamba``) become dotted names, the MoE experts'
-    (E, d, ff) leaves and the float32 router among them.
+    ``mlp``, ``moe``, ``mamba``, ``xattn``) become dotted names, the MoE
+    experts' (E, d, ff) leaves and the float32 router among them.  An
+    encoder-decoder model's ``enc`` segment and ``enc_norm`` come across
+    the same way, as ``enc.{layer}`` and ``enc_norm``.
     """
     from repro_torch.models import model as M
 
-    state = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
-             if k in tree}
-    for si, (_, count) in enumerate(cfg.block_pattern):
-        seg = tree[f"seg{si}"]["params"]
+    state = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                  "enc_norm") if k in tree}
+    stacks = [(tree[f"seg{si}"]["params"], f"segments.{si}.", count)
+              for si, (_, count) in enumerate(cfg.block_pattern)]
+    if cfg.is_encoder_decoder:
+        stacks.append((tree["enc"]["params"], "enc.", cfg.num_encoder_layers))
+    for seg, prefix, count in stacks:
         for li in range(count):
-            state.update(_flatten(seg, f"segments.{si}.{li}.",
+            state.update(_flatten(seg, f"{prefix}{li}.",
                                   li if count > 1 else None))
     state = {k: _tensor(v, device) for k, v in state.items()}
     model = M.Model(cfg, dtype=state["embed"].dtype, device=device, seed=None)

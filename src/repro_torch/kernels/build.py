@@ -63,9 +63,10 @@ _ARGTYPES = {
     # x, w, cbar, slot, out, params, stream
     "coded_grad_launch": [_P, _P, _P, _P, _P, ctypes.POINTER(CodedGradParams),
                           _P],
-    # x, dt, bc, a_log, d, h0, y, h_last, B, S, di, n, bf16, vec, stream
+    # x, dt, bc, a_log, d, h0, y, h_last, B, S, di, n, bf16, vec, ab_bf16,
+    # chunk, stream
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P],
+                          _I, _I, _I, _P],
 }
 
 

@@ -41,6 +41,25 @@
 // The TPU kernel carried h across a sequential grid axis in VMEM scratch;
 // here the time loop inside the block takes that axis' place.  Channels
 // i >= di compute on zeros and store nothing.
+//
+// The bf16 a/b mode (RunConfig.ssm_dtype = "bf16", kAB16) follows the
+// reference model's chunked scan (repro/models/mamba.py: _discretize,
+// _chunk_scan): a_t = exp(dt_t A) and b_t = (dt_t B_t) x_t rounded to
+// bf16, combined in bf16 within chunks of `chunk` steps, h carried in
+// float32 across chunk boundaries.  Each thread keeps, per state, the
+// chunk's running products in registers, each rounded to bf16 after
+// every step:
+//     A_c <- bf16(a_t A_c),  B_c <- bf16(bf16(a_t B_c) + b_t)
+//     h_t = float(A_c) h_c0 + float(B_c)   (float32; h_c0 = h at the
+//                                           chunk's start)
+// and restarts A_c = 1, B_c = 0 at each multiple of `chunk`.  The
+// reference combines a chunk as a tree (associative_scan); a sequential
+// combine rounds in another order, so the two agree within a tolerance.
+// The mode computes exp with expf (not ex2.approx) and its products with
+// the _rn intrinsics (never contracted into an FMA), the same operations
+// as the plain version, so both round a_t, b_t, A_c and B_c alike.  Its
+// last partial chunk needs no padding: the reference pads with identity
+// steps (a = 1, b = 0), which leave A_c, B_c and h unchanged.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +74,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v rounded to bfloat16 (to nearest even), as a float.
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 __device__ __forceinline__ float ex2(float v) {
   float r;
@@ -107,13 +131,13 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, siz
   }
 }
 
-template <typename T>
+template <typename T, bool kAB16>
 __global__ void __launch_bounds__(kCh)
 scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
             const float* __restrict__ bc, const float* __restrict__ a_log,
             const float* __restrict__ dvec, const float* __restrict__ h0,
             float* __restrict__ y, float* __restrict__ h_last, int S, int di, int n,
-            bool vec) {
+            bool vec, int chunk) {
   using R = Ring<T>;
   extern __shared__ __align__(16) unsigned char ring[];
   const int b = blockIdx.y;
@@ -123,13 +147,22 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const size_t row0 = static_cast<size_t>(b) * S;  // row of (b, t = 0)
   const size_t hoff = (static_cast<size_t>(b) * di + i) * n;
 
-  float A2[NS], h[NS];
+  // A2: A log2 e for ex2 (float32 mode), A itself for expf (kAB16).
+  // h: the state (float32 mode), the state at the chunk's start (kAB16).
+  // Ac, Bc: the chunk's bf16 running products (kAB16 only).
+  float A2[NS], h[NS], Ac[kAB16 ? NS : 1], Bc[kAB16 ? NS : 1];
 #pragma unroll
   for (int j = 0; j < NS; ++j) {
     const bool on = live && j < n;
-    A2[j] = on ? -expf(a_log[static_cast<size_t>(i) * n + j]) * kLog2e : 0.f;
+    const float A = on ? -expf(a_log[static_cast<size_t>(i) * n + j]) : 0.f;
+    A2[j] = kAB16 ? A : A * kLog2e;
     h[j] = on ? h0[hoff + j] : 0.f;
+    if constexpr (kAB16) {
+      Ac[j] = 1.f;
+      Bc[j] = 0.f;
+    }
   }
+  int left = chunk;  // steps left in the current chunk (kAB16)
   const float Dv = live ? dvec[i] : 0.f;
   const int tiles = (S + kT - 1) / kT;
 
@@ -175,13 +208,36 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         Bv[4 * q] = bq.x; Bv[4 * q + 1] = bq.y; Bv[4 * q + 2] = bq.z; Bv[4 * q + 3] = bq.w;
         Cv[4 * q] = cq.x; Cv[4 * q + 1] = cq.y; Cv[4 * q + 2] = cq.z; Cv[4 * q + 3] = cq.w;
       }
-      const float u = dv * xv;
       float acc0 = Dv * xv, acc1 = 0.f;  // two chains: half the add latency
+      if constexpr (kAB16) {
+        if (left == 0) {  // a new chunk: carry h in float32, restart A_c, B_c
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        h[j] = fmaf(ex2(dv * A2[j]), h[j], u * Bv[j]);
-        if (j % 2 == 0) acc0 = fmaf(h[j], Cv[j], acc0);
-        else acc1 = fmaf(h[j], Cv[j], acc1);
+          for (int j = 0; j < NS; ++j) {
+            h[j] = __fadd_rn(__fmul_rn(Ac[j], h[j]), Bc[j]);
+            Ac[j] = 1.f;
+            Bc[j] = 0.f;
+          }
+          left = chunk;
+        }
+        --left;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float a = bf16r(expf(__fmul_rn(dv, A2[j])));
+          const float b = bf16r(__fmul_rn(__fmul_rn(dv, Bv[j]), xv));
+          Ac[j] = bf16r(__fmul_rn(a, Ac[j]));
+          Bc[j] = bf16r(__fadd_rn(bf16r(__fmul_rn(a, Bc[j])), b));
+          const float ht = __fadd_rn(__fmul_rn(Ac[j], h[j]), Bc[j]);
+          if (j % 2 == 0) acc0 = fmaf(ht, Cv[j], acc0);
+          else acc1 = fmaf(ht, Cv[j], acc1);
+        }
+      } else {
+        const float u = dv * xv;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          h[j] = fmaf(ex2(dv * A2[j]), h[j], u * Bv[j]);
+          if (j % 2 == 0) acc0 = fmaf(h[j], Cv[j], acc0);
+          else acc1 = fmaf(h[j], Cv[j], acc1);
+        }
       }
       if (live) yp[static_cast<size_t>(tt) * di] = acc0 + acc1;
     }
@@ -189,35 +245,52 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   cp_async_wait<0>();
   if (live) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-      if (j < n) h_last[hoff + j] = h[j];
+    for (int j = 0; j < NS; ++j) {
+      float hl = h[j];
+      if constexpr (kAB16) hl = __fadd_rn(__fmul_rn(Ac[j], h[j]), Bc[j]);
+      if (j < n) h_last[hoff + j] = hl;
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool kAB16>
 cudaError_t launch(dim3 grid, cudaStream_t st, const void* x, const void* dt,
                    const float* bc, const float* a_log, const float* d, const float* h0,
-                   float* y, float* h_last, int S, int di, int n, bool vec) {
+                   float* y, float* h_last, int S, int di, int n, bool vec, int chunk) {
   constexpr size_t smem = Ring<T>::kBytes;
-  auto* kernel = scan_kernel<T>;
+  auto* kernel = scan_kernel<T, kAB16>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kCh, smem, st>>>(static_cast<const T*>(x), static_cast<const T*>(dt), bc,
-                                  a_log, d, h0, y, h_last, S, di, n, vec);
+                                  a_log, d, h0, y, h_last, S, di, n, vec, chunk);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_mode(bool ab16, dim3 grid, cudaStream_t st, const void* x,
+                        const void* dt, const float* bc, const float* a_log, const float* d,
+                        const float* h0, float* y, float* h_last, int S, int di, int n,
+                        bool vec, int chunk) {
+  return ab16 ? launch<T, true>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n,
+                                vec, chunk)
+              : launch<T, false>(grid, st, x, dt, bc, a_log, d, h0, y, h_last, S, di, n,
+                                 vec, chunk);
 }
 
 }  // namespace
 
 // bf16: 1 when x and dt are bfloat16, 0 when both are float32.  vec: 1 when
 // di % 8 == 0 and x and dt are 16-byte aligned (cp.async in 16-byte chunks).
+// ab_bf16: 1 for the bf16 a/b mode, in chunks of `chunk` >= 1 steps; 0 for
+// the float32 recurrence (chunk unread).
 extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* bc,
                                  const void* a_log, const void* d, const void* h0,
                                  void* y, void* h_last, int B, int S, int di, int n,
-                                 int bf16, int vec, void* stream) {
+                                 int bf16, int vec, int ab_bf16, int chunk,
+                                 void* stream) {
   if (B <= 0 || S <= 0 || di <= 0 || n <= 0 || n > NS || B > 65535 ||
-      (vec && di % 8 != 0))
+      (vec && di % 8 != 0) || (ab_bf16 && chunk <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((di + kCh - 1) / kCh, B);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -228,8 +301,9 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* bc,
   auto* yp = static_cast<float*>(y);
   auto* hlp = static_cast<float*>(h_last);
   const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(grid, st, x, dt, bcp, alp, dp, h0p, yp, hlp, S, di, n,
-                                   vec != 0)
-           : launch<float>(grid, st, x, dt, bcp, alp, dp, h0p, yp, hlp, S, di, n, vec != 0);
+      bf16 ? launch_mode<__nv_bfloat16>(ab_bf16 != 0, grid, st, x, dt, bcp, alp, dp, h0p,
+                                        yp, hlp, S, di, n, vec != 0, chunk)
+           : launch_mode<float>(ab_bf16 != 0, grid, st, x, dt, bcp, alp, dp, h0p, yp, hlp,
+                                S, di, n, vec != 0, chunk);
   return static_cast<int>(err);
 }

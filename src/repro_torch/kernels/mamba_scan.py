@@ -1,9 +1,10 @@
 """Wrapper of the ``selective_scan`` CUDA kernel (``csrc/mamba_scan.cu``).
 
 Replaces ``repro/kernels/mamba_scan.py::selective_scan``: the fused
-Mamba-1 selective scan, h in registers across the whole sequence.  Takes
-CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
-version.
+Mamba-1 selective scan, h in registers across the whole sequence; with
+``ssm_dtype="bf16"`` the reference model's bf16 a/b chunked scan
+(``RunConfig.ssm_dtype``).  Takes CUDA tensors only; ``kernels/ops.py``
+sends CPU tensors to the plain version.
 """
 from __future__ import annotations
 
@@ -37,12 +38,25 @@ def operands(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     return x, dt, bc
 
 
+def check_mode(ssm_dtype: str, chunk: int) -> None:
+    """``ssm_dtype`` "f32" (the float32 recurrence) or "bf16" (a and b
+    rounded to bf16 and combined in chunks of ``chunk`` >= 1 steps)."""
+    if ssm_dtype not in ("f32", "bf16"):
+        raise ValueError(f"selective_scan ssm_dtype must be 'f32' or 'bf16', "
+                         f"got {ssm_dtype!r}")
+    if ssm_dtype == "bf16" and chunk < 1:
+        raise ValueError(f"selective_scan ssm_dtype='bf16' needs chunk >= 1, "
+                         f"got {chunk}")
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                    cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
-                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                   h0: torch.Tensor, ssm_dtype: str = "f32", chunk: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """x, dt (B, S, di); bm, cm (B, S, n); a_log (di, n); d (di,);
     h0 (B, di, n), on one CUDA device -> (y (B, S, di), h_last (B, di, n)),
-    both float32.  Launches on the current stream.
+    both float32.  Launches on the current stream.  ``ssm_dtype="bf16"``
+    runs the bf16 a/b mode in chunks of ``chunk`` steps (``check_mode``).
 
     x and dt are read as bfloat16 when both are, so the serve path hands
     over its bfloat16 dt without a float32 copy; any other pair is read as
@@ -74,6 +88,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         raise ValueError(f"selective_scan needs B, S, di >= 1, 1 <= n <= "
                          f"{MAX_STATE} and B <= 65535; got B={B} S={S} di={di} "
                          f"n={n}")
+    check_mode(ssm_dtype, chunk)
     x, dt, bc = operands(x, dt, bm, cm)
     f32 = [t.float().contiguous() for t in (a_log, d, h0)]
     # cp.async moves 16-byte chunks of x and dt rows when they allow it
@@ -86,6 +101,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                                 *(t.data_ptr() for t in f32),
                                 y.data_ptr(), h_last.data_ptr(), B, S, di, n,
                                 int(x.dtype == torch.bfloat16), int(vec),
+                                int(ssm_dtype == "bf16"), min(chunk, S),
                                 stream)
     build.check(err, "selective_scan")
     kernels.LAUNCHES["selective_scan"] += 1

@@ -44,10 +44,15 @@ def coded_grad(x: torch.Tensor, w: torch.Tensor, cbar: torch.Tensor,
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                    cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
-                   h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                   h0: torch.Tensor, ssm_dtype: str = "f32", chunk: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba-1 selective scan: x, dt (B, S, di); bm, cm (B, S, n);
     a_log (di, n); d (di,); h0 (B, di, n) -> (y (B, S, di) float32,
-    h_last (B, di, n) float32)."""
+    h_last (B, di, n) float32).  ``ssm_dtype="bf16"``: a and b rounded to
+    bf16 and combined in chunks of ``chunk`` steps (``RunConfig``'s
+    ``ssm_dtype`` and ``scan_chunk``)."""
+    _ms.check_mode(ssm_dtype, chunk)
     if _on_cpu(x, dt, bm, cm, a_log, d, h0):
-        return ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0)
-    return _ms.selective_scan(x, dt, bm, cm, a_log, d, h0)
+        return ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0,
+                                      ssm_dtype, chunk)
+    return _ms.selective_scan(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)

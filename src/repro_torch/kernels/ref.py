@@ -84,20 +84,47 @@ def coded_grad_workers_ref(x: torch.Tensor, w: torch.Tensor,
 
 def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                        cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
-                       h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                       h0: torch.Tensor, ssm_dtype: str = "f32",
+                       chunk: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The sequential float32 recurrence of the Mamba-1 selective scan
     (``repro/kernels/mamba_scan.py::ref_selective_scan``).
 
     x, dt (B, S, di); bm, cm (B, S, n); a_log (di, n); d (di,);
     h0 (B, di, n) -> (y (B, S, di), h_last (B, di, n)), both float32.
+
+    ``ssm_dtype="bf16"`` is the reference model's bf16 a/b chunked scan
+    (``repro/models/mamba.py``: ``_discretize``, ``_chunk_scan``):
+    a_t = exp(dt_t A) and b_t = (dt_t B_t) x_t rounded to bf16, the
+    chunk's running products A_c <- a_t A_c and B_c <- a_t B_c + b_t in
+    bf16 (each step rounded), h_t = A_c h_c0 + B_c in float32 from the
+    state h_c0 at the chunk's start, restarted every ``chunk`` steps.
     """
     A = -torch.exp(a_log.float())
     d = d.float()
     h = h0.float()
+    ab16 = ssm_dtype == "bf16"
+    if ab16:
+        if chunk < 1:
+            raise ValueError(f"ssm_dtype='bf16' needs chunk >= 1, got {chunk}")
+        bf16 = torch.bfloat16
+        h_c0 = h
+        a_c = torch.ones(h.shape, dtype=bf16, device=h.device)
+        b_c = torch.zeros(h.shape, dtype=bf16, device=h.device)
     ys = []
     for t in range(x.shape[1]):
         x_t, dt_t = x[:, t].float(), dt[:, t].float()
         a_t = torch.exp(dt_t[:, :, None] * A[None])
-        h = a_t * h + (dt_t * x_t)[:, :, None] * bm[:, t, None, :].float()
+        if ab16:
+            if t % chunk == 0:
+                h_c0 = h
+                a_c, b_c = torch.ones_like(a_c), torch.zeros_like(b_c)
+            a_t = a_t.to(bf16)
+            b_t = (dt_t[:, :, None] * bm[:, t, None, :].float()
+                   * x_t[:, :, None]).to(bf16)
+            a_c = a_t * a_c
+            b_c = a_t * b_c + b_t
+            h = a_c.float() * h_c0 + b_c.float()
+        else:
+            h = a_t * h + (dt_t * x_t)[:, :, None] * bm[:, t, None, :].float()
         ys.append((h * cm[:, t, None, :].float()).sum(-1) + d * x_t)
     return torch.stack(ys, 1), h

@@ -9,11 +9,12 @@ the head is Lagrange-encoded over N shards (K data + T privacy masks), so
 any K+T shard results give the exact field logits; ``--kill-shard i``
 drops one.  Weights are random, drawn from ``--seed`` (the prompt from
 seed+1, the head's masks from seed+2).  Runs on CUDA unless ``--device
-cpu``.  Architectures whose blocks are all ported run: the dense ones
-(tinyllama-1.1b, h2o-danube-3-4b, qwen2-72b, mistral-large-123b,
-qwen2-vl-7b), falcon-mamba-7b, hybrid hymba-1.5b and the MoE ones
-(phi3.5-moe-42b-a6.6b, arctic-480b); the encoder-decoder whisper-tiny
-exits 2 naming its ROADMAP item.
+cpu``.  It serves the dense models (tinyllama-1.1b, h2o-danube-3-4b,
+qwen2-72b, mistral-large-123b, qwen2-vl-7b), falcon-mamba-7b, the hybrid
+hymba-1.5b and the MoE ones (phi3.5-moe-42b-a6.6b, arctic-480b).  Like
+the reference's driver it takes tokens only, so the encoder-decoder
+whisper-tiny, which needs frame embeddings, exits 2; it is served through
+``greedy_decode(..., enc_embeds=make_frames(...))``.
 """
 from __future__ import annotations
 
@@ -38,16 +39,28 @@ def _sync(dev: torch.device) -> None:
 
 
 def greedy_decode(cfg, rc, model, prompt, steps, coded=None, survivors=None,
-                  stats: dict | None = None):
+                  stats: dict | None = None,
+                  enc_embeds: torch.Tensor | None = None):
     """prompt: (B, S) tokens.  Returns (B, steps) generated tokens.
 
-    With a ``stats`` dict, the device is synchronised after the prefill and
-    at the end, and ``prefill_s`` / ``decode_s`` (host clock) are recorded,
-    with ``logits_finite``: whether every step's logits were finite.
+    An encoder-decoder model takes its frame embeddings ``enc_embeds``
+    (B, Se, d): the encoder runs once, and the prefill and every decode
+    step read its output.  With a ``stats`` dict, the device is
+    synchronised after the encoder, after the prefill and at the end, and
+    ``encode_s`` (encoder-decoder models), ``prefill_s`` (the decoder's
+    prefill) and ``decode_s`` (host clock) are recorded, with
+    ``logits_finite``: whether every step's logits were finite.
     """
     B, S = prompt.shape
+    enc: dict = {}
     t0 = time.perf_counter()
-    logits, cache, h = M.prefill(cfg, rc, model, {"tokens": prompt},
+    if enc_embeds is not None:
+        enc["enc_out"] = M.encode(cfg, rc, model, enc_embeds)
+        if stats is not None:
+            _sync(prompt.device)
+            stats["encode_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+    logits, cache, h = M.prefill(cfg, rc, model, {"tokens": prompt, **enc},
                                  cache_len=S + steps, return_hidden=True)
     if stats is not None:
         _sync(prompt.device)
@@ -67,7 +80,8 @@ def greedy_decode(cfg, rc, model, prompt, steps, coded=None, survivors=None,
             tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         outs.append(tok)
         logits, cache, h = M.decode_step(cfg, rc, model, cache,
-                                         {"tokens": tok}, return_hidden=True)
+                                         {"tokens": tok, **enc},
+                                         return_hidden=True)
         finite &= torch.isfinite(logits).all()
     toks = torch.cat(outs, dim=1)
     if stats is not None:
@@ -115,10 +129,16 @@ def main(argv: list[str] | None = None) -> int:
     cfg = registry.get_config(args.arch)
     if args.reduced:
         cfg = registry.reduced_config(cfg)
+    if cfg.is_encoder_decoder:
+        print(f"error: {cfg.name} needs frame embeddings (batch['enc_embeds'])"
+              ", which this driver does not take: like the reference's "
+              "(repro/launch/serve.py:27), it serves tokens only; call "
+              "serve.greedy_decode(..., enc_embeds=make_frames(...))",
+              file=sys.stderr)
+        return 2
     try:
-        M.check_ported(cfg)
         dev = _device.resolve(args.device)
-    except (NotImplementedError, RuntimeError) as e:
+    except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     rc = RunConfig(q_block=min(512, args.prompt_len),
@@ -134,6 +154,16 @@ def make_prompt(cfg, batch: int, prompt_len: int, seed: int,
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                          generator=gen, dtype=torch.int32, device=dev)
+
+
+def make_frames(cfg, batch: int, seed: int, dev: torch.device
+                ) -> torch.Tensor:
+    """Stub frame embeddings (batch, cfg.encoder_seq_len, d_model) in bf16,
+    standard normal from seed ``seed`` + 3: what the audio frontend, a stub
+    in the reference too, would hand the encoder."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    return torch.randn((batch, cfg.encoder_seq_len, cfg.d_model),
+                       generator=gen, device=dev).to(torch.bfloat16)
 
 
 def encode_head(cfg, model: M.Model, ccfg: CL.CodedLinearConfig, seed: int

@@ -1,7 +1,7 @@
 """Substrate layers; mirrors ``repro/models/layers.py``.
 
 The parameter template leaf, ``rmsnorm``, the activations (``silu``,
-``softplus``), the MLPs (``swiglu``, ``gelu_mlp``), ``rope`` and attention: blockwise online-softmax attention
+``softplus``, ``gelu``), the MLPs (``swiglu``, ``gelu_mlp``), ``rope`` and attention: blockwise online-softmax attention
 for training and prefill, single-position attention against a cache for
 decode, and the QKV/O projection block around them.
 
@@ -19,6 +19,7 @@ item 7).
 """
 from __future__ import annotations
 
+import math
 from collections.abc import Mapping
 from typing import NamedTuple
 
@@ -70,6 +71,22 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh gelu as ``jax.nn.gelu`` (approximate, its default) computes
+    it: x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3)))), the
+    cube as x * x * x, each constant rounded to x's dtype first and every
+    step rounded to it.  ``F.gelu(approximate="tanh")`` rounds once, and
+    differs from the reference in about 43% of bf16 outputs; with Python
+    float constants torch multiplies a bf16 tensor at a higher precision,
+    and 0.25% still differ.  In float32 the two frameworks' tanh differ in
+    the last bits."""
+    def const(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
+
+
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
     return (silu(x @ w1) * (x @ w3)) @ w2
@@ -77,8 +94,9 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
              ) -> torch.Tensor:
-    """gelu(x @ w1) @ w2 with the tanh gelu, ``jax.nn.gelu``'s default."""
-    return F.gelu(x @ w1, approximate="tanh") @ w2
+    """gelu(x @ w1) @ w2 with the tanh gelu, ``jax.nn.gelu``'s default,
+    rounded as the reference rounds it (``gelu``)."""
+    return gelu(x @ w1) @ w2
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float

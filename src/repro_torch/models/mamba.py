@@ -4,12 +4,15 @@
 Prefill runs the whole sequence through ``kernels.ops.selective_scan``: the
 hand-written CUDA kernel on a CUDA tensor, its plain sequential version on
 a CPU tensor.  The reference's chunked associative scan (``_chunk_scan``
-over materialised (B, chunk, d_inner, n) tensors) has no counterpart here,
-so ``RunConfig.scan_chunk`` is not read: the kernel keeps h on chip for
-the whole sequence.  It computes the same function as the reference's
-``mamba_mix`` (``tests/test_kernels_mamba.py`` holds the reference kernel
-against it).  ``RunConfig.ssm_dtype="bf16"`` (bf16 a/b tensors in the
-chunked scan) is not ported; the default ``"f32"`` is what serving runs.
+over materialised (B, chunk, d_inner, n) tensors) has no counterpart here:
+the kernel keeps h on chip for the whole sequence.  With the default
+``RunConfig.ssm_dtype="f32"`` it computes the same function as the
+reference's ``mamba_mix`` (``tests/test_kernels_mamba.py`` holds the
+reference kernel against it), and ``scan_chunk`` changes nothing.  With
+``ssm_dtype="bf16"`` the kernel rounds a and b to bf16 and combines them
+in bf16 within chunks of ``scan_chunk`` steps, h in float32 across
+chunks, as the reference does; it combines sequentially where the
+reference combines a chunk as a tree, so the two round in another order.
 
 Decode is the exact single-step recurrence with (conv window, ssm state)
 carried in the cache, in plain PyTorch as in the reference.
@@ -80,11 +83,8 @@ def mamba_mix(cfg: ModelConfig, rc: RunConfig, p: Params, x_in: torch.Tensor,
               h0: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective-scan core.  x_in: (B, S, di) pre-conv.  Returns
-    (y (B, S, di) in x_in's dtype, h_last (B, di, n) float32)."""
-    if rc.ssm_dtype != "f32":
-        raise NotImplementedError(
-            f"ssm_dtype={rc.ssm_dtype!r} is not ported; the selective-scan "
-            "kernel runs float32 (ROADMAP.md queue 1b item 6)")
+    (y (B, S, di) in x_in's dtype, h_last (B, di, n) float32).
+    ``rc.ssm_dtype`` and ``rc.scan_chunk`` choose the scan's a/b mode."""
     B, S, di = x_in.shape
     cw = cfg.conv_width
     # depthwise causal conv: the cw shifted slices summed in the
@@ -96,7 +96,8 @@ def mamba_mix(cfg: ModelConfig, rc: RunConfig, p: Params, x_in: torch.Tensor,
     if h0 is None:
         h0 = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
                          device=x_in.device)
-    y, h_last = ops.selective_scan(x, dt, Bm, Cm, p["A_log"], p["D"], h0)
+    y, h_last = ops.selective_scan(x, dt, Bm, Cm, p["A_log"], p["D"], h0,
+                                   rc.ssm_dtype, rc.scan_chunk)
     return y.to(x_in.dtype), h_last
 
 

@@ -1,10 +1,9 @@
-"""Model assembly; mirrors ``repro/models/model.py`` for the dense, MoE,
-mamba and hybrid blocks.
+"""Model assembly; mirrors ``repro/models/model.py``.
 
 A model is a sequence of SEGMENTS from ``ModelConfig.block_pattern``, each
 a list of homogeneous blocks.  The reference scans a segment over stacked
 layer parameters; here every layer is its own module, and a Python loop
-walks them.  Ported kinds:
+walks them.  Kinds:
 
   dense         attn + mlp                       (llama/mistral/qwen family)
   dense_global  dense with full attention even when cfg.sliding_window is set
@@ -12,13 +11,19 @@ walks them.  Ported kinds:
   mamba         mamba-1 block                    (falcon-mamba)
   hybrid        parallel attn ∥ mamba heads + mlp (hymba); SWA by default
   hybrid_global hybrid with full attention       (hymba's few global layers)
+  enc / dec     whisper's encoder (non-causal self-attention + mlp) and
+                decoder (causal self-attention, cross-attention to the
+                encoder output, mlp) blocks
 
-The encoder/decoder kinds (enc, dec) raise NotImplementedError naming
-their ROADMAP item.  Forward modes: ``backbone`` / ``prefill`` (returns the
-decode cache) and ``decode_step`` (one token, cache update).  Training
-(``loss_fn``) is not ported: parameters are created without gradients.
-The reference's sharding hints (``constrain``) and its context-parallel
-attention branch have no counterpart on one device.
+An encoder-decoder model also has the reference's ``enc`` segment
+(``num_encoder_layers`` blocks of kind ``enc``) and ``enc_norm``: the
+stub frames (``batch["enc_embeds"]``) go through them (``encode``), and
+every ``dec`` block reads the result.  Forward modes: ``backbone`` /
+``prefill`` (returns the decode cache) and ``decode_step`` (one token,
+cache update; the encoder output comes in as ``batch["enc_out"]``).
+Training (``loss_fn``) is not ported: parameters are created without
+gradients.  The reference's sharding hints (``constrain``) and its
+context-parallel attention branch have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -32,26 +37,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers, mamba, moe
 from repro_torch.models.layers import ParamSpec
 
-# Block kinds not ported yet -> their item in ROADMAP.md's LM substrate list.
-UNPORTED = {
-    "enc": "queue 1b item 4 (encoder/decoder)",
-    "dec": "queue 1b item 4 (encoder/decoder)",
-}
-_ATTN = ("dense", "moe", "hybrid")   # ported kinds with attention (k/v cache)
-_SSM = ("mamba", "hybrid")           # ported kinds with a mamba mixer
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError when a block kind of ``cfg`` is not ported."""
-    for kind, _ in cfg.block_pattern:
-        base = kind.replace("_global", "")
-        if base in UNPORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"(ROADMAP.md {UNPORTED[base]})")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are not "
-                                  f"ported yet (ROADMAP.md {UNPORTED['enc']})")
+_ATTN = ("dense", "moe", "hybrid", "enc", "dec")  # kinds with self-attention
+_SSM = ("mamba", "hybrid")                        # kinds with a mamba mixer
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +50,7 @@ def _norm(cfg: ModelConfig) -> ParamSpec:
 
 
 def block_template(cfg: ModelConfig, kind: str) -> dict[str, Any]:
-    """One layer's leaves by the reference's names, for the ported kinds."""
+    """One layer's leaves by the reference's names."""
     base = kind.replace("_global", "")
     t: dict[str, Any] = {}
     if base in _ATTN:
@@ -80,6 +67,9 @@ def block_template(cfg: ModelConfig, kind: str) -> dict[str, Any]:
     if base == "hybrid":
         t["norm_m"] = _norm(cfg)
         t["mamba"] = mamba.mamba_template(cfg)
+    if base == "dec":
+        t["norm_x"] = _norm(cfg)
+        t["xattn"] = layers.attn_template(cfg)
     return t
 
 
@@ -113,7 +103,8 @@ class _Init:
 class Block(nn.Module):
     """One layer: ``block_template(cfg, kind)`` made into parameters, under
     the reference's names (``norm1``, ``attn``, ``norm2``, ``mlp`` or
-    ``moe``, ``norm_m``, ``mamba``; the sub-dicts as ``ParameterDict``s)."""
+    ``moe``, ``norm_m``, ``mamba``, ``norm_x``, ``xattn``; the sub-dicts
+    as ``ParameterDict``s)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, init: _Init):
         super().__init__()
@@ -123,17 +114,18 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """Embedding, segments of blocks, final norm and LM head.
+    """Embedding, segments of blocks, final norm and LM head; for an
+    encoder-decoder model also the encoder blocks and their norm.
 
     Parameter names follow the reference's pytree: ``embed``,
-    ``final_norm``, ``lm_head`` and ``segments[si][layer]`` for
-    ``seg{si}/params`` at that layer.
+    ``final_norm``, ``lm_head``, ``segments[si][layer]`` for
+    ``seg{si}/params`` at that layer, ``enc[layer]`` for ``enc/params``
+    at that layer and ``enc_norm``.
     """
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cpu", seed: int | None = 0):
         super().__init__()
-        check_ported(cfg)
         init = _Init(dtype, device, seed)
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = init(ParamSpec((v, d), ("vocab", "embed")))
@@ -143,6 +135,10 @@ class Model(nn.Module):
         self.segments = nn.ModuleList(
             nn.ModuleList(Block(cfg, kind, init) for _ in range(count))
             for kind, count in cfg.block_pattern)
+        if cfg.is_encoder_decoder:
+            self.enc = nn.ModuleList(Block(cfg, "enc", init)
+                                     for _ in range(cfg.num_encoder_layers))
+            self.enc_norm = init(_norm(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -178,8 +174,10 @@ def _mamba_branch(cfg: ModelConfig, rc: RunConfig, p, h: torch.Tensor,
 
 def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
                   x: torch.Tensor, positions: torch.Tensor,
+                  enc_out: torch.Tensor | None = None,
                   collect_cache: bool = False):
-    """One block.  Returns (x, cache_entry_or_None)."""
+    """One block; ``enc_out`` (B, Se, d) is what a ``dec`` block's
+    cross-attention reads.  Returns (x, cache_entry_or_None)."""
     base = kind.replace("_global", "")
     cache: dict | None = {} if collect_cache else None
     if base in _ATTN:
@@ -188,7 +186,7 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
         if cache is not None:
             cache["k"], cache["v"] = k, v
         attn_out = layers.blockwise_attention(
-            q, k, v, causal=True, window=_window(cfg, kind),
+            q, k, v, causal=base != "enc", window=_window(cfg, kind),
             q_block=rc.q_block, kv_block=rc.kv_block,
             softcap=cfg.attn_logit_softcap, compute_dtype=rc.attn_dtype)
         B, S, _ = x.shape
@@ -199,13 +197,40 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
             x = x + attn_out + _mamba_branch(cfg, rc, block.mamba, hm, cache)
         else:
             x = x + attn_out
+        if base == "dec":
+            x = x + _cross_attn(cfg, rc, block, x, enc_out)
         x = x + _ffn(cfg, rc, base, block, x)
     elif base == "mamba":
         h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
         x = x + _mamba_branch(cfg, rc, block.mamba, h, cache)
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise ValueError(f"unknown block kind {kind!r}")
     return x, cache
+
+
+def _cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention's k and v (B, Se, KH, hd) from the encoder output:
+    no rope and no bias, recomputed at every call (not cached)."""
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
+    return (enc_out @ p["wk"]).reshape(shape), (enc_out @ p["wv"]).reshape(shape)
+
+
+def _cross_attn(cfg: ModelConfig, rc: RunConfig, block: Block,
+                x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    """A ``dec`` block's cross-attention on norm_x(x): q from the decoder,
+    k and v from ``enc_out``, non-causal, with no rope, bias or softcap,
+    at the default float32 compute dtype whatever ``rc.attn_dtype`` says
+    (as in the reference)."""
+    B, S, _ = x.shape
+    p = block.xattn
+    hx = layers.rmsnorm(x, block.norm_x, cfg.norm_eps)
+    q = (hx @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k, v = _cross_kv(cfg, p, enc_out)
+    xo = layers.blockwise_attention(q, k, v, causal=False,
+                                    q_block=rc.q_block, kv_block=rc.kv_block)
+    return xo.reshape(B, S, -1) @ p["wo"]
 
 
 def _ffn(cfg: ModelConfig, rc: RunConfig, base: str, block: Block,
@@ -228,20 +253,44 @@ def embed_input(cfg: ModelConfig, model: Model, batch: dict) -> torch.Tensor:
     return F.embedding(batch["tokens"], model.embed)
 
 
+def encode(cfg: ModelConfig, rc: RunConfig, model: Model,
+           enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder half of an encoder-decoder model: the stub frame
+    embeddings (B, Se, d), cast to the parameter dtype, through the ``enc``
+    blocks (rope positions over the frames) and ``enc_norm``.  Returns
+    enc_out (B, Se, d), what every ``dec`` block reads."""
+    e = enc_embeds.to(model.embed.dtype)
+    B, Se = e.shape[:2]
+    positions = torch.arange(Se, dtype=torch.int32,
+                             device=e.device).expand(B, Se)
+    for block in model.enc:
+        e, _ = block_forward(cfg, rc, "enc", block, e, positions)
+    return layers.rmsnorm(e, model.enc_norm, cfg.norm_eps)
+
+
 def backbone(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
              collect_cache: bool = False):
-    """Runs embedding + all segments.  Returns (hidden, caches)."""
+    """Runs embedding + all segments.  Returns (hidden, caches).
+
+    An encoder-decoder model encodes ``batch["enc_embeds"]`` first
+    (``encode``), unless the caller hands over the encoder output as
+    ``batch["enc_out"]``, as ``serve.greedy_decode`` does to run the
+    encoder once."""
     x = embed_input(cfg, model, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = (batch["enc_out"] if "enc_out" in batch else
+                   encode(cfg, rc, model, batch["enc_embeds"]))
     caches = {}
     for si, ((kind, _), seg) in enumerate(zip(cfg.block_pattern,
                                               model.segments)):
         entries = []
         for block in seg:
             x, cache = block_forward(cfg, rc, kind, block, x, positions,
-                                     collect_cache)
+                                     enc_out, collect_cache)
             entries.append(cache)
         if collect_cache:
             caches[f"seg{si}"] = _stack(entries)
@@ -299,7 +348,6 @@ def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
     buffer) and ``max_len`` for full attention; mamba state is O(1): conv
     (count, B, cw-1, di) in ``dtype`` and ssm (count, B, di, n) float32.
     ``index`` is the number of tokens seen."""
-    check_ported(cfg)
     cache: dict[str, Any] = {"index": 0}
     kh, hd = cfg.num_kv_heads, cfg.head_dim
     for si, (kind, count) in enumerate(cfg.block_pattern):
@@ -339,9 +387,11 @@ def _decode_attn(cfg: ModelConfig, p, x: torch.Tensor,
 
 def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
                  x: torch.Tensor, cache_layer: dict[str, torch.Tensor],
-                 index: int):
-    """One block's single-token step at position ``index``.
-    Returns (x, new cache entry); ``cache_layer`` is left unmodified."""
+                 index: int, enc_out: torch.Tensor | None = None):
+    """One block's single-token step at position ``index``; a ``dec``
+    block's cross-attention reads ``enc_out`` (B, Se, d), its k and v
+    recomputed from it.  Returns (x, new cache entry); ``cache_layer`` is
+    left unmodified."""
     base = kind.replace("_global", "")
     new_cache: dict[str, torch.Tensor] = {}
     if base in _ATTN:
@@ -358,13 +408,29 @@ def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
                                            new_cache)
         else:
             x = x + attn_out
+        if base == "dec":
+            x = x + _cross_attn_step(cfg, block, x, enc_out)
         x = x + _ffn(cfg, rc, base, block, x)
     elif base == "mamba":
         hnorm = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
         x = x + _mamba_step(cfg, block.mamba, hnorm, cache_layer, new_cache)
     else:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise ValueError(f"unknown block kind {kind!r}")
     return x, new_cache
+
+
+def _cross_attn_step(cfg: ModelConfig, block: Block, x: torch.Tensor,
+                     enc_out: torch.Tensor) -> torch.Tensor:
+    """A ``dec`` block's cross-attention for one token: k and v recomputed
+    from ``enc_out`` every step, as in the reference, then single-position
+    attention over all Se frames."""
+    B = x.shape[0]
+    p = block.xattn
+    hx = layers.rmsnorm(x, block.norm_x, cfg.norm_eps)
+    q = (hx @ p["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    k, v = _cross_kv(cfg, p, enc_out)
+    xo = layers.decode_attention(q, k, v, enc_out.shape[1])
+    return xo.reshape(B, 1, -1) @ p["wo"]
 
 
 def _mamba_step(cfg: ModelConfig, p, h: torch.Tensor,
@@ -381,7 +447,8 @@ def _mamba_step(cfg: ModelConfig, p, h: torch.Tensor,
 
 def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
                 batch: dict, return_hidden: bool = False):
-    """One decode step: batch {'tokens': (B,1)} -> (logits (B,1,V), cache).
+    """One decode step: batch {'tokens': (B,1)} -> (logits (B,1,V), cache);
+    an encoder-decoder model also takes {'enc_out': (B, Se, d)}.
 
     ``return_hidden=True`` appends the post-final-norm hidden state
     (B, 1, D), mirroring ``prefill``.  The given cache is not modified:
@@ -391,6 +458,7 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
     """
     x = embed_input(cfg, model, batch)
     index = cache["index"]
+    enc_out = batch.get("enc_out")
     new_cache: dict[str, Any] = {"index": index + 1}
     for si, ((kind, _), seg) in enumerate(zip(cfg.block_pattern,
                                               model.segments)):
@@ -399,7 +467,7 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
         for li, block in enumerate(seg):
             x, nc = decode_block(cfg, rc, kind, block, x,
                                  {k: v[li] for k, v in seg_cache.items()},
-                                 index)
+                                 index, enc_out)
             entries.append(nc)
         new_cache[f"seg{si}"] = _stack(entries)
     x = layers.rmsnorm(x, model.final_norm, cfg.norm_eps)

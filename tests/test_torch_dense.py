@@ -25,7 +25,6 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models import model as JM  # noqa: E402
-from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from test_torch_models import (F32_ATOL, JRC, RC, carried, close,  # noqa: E402
                                tokens)
@@ -210,11 +209,22 @@ def test_prefill_ring_alignment_places_token_t_at_slot_t_mod_size():
 
 
 def test_unported_kinds_still_raise_naming_their_item():
-    cfg = treg.reduced_config(treg.get_config("whisper-tiny"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TM.Model(cfg)
-    cfg = dataclasses.replace(
-        treg.reduced_config(treg.get_config("tinyllama-1.1b")),
-        block_pattern=(("dense", 1), ("enc", 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_cache(cfg, RC, 1, 8)
+    """The encoder/decoder kinds, refused until they were ported, now
+    build: whisper's reduced model has the reference's enc and dec block
+    templates, its encoder blocks and enc_norm, and a k/v cache for each
+    decoder layer (cross-attention keeps none)."""
+    jcfg, tcfg, _, model = carried("bf16", "whisper-tiny")
+    for kind in ("enc", "dec"):
+        shapes = [jax.tree.map(lambda s: tuple(s.shape), m.block_template(c, kind),
+                               is_leaf=lambda s: hasattr(s, "logical"))
+                  for m, c in ((JM, jcfg), (TM, tcfg))]
+        assert shapes[0] == shapes[1]
+    assert len(model.enc) == tcfg.num_encoder_layers == 2
+    assert model.enc_norm.shape == (tcfg.d_model,)
+    # the reference's analytic count leaves out enc_norm
+    n = sum(p.numel() for p in model.parameters())
+    assert n == tcfg.param_count() + tcfg.d_model
+    cache = TM.init_cache(tcfg, RC, 2, 8)
+    assert sorted(cache["seg0"]) == ["k", "v"]
+    assert cache["seg0"]["k"].shape == (2, 2, 8, tcfg.num_kv_heads,
+                                        tcfg.head_dim)

@@ -87,3 +87,59 @@ def test_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tms.selective_scan(*targs)
     assert kernels.LAUNCHES["selective_scan"] == 0
+
+
+def test_bf16_ab_mode_with_chunk_1_is_the_recurrence_on_rounded_a_b():
+    """``ssm_dtype="bf16"`` with chunks of one step: the chunk's running
+    products are a_t and b_t themselves, so h_t = a_t h_{t-1} + b_t in
+    float32 on a and b rounded to bf16, exactly."""
+    x, dt, bm, cm, a_log, d, h0 = (torch.as_tensor(a) for a in
+                                   make_inputs(3, 2, 9, 8, 4, 0.5))
+    y, h = ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0, "bf16", 1)
+    A = -torch.exp(a_log)
+    hh, ys = h0, []
+    for t in range(x.shape[1]):
+        a_t = torch.exp(dt[:, t, :, None] * A).bfloat16().float()
+        b_t = (dt[:, t, :, None] * bm[:, t, None, :]
+               * x[:, t, :, None]).bfloat16().float()
+        hh = a_t * hh + b_t
+        ys.append((hh * cm[:, t, None, :]).sum(-1) + d * x[:, t])
+    assert torch.equal(h, hh) and torch.equal(y, torch.stack(ys, 1))
+
+
+@pytest.mark.parametrize("chunk", [4, 7, 9, 64])
+def test_bf16_ab_mode_restarts_at_chunk_boundaries(chunk):
+    """The state at a chunk boundary carries over in float32: a run of S
+    steps equals its first k·chunk steps followed by the rest from their
+    h_last, whatever chunk; and the mode lies near the float32 scan (bf16
+    a and b: within 2^-6 of the largest output)."""
+    S = 9
+    x, dt, bm, cm, a_log, d, h0 = (torch.as_tensor(a) for a in
+                                   make_inputs(4, 2, S, 8, 4, 0.5))
+    y, h = ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0, "bf16", chunk)
+    cut = min(chunk, S - 1)
+    if chunk < S:
+        y1, h1 = ref.selective_scan_ref(x[:, :cut], dt[:, :cut], bm[:, :cut],
+                                        cm[:, :cut], a_log, d, h0, "bf16",
+                                        chunk)
+        y2, h2 = ref.selective_scan_ref(x[:, cut:], dt[:, cut:], bm[:, cut:],
+                                        cm[:, cut:], a_log, d, h1, "bf16",
+                                        chunk)
+        assert torch.equal(y, torch.cat([y1, y2], 1)) and torch.equal(h, h2)
+    y32, h32 = ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0)
+    assert not torch.equal(y, y32)
+    assert float((y - y32).abs().max()) < 2.0 ** -6 * float(y32.abs().max())
+
+
+def test_ops_passes_the_mode_and_refuses_bad_ones():
+    targs = [torch.as_tensor(a) for a in make_inputs(5, 2, 6, 8, 4, 0.3)]
+    ops.reset_launches()
+    got = ops.selective_scan(*targs, "bf16", 4)
+    want = ref.selective_scan_ref(*targs, "bf16", 4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for mode, chunk in (("fp8", 4), ("bf16", 0)):
+        with pytest.raises(ValueError, match="ssm_dtype"):
+            ops.selective_scan(*targs, mode, chunk)
+        with pytest.raises(ValueError, match="ssm_dtype"):
+            tms.check_mode(mode, chunk)
+    assert kernels.LAUNCHES["selective_scan"] == 0

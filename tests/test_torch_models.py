@@ -244,13 +244,22 @@ def test_init_is_deterministic_per_seed_with_reference_distributions():
 
 
 def test_unported_kinds_and_options_raise():
+    """What was refused now runs: whisper's model and decode cache build,
+    and ``ssm_dtype="bf16"`` runs the scan's bf16 a/b mode (close to the
+    float32 scan, not equal to it); an unknown ``ssm_dtype`` raises."""
     cfg = treg.reduced_config(treg.get_config("whisper-tiny"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.Model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_cache(cfg, RC, 1, 8)
+    model = TM.Model(cfg)
+    assert len(model.enc) == cfg.num_encoder_layers
+    assert "k" in TM.init_cache(cfg, RC, 1, 8)["seg0"]
     _, tcfg, _, model = carried("f32")
-    x = torch.zeros((1, 4, tcfg.d_inner))
-    with pytest.raises(NotImplementedError, match="ssm_dtype"):
-        tmamba.mamba_mix(tcfg, dataclasses.replace(RC, ssm_dtype="bf16"),
-                         model.segments[0][0].mamba, x)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (1, 12, tcfg.d_inner)).astype(np.float32))
+    p = model.segments[0][0].mamba
+    y32, h32 = tmamba.mamba_mix(tcfg, RC, p, x)
+    y16, h16 = tmamba.mamba_mix(tcfg, dataclasses.replace(RC, ssm_dtype="bf16"),
+                                p, x)
+    assert not torch.equal(y16, y32)
+    close(y16, y32.numpy(), "bf16")
+    close(h16, h32.numpy(), "bf16")
+    with pytest.raises(ValueError, match="ssm_dtype"):
+        tmamba.mamba_mix(tcfg, dataclasses.replace(RC, ssm_dtype="fp8"), p, x)
