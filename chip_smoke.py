@@ -8,7 +8,7 @@ one JSON object per line, in phases, and fails (non-zero exit) if any
 phase fails.  ``--phases`` runs the build and the named phases only (for
 iterating on a kernel); such a partial run prints no ok line.
 
-  build     builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build     builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels   holds each field kernel bit for bit against its plain PyTorch
             version on the card: the main path's shapes at the paper's
             Case 1 (N=40, K=13, T=1, m=12396, d=1568), both primes,
@@ -34,7 +34,12 @@ iterating on a kernel); such a partial run prints no ok line.
             falcon-mamba's ``mamba_mix`` at 2 layers in that mode, card
             against CPU within 2^-7 of the largest output (``ab16_mix``);
             ``modmatmul`` at the BGW baseline's two local
-            products at Case 1 in both orientations; and times each
+            products at Case 1 in both orientations; the scan's backward
+            kernel (``selective_scan_bwd``) within 1e-4 of its largest
+            gradient of its plain version at hymba's and falcon-mamba's
+            training shapes (x and dt bf16 and float32), S = 1, 33 and
+            8192, n in {1, 3, 16} with di not a multiple of the block's
+            channels, h0 and dh_last non-zero; and times each
             main-path shape (CUDA events; the
             field kernels also replayed from a CUDA graph, the device's time
             without the host's launch cost) beside its plain version and
@@ -118,6 +123,20 @@ iterating on a kernel); such a partial run prints no ok line.
             output, prefill logits and caches) and 3 decode steps against
             the full forward, within 1e-3; the share of 2^20 bf16 ``gelu``
             outputs that differ between card and CPU (a finding)
+  train_lm  ``repro_torch.launch.train`` at full width and depth, bf16
+            parameters, float32 AdamW state, block remat, batch 4 x 2048
+            tokens, 10 steps: hymba-1.5b (32 layers; exactly 64
+            ``selective_scan`` and 32 ``selective_scan_bwd`` launches a
+            step) and tinyllama-1.1b (22 layers, no kernel launched);
+            finite losses, the last below 1.05 x the first; step ms (the
+            first apart), tokens/s, peak device memory; one warm step of
+            each under torch.profiler (device ms by kernel group, the
+            optimizer's, launches, busy share, the scan's share) and
+            attention alone at the step's shapes
+  consistency_train  hymba at full width, 2 layers (one global, one
+            windowed), float32, batch 2 x 256: the loss and every gradient
+            leaf on the card against the CPU within 1e-3 of each leaf's
+            largest |g|; exactly 4 scan and 2 backward launches
   cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
             Case 1 for 25 rounds under lognormal latencies with ``--pipeline
             off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
@@ -275,13 +294,36 @@ CONSISTENCY_WHISPER = dict(batch=2, prompt_len=16, extra=3)
 # width, float32 parameters, S not a multiple of the chunk
 AB16_MIX = dict(layers=2, batch=2, prompt_len=300)
 GELU_SAMPLES = 1 << 20
+# The scan's backward kernel against its plain version on the card: each
+# gradient within 1e-4 of its largest magnitude.  Both run the same float32
+# recurrence; the kernel sums dbm and dcm over channels (warp butterflies,
+# then per-block partials that torch.sum folds), dA_log and dD over time
+# and batch, in another order than the plain version, and takes a_t from
+# ex2.approx (2 ulp) where the plain version calls exp.  No atomics: the
+# kernel's result is the same in every run.
+BWD_RTOL = 1e-4
+# LM training at full width and depth on one card (PERF.md section 4):
+# bf16 parameters, float32 AdamW state, block remat, 10 steps through
+# repro_torch.launch.train; hymba's batch and sequence are the serve
+# phases' (its 1024-token window passed)
+TRAIN_LM = (dict(arch="hymba-1.5b", batch=4, seq=2048, steps=10),
+            dict(arch="tinyllama-1.1b", batch=4, seq=2048, steps=10))
+# hymba at full width cut to 2 layers (one global, one windowed), float32:
+# the loss and every gradient leaf on the card (kernels) against the CPU
+# (plain versions), each leaf within 1e-3 of its largest |g| (float32 sums
+# in another order through 2 layers' forward and backward)
+CONSISTENCY_TRAIN = dict(arch="hymba-1.5b", pattern=(("hybrid_global", 1),
+                                                     ("hybrid", 1)),
+                         batch=2, seq=256)
+GRAD_REL = 1e-3
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
 PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
           "consistency", "coded_head", "serve_dense", "serve_hybrid",
           "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
           "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
-          "serve_whisper", "consistency_whisper", "cluster", "socket", "mpc",
+          "serve_whisper", "consistency_whisper", "train_lm",
+          "consistency_train", "cluster", "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
 
@@ -346,7 +388,8 @@ class Checks:
 
     def __init__(self, torch):
         self.torch = torch
-        self.max_err = {"modmatmul": 0, "coded_grad": 0, "selective_scan": 0.0}
+        self.max_err = {"modmatmul": 0, "coded_grad": 0, "selective_scan": 0.0,
+                        "selective_scan_bwd": 0.0}
 
     def compare(self, kernel: str, case: str, got, want, **info) -> None:
         torch = self.torch
@@ -798,6 +841,103 @@ def phase_ab16_mix(torch) -> dict:
     return info
 
 
+def scan_bwd_inputs(torch, gen, B, S, di, n, x_dtype, dt_dtype):
+    """The forward's inputs (``scan_inputs``, h0 non-zero) and the
+    cotangents dy (B, S, di) and dh_last (B, di, n), standard normal."""
+    args = scan_inputs(torch, gen, B, S, di, n, x_dtype, 0.5, dt_dtype)
+    return (*args, torch.randn((B, S, di), generator=gen, device="cuda"),
+            torch.randn((B, di, n), generator=gen, device="cuda"))
+
+
+def scan_bwd_bound(B: int, S: int, di: int, n: int, xbytes: int
+                   ) -> tuple[float, str, float, float]:
+    """The backward's least time: (bound ms, by, bytes ms, operations ms).
+    Bytes: each input read once in its dtype (x, dt; Bm, Cm, A_log, D, h0,
+    dy, dh_last float32) and each output written once (dx, ddt, dbm, dcm,
+    dA_log, dD, dh0 float32).  Operations: one exp (a_t) and ~17 flops a
+    (b, t, i, j) at their rates."""
+    el = B * S * di * n
+    nbytes = (B * S * di * 2 * xbytes + 2 * B * S * n * 4 + (di * n + di) * 4
+              + 2 * B * di * n * 4 + B * S * di * 4              # inputs
+              + 2 * B * S * di * 4 + 2 * B * S * n * 4 + (di * n + di) * 4
+              + B * di * n * 4)                                   # outputs
+    b_ms, b_by = bound(nbytes, 17 * el, el)
+    return (b_ms, b_by, nbytes / HBM_BYTES_PER_S * 1e3,
+            max(17 * el / SCALAR_OPS_PER_S, el / SPECIAL_OPS_PER_S) * 1e3)
+
+
+def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
+    """The scan's backward kernel against its plain version
+    (``ref.selective_scan_bwd_ref``) on the card, each gradient within
+    ``BWD_RTOL`` of its largest magnitude: hymba's and falcon-mamba's
+    training shapes with x and dt bf16 and float32, S = 1, 33 and 8192, n
+    in {1, 3, 16} with di not a multiple of the block's 64 channels,
+    h0 and dh_last non-zero throughout; then timed at the two training
+    shapes (CUDA events, and replayed from a CUDA graph) beside its bound
+    and the plain version."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    names = ("dx", "ddt", "dbm", "dcm", "da_log", "dd", "dh0")
+    cases = [
+        ("hymba_train_bf16", (4, 2048, 3200, 16), bf16, bf16),
+        ("hymba_train_f32", (4, 2048, 3200, 16), f32, f32),
+        ("falcon_train_bf16", (4, 2048, 8192, 16), bf16, bf16),
+        ("falcon_train_f32", (4, 2048, 8192, 16), f32, f32),
+        ("S1", (4, 1, 8192, 16), bf16, bf16),
+        ("S33", (2, 33, 8192, 16), f32, f32),
+        ("long_S8192", (1, 8192, 8192, 16), bf16, bf16),
+        ("di1000_n1", (2, 45, 1000, 1), bf16, bf16),
+        ("di1001_n3", (2, 45, 1001, 3), f32, bf16),
+        ("di1001_n16_x_bf16", (3, 40, 1001, 16), bf16, f32),
+    ]
+    for case, shape, x_dtype, dt_dtype in cases:
+        args = scan_bwd_inputs(torch, gen, *shape, x_dtype, dt_dtype)
+        got = ms.selective_scan_bwd(*args)
+        torch.cuda.synchronize()
+        want = ref.selective_scan_bwd_ref(*args)
+        abs_err, rel = {}, {}
+        for name, g, w in zip(names, got, want):
+            if g.shape != w.shape or g.dtype != torch.float32:
+                raise AssertionError(f"selective_scan_bwd {case} {name}: "
+                                     f"{g.shape} {g.dtype} vs {w.shape}")
+            abs_err[name] = float((g - w).abs().max())
+            rel[name] = abs_err[name] / max(float(w.abs().max()), 1e-30)
+        checks.max_err["selective_scan_bwd"] = max(
+            checks.max_err["selective_scan_bwd"], *abs_err.values())
+        emit({"phase": "kernels", "kernel": "selective_scan_bwd",
+              "case": case, "shape": list(shape), "x_dtype": str(x_dtype),
+              "dt_dtype": str(dt_dtype), "max_abs_err": abs_err,
+              "max_rel_err": rel, "tolerance_rel": BWD_RTOL})
+        bad = {k: v for k, v in rel.items() if not v <= BWD_RTOL}
+        if bad:
+            raise AssertionError(f"selective_scan_bwd {case}: kernel != plain "
+                                 f"version beyond {BWD_RTOL} relative: {bad}")
+        del args, got, want
+        torch.cuda.empty_cache()
+    timings = []
+    for case, di in (("hymba_train_bf16", 3200), ("falcon_train_bf16", 8192)):
+        B, S, n = 4, 2048, 16
+        args = scan_bwd_inputs(torch, gen, B, S, di, n, bf16, bf16)
+        b_ms, b_by, bytes_ms, ops_ms = scan_bwd_bound(B, S, di, n, 2)
+        timings.append({
+            "kernel": "selective_scan_bwd", "case": case,
+            "shape": [B, S, di, n], "dt_dtype": str(bf16),
+            "ms": time_ms(torch, lambda: ms.selective_scan_bwd(*args), 5),
+            "graph_ms": graph_ms(torch, lambda: ms.selective_scan_bwd(*args),
+                                 3),
+            "plain_ms": time_ms(
+                torch, lambda: ref.selective_scan_bwd_ref(*args), 1, trials=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms})
+        emit({"phase": "kernels", "timing": timings[-1]})
+        del args
+        torch.cuda.empty_cache()
+    return timings
+
+
 def phase_train(torch, out_dir: Path) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import cpml_train
@@ -986,7 +1126,8 @@ def _lm_serve_info(torch, phase: str, spec: dict, cfg, res: dict,
 
 def _expect_launches(what: str, launches: dict, scans: int) -> None:
     """``scans`` selective_scan launches and no field kernel."""
-    if launches != {"modmatmul": 0, "coded_grad": 0, "selective_scan": scans}:
+    if launches != {"modmatmul": 0, "coded_grad": 0, "selective_scan": scans,
+                    "selective_scan_bwd": 0}:
         raise AssertionError(f"kernel launches while serving {what}: "
                              f"{launches}")
 
@@ -1121,6 +1262,8 @@ def phase_serve_arctic(torch) -> dict:
 
 
 def _kernel_group(name: str) -> str:
+    if "scan_bwd_kernel" in name:
+        return "selective_scan_bwd"
     if "scan_kernel" in name:
         return "selective_scan"
     if "modmatmul" in name or "coded_grad" in name:
@@ -1636,6 +1779,236 @@ def phase_consistency_whisper(torch) -> dict:
                                       .max())}}
     emit(info)
     _within(info)
+    return info
+
+
+def _train_rc(S: int):
+    """``repro_torch.launch.train``'s run configuration for sequences of S
+    tokens."""
+    from repro_torch.configs.base import RunConfig
+
+    return RunConfig(q_block=min(512, S), kv_block=min(1024, S),
+                     loss_chunk=min(512, S), scan_chunk=min(128, S))
+
+
+def _ssm_layers(cfg) -> int:
+    return sum(c for k, c in cfg.block_pattern
+               if k.startswith(("mamba", "hybrid")))
+
+
+def attention_train_ms(torch, cfg, rc, B: int, S: int) -> dict:
+    """``blockwise_attention`` alone at a training step's shapes (CUDA
+    events), forward and forward + backward, once per attention kind of
+    ``cfg``: its device ms in one step, summed over the layers, counting
+    the forward twice (block remat recomputes it in the backward)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = (B, S, cfg.num_heads, cfg.head_dim)
+    kv = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for s in (shape, kv, kv))
+    dout = torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    layers_by_window: dict = {}
+    for kind, count in cfg.block_pattern:
+        w = None if kind.endswith("_global") else cfg.sliding_window
+        layers_by_window[w] = layers_by_window.get(w, 0) + count
+    per_layer, total = {}, 0.0
+    for w, count in layers_by_window.items():
+        def fwd():
+            return layers.blockwise_attention(
+                q, k, v, window=w, q_block=rc.q_block, kv_block=rc.kv_block,
+                softcap=cfg.attn_logit_softcap, compute_dtype=rc.attn_dtype)
+
+        with torch.no_grad():
+            f_ms = time_ms(torch, fwd, 2)
+        fb_ms = time_ms(torch, lambda: torch.autograd.backward(fwd(), dout),
+                        2)
+        per_layer[str(w)] = {"layers": count, "forward_ms": f_ms,
+                             "forward_backward_ms": fb_ms}
+        total += count * (f_ms + fb_ms)
+    return {"by_window": per_layer, "ms_per_step": total}
+
+
+def train_profile(torch, cfg, spec: dict) -> dict:
+    """One warm training step of ``cfg`` at ``spec``'s shape (the train
+    CLI's run configuration and optimizer) under ``torch.profiler``, in two
+    windows: forward + backward (``loss_fn``, ``backward()``) and the
+    optimizer (``apply_updates``).  Device ms by kernel group, launches,
+    the busy share of the host-clock step, the scan kernels' share; then
+    attention alone at the step's shapes (``attention_train_ms``)."""
+    from repro_torch.data.loader import LMBatchLoader
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+
+    B, S = spec["batch"], spec["seq"]
+    rc = _train_rc(S)
+    ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=10)
+    model = M.Model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    state = opt.init_state(ocfg, params)
+    with LMBatchLoader("cuda", B, S, cfg.vocab_size) as loader:
+        batches = [next(loader) for _ in range(2)]
+
+    def fwd_bwd(batch):
+        M.loss_fn(cfg, rc, model, batch).backward()
+
+    def update():
+        opt.apply_updates(ocfg, params, {k: p.grad for k, p in params.items()},
+                          state)
+        for p in params.values():
+            p.grad = None
+
+    fwd_bwd(batches[0])     # warm-up: the allocator's pools, cuBLAS plans
+    update()
+    windows = {"forward_backward": profile_window(
+                   torch, lambda: fwd_bwd(batches[1])),
+               "optimizer": profile_window(torch, update)}
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    groups: dict[str, float] = {}
+    for w in windows.values():
+        for g, ms in w["device_ms_by_group"].items():
+            groups[g] = groups.get(g, 0.0) + ms
+    device = sum(groups.values())
+    host = sum(w["host_ms"] for w in windows.values())
+    info = {"windows": windows, "step_host_ms": host, "step_device_ms": device,
+            "device_ms_by_group": groups,
+            "optimizer_device_ms": windows["optimizer"]["device_ms"],
+            "launches_per_step": sum(w["kernel_launches"]
+                                     for w in windows.values()),
+            "device_busy_share": device / host,
+            "scan_share_of_device_ms": (groups.get("selective_scan", 0.0)
+                                        + groups.get("selective_scan_bwd",
+                                                     0.0)) / device}
+    if cfg.num_heads:
+        att = attention_train_ms(torch, cfg, rc, B, S)
+        att["share_of_step_device_ms"] = att["ms_per_step"] / device
+        info["attention"] = att
+    return info
+
+
+def phase_train_lm(torch, out_dir: Path) -> dict:
+    """``repro_torch.launch.train`` at full width and depth on the card for
+    each of ``TRAIN_LM`` (hymba-1.5b, then tinyllama-1.1b): exit 0, launch
+    counts reset just before each run and read just after (per step and
+    mamba-bearing layer, ``selective_scan`` twice, the first forward and
+    remat's recompute, and ``selective_scan_bwd`` once; nothing else),
+    finite losses, the last below 1.05 x the first; step ms (the first step
+    apart), tokens/s, peak device memory; then ``train_profile``."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    info: dict = {"phase": "train_lm", "runs": {}}
+    for spec in TRAIN_LM:
+        arch, steps = spec["arch"], spec["steps"]
+        cfg = registry.get_config(arch)
+        out = out_dir / f"train_lm_{arch}.json"
+        argv = ["--arch", arch, "--batch", str(spec["batch"]), "--seq",
+                str(spec["seq"]), "--steps", str(steps), "--log-every", "1",
+                "--device", "cuda", "--checkpoint-dir",
+                str(out_dir / "train_lm_ckpt"), "--json-out", str(out)]
+        ops.reset_launches()
+        rc = train.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"train {' '.join(argv)} exited {rc}")
+        res = json.loads(out.read_text())
+        ssm = _ssm_layers(cfg)
+        want = {"modmatmul": 0, "coded_grad": 0,
+                "selective_scan": 2 * ssm * steps,
+                "selective_scan_bwd": ssm * steps}
+        losses = res["losses"]
+        later = res["step_s"][1:]
+        run = {"argv": argv, "launches": launches, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "params": cfg.param_count(),
+               "steps": res["steps"], "first_loss": res["first_loss"],
+               "last_loss": res["last_loss"], "losses": losses,
+               "first_step_ms": res["step_s"][0] * 1e3,
+               "step_ms_median": statistics.median(later) * 1e3,
+               "step_ms": [t * 1e3 for t in res["step_s"]],
+               "tokens_per_s": res["tokens_per_s"], "peak_gb": res["peak_gb"]}
+        info["runs"][arch] = run
+        emit({"phase": "train_lm", "arch": arch,
+              **{k: v for k, v in run.items() if k != "step_ms"}})
+        if launches != want:
+            raise AssertionError(f"train {arch}: kernel launches {launches}, "
+                                 f"expected {want}")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0] * 1.05 and res["steps"] == steps):
+            raise AssertionError(f"train {arch}: losses {losses}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        run["profile"] = train_profile(torch, cfg, spec)
+        emit({"phase": "train_lm", "arch": arch, "profile": run["profile"]})
+    # the slice's main path: hymba's run
+    info["launches"] = info["runs"][TRAIN_LM[0]["arch"]]["launches"]
+    return info
+
+
+def phase_consistency_train(torch) -> dict:
+    """hymba at full width cut to 2 layers, float32, batch 2 x 256 tokens:
+    ``loss_fn`` and its gradients on the card (the scan kernels; launches
+    counted) against the CPU (plain versions) from the same parameters,
+    every leaf within ``GRAD_REL`` of its largest |g|."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    spec = CONSISTENCY_TRAIN
+    full = registry.get_config(spec["arch"])
+    cfg = dataclasses.replace(full, num_layers=len(spec["pattern"]),
+                              block_pattern=spec["pattern"])
+    B, S = spec["batch"], spec["seq"]
+    rc = _train_rc(S)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    gpu = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
+    cpu = M.Model(cfg, dtype=torch.float32, device="cpu", seed=None)
+    cpu.load_state_dict(gpu.state_dict())
+    out = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        model.requires_grad_(True)
+        ops.reset_launches()
+        loss = M.loss_fn(cfg, rc, model, {k: v.to(dev)
+                                          for k, v in batch.items()})
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = (float(loss.detach()), dict(ops.LAUNCHES),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (lg, launches, gg), (lc, _, gc_) = out["card"], out["cpu"]
+    rel = {k: float((gg[k] - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30)
+           for k, w in gc_.items()}
+    worst = max(rel, key=rel.get)
+    ssm = _ssm_layers(cfg)
+    info = {"phase": "consistency_train", "pattern": spec["pattern"],
+            "d_model": cfg.d_model, "batch": B, "seq": S,
+            "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+            "loss_card": lg, "loss_cpu": lc,
+            "loss_rel_err": abs(lg - lc) / abs(lc), "launches": launches,
+            "leaves": len(rel), "max_rel_err": rel[worst], "worst_leaf": worst,
+            "tolerance_rel": GRAD_REL}
+    emit(info)
+    want = {"modmatmul": 0, "coded_grad": 0, "selective_scan": 2 * ssm,
+            "selective_scan_bwd": ssm}
+    if launches != want:
+        raise AssertionError(f"consistency_train launches {launches}, "
+                             f"expected {want}")
+    bad = {k: v for k, v in rel.items() if not v <= GRAD_REL}
+    if bad or not info["loss_rel_err"] <= GRAD_REL:
+        raise AssertionError(f"consistency_train beyond {GRAD_REL}: loss "
+                             f"{info['loss_rel_err']}, leaves {bad}")
     return info
 
 
@@ -2739,6 +3112,8 @@ def main(argv: list[str] | None = None) -> int:
                              torch, checks)
         timings += run_phase("kernels_mpc", phase_kernels_mpc, torch, checks)
         timings += run_phase("kernels_scan", phase_kernels_scan, torch, checks)
+        timings += run_phase("kernels_scan_bwd", phase_kernels_scan_bwd, torch,
+                             checks)
         ran["ab16_mix"] = run_phase("kernels_ab16_mix", phase_ab16_mix, torch)
         timings += run_phase("kernels_predict", phase_kernels_predict, torch,
                              checks)
@@ -2766,6 +3141,8 @@ def main(argv: list[str] | None = None) -> int:
             ("profile_moe", phase_profile_moe, (torch,)),
             ("serve_whisper", phase_serve_whisper, (torch,)),
             ("consistency_whisper", phase_consistency_whisper, (torch,)),
+            ("train_lm", phase_train_lm, (torch, out_dir)),
+            ("consistency_train", phase_consistency_train, (torch,)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
             ("mpc", phase_mpc, (torch, out_dir)),
@@ -2788,19 +3165,24 @@ def main(argv: list[str] | None = None) -> int:
     # each kernel's main path: the training round for the field kernels,
     # serving for the scan; launches counted on that path's run
     main_case = {"modmatmul": "dataset_encode", "coded_grad": "case1_c1_r1",
-                 "selective_scan": "serve_x_dt_bf16"}
+                 "selective_scan": "serve_x_dt_bf16",
+                 "selective_scan_bwd": "hymba_train_bf16"}
     main_path = {"modmatmul": "train", "coded_grad": "train",
-                 "selective_scan": "serve"}
+                 "selective_scan": "serve", "selective_scan_bwd": "train_lm"}
     replaces = {
         "modmatmul": "src/repro/kernels/modmatmul.py:94",
         "coded_grad": "src/repro/kernels/coded_grad.py:117",
         "selective_scan": "src/repro/kernels/mamba_scan.py:83",
+        # no TPU kernel: the reference differentiates its plain jnp scan
+        "selective_scan_bwd": "src/repro/models/mamba.py:61",
     }
     source = {"modmatmul": "modmatmul.cu", "coded_grad": "coded_grad.cu",
-              "selective_scan": "mamba_scan.cu"}
+              "selective_scan": "mamba_scan.cu",
+              "selective_scan_bwd": "mamba_scan_bwd.cu"}
     if "kernels" in phases:
         kernels = []
-        for name in ("coded_grad", "modmatmul", "selective_scan"):
+        for name in ("coded_grad", "modmatmul", "selective_scan",
+                     "selective_scan_bwd"):
             t = next(x for x in timings
                      if x["kernel"] == name and x["case"] == main_case[name])
             path = ran.get(main_path[name])
@@ -2835,8 +3217,13 @@ def main(argv: list[str] | None = None) -> int:
                                  ("predict_socket", "predict_socket"),
                                  ("alcc_inprocess", "alcc"),
                                  ("alcc_socket", "alcc_socket"),
-                                 ("alcc_mlp", "alcc_mlp"))
+                                 ("alcc_mlp", "alcc_mlp"),
+                                 ("consistency_train", "consistency_train"))
                     if v in ran}})
+            if "train_lm" in ran:
+                kernels[-1]["launches_by_path"].update({
+                    f"train_lm_{arch}": run["launches"][name]
+                    for arch, run in ran["train_lm"]["runs"].items()})
             kernels[-1]["launches_by_path"].update({
                 f"{v}_coded_head": ran[v]["coded_head"]["launches"][name]
                 for v in ("serve_dense", "serve_hybrid", "serve_moe",
@@ -2846,7 +3233,8 @@ def main(argv: list[str] | None = None) -> int:
             for key, prefix in (("predict_cases", "predict_"),
                                 ("coded_head_cases", "coded_head_"),
                                 ("hymba_cases", "hymba_"),
-                                ("ab16_cases", "ab16_")):
+                                ("ab16_cases", "ab16_"),
+                                ("falcon_cases", "falcon_")):
                 cases = [{k: x[k] for k in ("case", "shape", "ms", "graph_ms",
                                             "plain_ms", "bound_ms", "bound_by",
                                             "chunk")

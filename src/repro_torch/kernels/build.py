@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("modmatmul", "coded_grad", "mamba_scan")
+SOURCES = ("modmatmul", "coded_grad", "mamba_scan", "mamba_scan_bwd")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
@@ -67,6 +67,9 @@ _ARGTYPES = {
     # chunk, stream
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P],
+    # x, dt, bc, a_log, d, h0, dy, dh_last, hck, dx, ddt, dbc_part, da_part,
+    # dd_part, dh0, B, S, di, n, bf16, channels, chunk, stream
+    "mamba_scan_bwd_launch": [_P] * 15 + [_I] * 7 + [_P],
 }
 
 

@@ -64,26 +64,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "scan_common.cuh"
+
 namespace {
 
 constexpr int kCh = 64;      // channels (threads) per block
 constexpr int kT = 32;       // time steps per tile
 constexpr int kStages = 3;   // tiles in flight in the ring
-constexpr int NS = 16;       // states in registers; n <= NS are live
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // v rounded to bfloat16 (to nearest even), as a float.
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
 }
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !full.

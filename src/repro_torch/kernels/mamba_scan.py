@@ -1,17 +1,20 @@
-"""Wrapper of the ``selective_scan`` CUDA kernel (``csrc/mamba_scan.cu``).
+"""Wrappers of the ``selective_scan`` CUDA kernel (``csrc/mamba_scan.cu``)
+and of its gradient (``csrc/mamba_scan_bwd.cu``), and ``SelectiveScanFn``,
+the autograd function that joins them.
 
-Replaces ``repro/kernels/mamba_scan.py::selective_scan``: the fused
-Mamba-1 selective scan, h in registers across the whole sequence; with
-``ssm_dtype="bf16"`` the reference model's bf16 a/b chunked scan
-(``RunConfig.ssm_dtype``).  Takes CUDA tensors only; ``kernels/ops.py``
-sends CPU tensors to the plain version.
+``selective_scan`` replaces ``repro/kernels/mamba_scan.py::selective_scan``:
+the fused Mamba-1 selective scan, h in registers across the whole
+sequence; with ``ssm_dtype="bf16"`` the reference model's bf16 a/b chunked
+scan (``RunConfig.ssm_dtype``).  ``selective_scan_bwd`` is the port's own:
+the reference trains through its plain jnp scan.  Both take CUDA tensors
+only; ``kernels/ops.py`` sends CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 MAX_STATE = 16   # the kernel keeps 16 states in registers; n <= 16 are live
 
@@ -49,6 +52,38 @@ def check_mode(ssm_dtype: str, chunk: int) -> None:
                          f"got {chunk}")
 
 
+def _check(kernel: str, named: tuple[tuple[str, torch.Tensor], ...]
+           ) -> tuple[int, int, int, int]:
+    """Refuse what the kernel does not take: ``named`` holds x, dt, bm, cm,
+    a_log, d, h0 (then dy (B, S, di) and dh_last (B, di, n) for the
+    gradient), float tensors on one CUDA device.  Returns (B, S, di, n)."""
+    x = named[0][1]
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel} kernel needs CUDA tensors; {name}"
+                             f" is on {t.device}")
+        if not t.is_floating_point() or t.device != x.device:
+            raise ValueError(f"{kernel} kernel needs float tensors on one"
+                             f" device; {name} is {t.dtype} on {t.device}")
+    if x.ndim != 3:
+        raise ValueError(f"{kernel} x must be (B, S, di), got "
+                         f"{tuple(x.shape)}")
+    B, S, di = x.shape
+    n = named[2][1].shape[-1]
+    want = {"dt": (B, S, di), "bm": (B, S, n), "cm": (B, S, n),
+            "a_log": (di, n), "d": (di,), "h0": (B, di, n), "dy": (B, S, di),
+            "dh_last": (B, di, n)}
+    for name, t in named[1:]:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{kernel} {name} {tuple(t.shape)}, expected "
+                             f"{want[name]} for x {tuple(x.shape)}")
+    if min(B, S, di, n) < 1 or n > MAX_STATE or B > 65535:
+        raise ValueError(f"{kernel} needs B, S, di >= 1, 1 <= n <= "
+                         f"{MAX_STATE} and B <= 65535; got B={B} S={S} di={di} "
+                         f"n={n}")
+    return B, S, di, n
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                    cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
                    h0: torch.Tensor, ssm_dtype: str = "f32", chunk: int = 0
@@ -64,30 +99,9 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     packed into one zero-padded (B, S, 2, 16) float32 tensor; a_log, d and
     h0 are cast to contiguous float32.
     """
-    named = (("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
-             ("d", d), ("h0", h0))
-    for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(f"selective_scan kernel needs CUDA tensors; {name}"
-                             f" is on {t.device}")
-        if not t.is_floating_point() or t.device != x.device:
-            raise ValueError(f"selective_scan kernel needs float tensors on one"
-                             f" device; {name} is {t.dtype} on {t.device}")
-    if x.ndim != 3:
-        raise ValueError(f"selective_scan x must be (B, S, di), got "
-                         f"{tuple(x.shape)}")
-    B, S, di = x.shape
-    n = bm.shape[-1]
-    want = {"dt": (B, S, di), "bm": (B, S, n), "cm": (B, S, n),
-            "a_log": (di, n), "d": (di,), "h0": (B, di, n)}
-    for name, t in named[1:]:
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"selective_scan {name} {tuple(t.shape)}, expected "
-                             f"{want[name]} for x {tuple(x.shape)}")
-    if min(B, S, di, n) < 1 or n > MAX_STATE or B > 65535:
-        raise ValueError(f"selective_scan needs B, S, di >= 1, 1 <= n <= "
-                         f"{MAX_STATE} and B <= 65535; got B={B} S={S} di={di} "
-                         f"n={n}")
+    B, S, di, n = _check("selective_scan", (
+        ("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
+        ("d", d), ("h0", h0)))
     check_mode(ssm_dtype, chunk)
     x, dt, bc = operands(x, dt, bm, cm)
     f32 = [t.float().contiguous() for t in (a_log, d, h0)]
@@ -106,3 +120,95 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     build.check(err, "selective_scan")
     kernels.LAUNCHES["selective_scan"] += 1
     return y, h_last
+
+
+# csrc/mamba_scan_bwd.cu's kCh and kL: channels a block (one partial of dB
+# and dC each) and steps between the state checkpoints; the kernel refuses
+# other values
+BWD_CHANNELS = 64
+BWD_CHUNK = 16
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                       cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
+                       h0: torch.Tensor, dy: torch.Tensor,
+                       dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The float32 scan's gradient: the forward's inputs, dy (B, S, di) and
+    dh_last (B, di, n), on one CUDA device -> (dx, ddt (B, S, di); dbm, dcm
+    (B, S, n); da_log (di, n); dd (di,); dh0 (B, di, n)), all float32, as
+    ``ref.selective_scan_bwd_ref`` computes them.  Launches on the current
+    stream.
+
+    x and dt are read as the forward reads them (``operands``).  The kernel
+    writes its sums over channels (dbm, dcm) as one partial a block of
+    ``BWD_CHANNELS`` channels and its sums over time (da_log, dd) as one
+    partial a batch row; ``torch.sum`` folds them, so the result is the
+    same whatever order the blocks run in.  Scratch: the state at every
+    ``BWD_CHUNK``-th step, B * ceil(S / 16) * 16 * di floats.
+    """
+    B, S, di, n = _check("selective_scan_bwd", (
+        ("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
+        ("d", d), ("h0", h0), ("dy", dy), ("dh_last", dh_last)))
+    x, dt, bc = operands(x, dt, bm, cm)
+    f32 = [t.float().contiguous() for t in (a_log, d, h0, dy, dh_last)]
+    dev = x.device
+    blocks = -(-di // BWD_CHANNELS)
+    hck = torch.empty((B, -(-S // BWD_CHUNK), MAX_STATE, di),
+                      dtype=torch.float32, device=dev)
+    dx = torch.empty((B, S, di), dtype=torch.float32, device=dev)
+    ddt = torch.empty_like(dx)
+    dbc = torch.empty((blocks, B, S, 2, MAX_STATE), dtype=torch.float32,
+                      device=dev)
+    da = torch.empty((B, di, n), dtype=torch.float32, device=dev)
+    dd = torch.empty((B, di), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, di, n), dtype=torch.float32, device=dev)
+    lib = build.library("mamba_scan_bwd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.mamba_scan_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), bc.data_ptr(),
+        *(t.data_ptr() for t in f32),
+        *(t.data_ptr() for t in (hck, dx, ddt, dbc, da, dd, dh0)),
+        B, S, di, n, int(x.dtype == torch.bfloat16), BWD_CHANNELS, BWD_CHUNK,
+        stream)
+    build.check(err, "selective_scan_bwd")
+    kernels.LAUNCHES["selective_scan_bwd"] += 1
+    dbc = dbc.sum(0)
+    return (dx, ddt, dbc[:, :, 0, :n], dbc[:, :, 1, :n], da.sum(0), dd.sum(0),
+            dh0)
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """``selective_scan`` with its gradient: on CUDA tensors the forward
+    kernel and ``selective_scan_bwd``; on CPU tensors (the tests) the
+    plain versions, ``ref.selective_scan_ref`` and
+    ``ref.selective_scan_bwd_ref``.  The gradients come back in their
+    inputs' dtypes (bfloat16 x and dt on the serve path: computed in
+    float32, then rounded).  Under ``torch.utils.checkpoint`` the forward
+    runs twice a step and its saved inputs go with each run's context.
+
+    ``apply(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)`` ->
+    (y, h_last).  The bf16 a/b mode's backward is not written: it raises.
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, bm, cm, a_log, d, h0, ssm_dtype="f32", chunk=0):
+        check_mode(ssm_dtype, chunk)
+        ctx.ssm_dtype = ssm_dtype
+        ctx.save_for_backward(x, dt, bm, cm, a_log, d, h0)
+        if x.device.type == "cpu":
+            return ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0,
+                                          ssm_dtype, chunk)
+        return selective_scan(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        if ctx.ssm_dtype != "f32":
+            raise NotImplementedError(
+                "the selective scan's backward in the bf16 a/b mode "
+                "(ssm_dtype='bf16') is not ported: ROADMAP.md list 1b item 8; "
+                "train with RunConfig's default ssm_dtype='f32'")
+        ins = ctx.saved_tensors
+        bwd = (ref.selective_scan_bwd_ref if ins[0].device.type == "cpu"
+               else selective_scan_bwd)
+        grads = bwd(*ins, dy, dh_last)
+        return (*(g.to(t.dtype) for g, t in zip(grads, ins)), None, None)

@@ -50,9 +50,15 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     a_log (di, n); d (di,); h0 (B, di, n) -> (y (B, S, di) float32,
     h_last (B, di, n) float32).  ``ssm_dtype="bf16"``: a and b rounded to
     bf16 and combined in chunks of ``chunk`` steps (``RunConfig``'s
-    ``ssm_dtype`` and ``scan_chunk``)."""
+    ``ssm_dtype`` and ``scan_chunk``).
+
+    On CPU tensors autograd differentiates the plain version; on CUDA
+    tensors that need a gradient ``SelectiveScanFn`` pairs the kernel with
+    its backward kernel."""
     _ms.check_mode(ssm_dtype, chunk)
-    if _on_cpu(x, dt, bm, cm, a_log, d, h0):
-        return ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0,
-                                      ssm_dtype, chunk)
-    return _ms.selective_scan(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)
+    ins = (x, dt, bm, cm, a_log, d, h0)
+    if _on_cpu(*ins):
+        return ref.selective_scan_ref(*ins, ssm_dtype, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _ms.SelectiveScanFn.apply(*ins, ssm_dtype, chunk)
+    return _ms.selective_scan(*ins, ssm_dtype, chunk)

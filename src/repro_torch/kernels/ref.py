@@ -99,9 +99,10 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     bf16 (each step rounded), h_t = A_c h_c0 + B_c in float32 from the
     state h_c0 at the chunk's start, restarted every ``chunk`` steps.
     """
-    A = -torch.exp(a_log.float())
-    d = d.float()
-    h = h0.float()
+    wide = _wide(x)
+    A = -torch.exp(a_log.to(wide))
+    d = d.to(wide)
+    h = h0.to(wide)
     ab16 = ssm_dtype == "bf16"
     if ab16:
         if chunk < 1:
@@ -112,7 +113,7 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         b_c = torch.zeros(h.shape, dtype=bf16, device=h.device)
     ys = []
     for t in range(x.shape[1]):
-        x_t, dt_t = x[:, t].float(), dt[:, t].float()
+        x_t, dt_t = x[:, t].to(wide), dt[:, t].to(wide)
         a_t = torch.exp(dt_t[:, :, None] * A[None])
         if ab16:
             if t % chunk == 0:
@@ -125,6 +126,56 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
             b_c = a_t * b_c + b_t
             h = a_c.float() * h_c0 + b_c.float()
         else:
-            h = a_t * h + (dt_t * x_t)[:, :, None] * bm[:, t, None, :].float()
-        ys.append((h * cm[:, t, None, :].float()).sum(-1) + d * x_t)
+            h = a_t * h + (dt_t * x_t)[:, :, None] * bm[:, t, None, :].to(wide)
+        ys.append((h * cm[:, t, None, :].to(wide)).sum(-1) + d * x_t)
     return torch.stack(ys, 1), h
+
+
+def _wide(x: torch.Tensor) -> torch.dtype:
+    """The scans' working dtype: float32, or float64 for float64 inputs
+    (``torch.autograd.gradcheck``)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           bm: torch.Tensor, cm: torch.Tensor,
+                           a_log: torch.Tensor, d: torch.Tensor,
+                           h0: torch.Tensor, dy: torch.Tensor,
+                           dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The gradient of the float32 ``selective_scan_ref`` by its explicit
+    reverse recurrence (what ``csrc/mamba_scan_bwd.cu`` computes).
+
+    With a_t = exp(dt_t A), A = -exp(a_log), and g_t = dL/dh_t:
+    g_t = dy_t C_t + a_{t+1} g_{t+1}, started at dh_last; then
+    dx_t = dt_t Σ_j g_t B_t + d dy_t, ddt_t = x_t Σ_j g_t B_t
+    + Σ_j g_t h_{t-1} a_t A, dbm_t = Σ_i g_t dt_t x_t, dcm_t = Σ_i dy_t h_t,
+    da_log = A Σ_{b,t} g_t h_{t-1} a_t dt_t, dd = Σ_{b,t} dy_t x_t and
+    dh0 = a_0 g_0.  The forward's states are kept, all S + 1 of them.
+    Returns (dx, ddt, dbm, dcm, da_log, dd, dh0) in float32 (float64 for
+    float64 inputs).
+    """
+    wide = _wide(x)
+    A = -torch.exp(a_log.to(wide))
+    x, dt, bm, cm, dy = (t.to(wide) for t in (x, dt, bm, cm, dy))
+    hs = [h0.to(wide)]
+    for t in range(x.shape[1]):
+        a_t = torch.exp(dt[:, t, :, None] * A)
+        hs.append(a_t * hs[-1]
+                  + (dt[:, t] * x[:, t])[:, :, None] * bm[:, t, None, :])
+    g = dh_last.to(wide)
+    dA = torch.zeros_like(g)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
+    for t in reversed(range(x.shape[1])):
+        x_t, dt_t, dy_t = x[:, t], dt[:, t], dy[:, t]
+        a_t = torch.exp(dt_t[:, :, None] * A)
+        g = g + dy_t[:, :, None] * cm[:, t, None, :]
+        dcm[:, t] = (dy_t[:, :, None] * hs[t + 1]).sum(1)
+        dbm[:, t] = (g * (dt_t * x_t)[:, :, None]).sum(1)
+        gb = (g * bm[:, t, None, :]).sum(-1)
+        gha = g * hs[t] * a_t
+        dx[:, t] = gb * dt_t + d.to(wide) * dy_t
+        ddt[:, t] = gb * x_t + (gha * A).sum(-1)
+        dA = dA + gha * dt_t[:, :, None]
+        g = a_t * g
+    return (dx, ddt, dbm, dcm, dA.sum(0) * A, (dy * x).sum((0, 1)), g)

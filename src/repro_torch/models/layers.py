@@ -205,12 +205,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             s = s + bias
             m_new = torch.maximum(m, s.amax(-1))
             # fully masked rows (sliding-window rows whose window misses
-            # this tile) leave m_new = -inf; exp(-inf - -inf) = nan, so
-            # they are zeroed instead
-            dead = torch.isneginf(m_new)
-            p = torch.where(dead[..., None], 0.0,
-                            torch.exp(s - m_new[..., None]))
-            corr = torch.where(dead, 0.0, torch.exp(m - m_new))
+            # this tile and every tile before it) leave m_new = -inf, and
+            # exp(-inf - -inf) = nan: they subtract 0 instead, so p and
+            # corr are exp(-inf) = 0 with a zero gradient (the reference
+            # zeroes the nan with a where, whose gradient stays nan)
+            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.exp(m - m_safe)
             l = l * corr + p.sum(-1)
             pv = (p.to(in_dt).float().view(B, KH, G * q_block, kv_block)
                   @ vj).view(B, KH, G, q_block, D)

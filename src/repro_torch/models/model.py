@@ -19,11 +19,16 @@ An encoder-decoder model also has the reference's ``enc`` segment
 (``num_encoder_layers`` blocks of kind ``enc``) and ``enc_norm``: the
 stub frames (``batch["enc_embeds"]``) go through them (``encode``), and
 every ``dec`` block reads the result.  Forward modes: ``backbone`` /
-``prefill`` (returns the decode cache) and ``decode_step`` (one token,
-cache update; the encoder output comes in as ``batch["enc_out"]``).
-Training (``loss_fn``) is not ported: parameters are created without
-gradients.  The reference's sharding hints (``constrain``) and its
-context-parallel attention branch have no counterpart on one device.
+``prefill`` (returns the decode cache), ``decode_step`` (one token,
+cache update; the encoder output comes in as ``batch["enc_out"]``) and
+``loss_fn`` (``backbone`` then ``chunked_loss``, for training).
+Parameters are created without gradients, so serving builds no graph; a
+trainer turns them on with ``model.requires_grad_(True)``.  With
+``RunConfig.remat == "block"`` and gradients enabled each block runs
+under ``torch.utils.checkpoint`` (its activations recomputed in the
+backward), as the reference checkpoints each block.  The reference's
+sharding hints (``constrain``) and its context-parallel attention branch
+have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -32,7 +37,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers, mamba, moe
 from repro_torch.models.layers import ParamSpec
@@ -115,7 +122,8 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """Embedding, segments of blocks, final norm and LM head; for an
-    encoder-decoder model also the encoder blocks and their norm.
+    encoder-decoder model also the encoder blocks and their norm.  On the
+    card unless ``device`` says otherwise (``device.resolve``).
 
     Parameter names follow the reference's pytree: ``embed``,
     ``final_norm``, ``lm_head``, ``segments[si][layer]`` for
@@ -124,9 +132,10 @@ class Model(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cpu", seed: int | None = 0):
+                 device: torch.device | str | None = None,
+                 seed: int | None = 0):
         super().__init__()
-        init = _Init(dtype, device, seed)
+        init = _Init(dtype, _device.resolve(device), seed)
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = init(ParamSpec((v, d), ("vocab", "embed")))
         self.final_norm = init(_norm(cfg))
@@ -208,6 +217,20 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
     return x, cache
 
 
+def _run_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
+               x: torch.Tensor, positions: torch.Tensor,
+               enc_out: torch.Tensor | None = None,
+               collect_cache: bool = False):
+    """``block_forward``, under ``torch.utils.checkpoint`` when
+    ``rc.remat == "block"`` and gradients are on (the reference's
+    ``jax.checkpoint`` of each block)."""
+    if rc.remat == "block" and torch.is_grad_enabled():
+        return checkpoint(block_forward, cfg, rc, kind, block, x, positions,
+                          enc_out, collect_cache, use_reentrant=False)
+    return block_forward(cfg, rc, kind, block, x, positions, enc_out,
+                         collect_cache)
+
+
 def _cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention's k and v (B, Se, KH, hd) from the encoder output:
@@ -264,7 +287,7 @@ def encode(cfg: ModelConfig, rc: RunConfig, model: Model,
     positions = torch.arange(Se, dtype=torch.int32,
                              device=e.device).expand(B, Se)
     for block in model.enc:
-        e, _ = block_forward(cfg, rc, "enc", block, e, positions)
+        e, _ = _run_block(cfg, rc, "enc", block, e, positions)
     return layers.rmsnorm(e, model.enc_norm, cfg.norm_eps)
 
 
@@ -289,8 +312,8 @@ def backbone(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
                                               model.segments)):
         entries = []
         for block in seg:
-            x, cache = block_forward(cfg, rc, kind, block, x, positions,
-                                     enc_out, collect_cache)
+            x, cache = _run_block(cfg, rc, kind, block, x, positions,
+                                  enc_out, collect_cache)
             entries.append(cache)
         if collect_cache:
             caches[f"seg{si}"] = _stack(entries)
@@ -301,6 +324,53 @@ def backbone(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
 def lm_head(cfg: ModelConfig, model: Model, h: torch.Tensor) -> torch.Tensor:
     w = model.embed.T if cfg.tie_embeddings else model.lm_head
     return h @ w
+
+
+def _chunk_ce(cfg: ModelConfig, model: Model, hx: torch.Tensor,
+              lx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (sum of -log p(label), count of labels >= 0): float32
+    logits, logsumexp minus the gold logit, padding labels (-1) masked."""
+    logits = lm_head(cfg, model, hx).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lx.clamp(min=0)[..., None].long())[..., 0]
+    valid = (lx >= 0).float()
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def chunked_loss(cfg: ModelConfig, rc: RunConfig, model: Model,
+                 h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sequence-chunked softmax cross-entropy: the (B, S, V) logits never
+    exist at once.  S is padded to a multiple of ``min(rc.loss_chunk, S)``
+    with label -1; each chunk runs under ``torch.utils.checkpoint`` when
+    gradients are on (its logits recomputed in the backward), as the
+    reference checkpoints ``chunk_ce``.  Mean over the valid labels."""
+    B, S, _ = h.shape
+    chunk = min(rc.loss_chunk, S)
+    nch = -(-S // chunk)
+    if nch * chunk != S:
+        h = F.pad(h, (0, 0, 0, nch * chunk - S))
+        labels = F.pad(labels, (0, nch * chunk - S), value=-1)
+    tot = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for c in range(nch):
+        hx, lx = h[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:
+                                                         (c + 1) * chunk]
+        if torch.is_grad_enabled():
+            l, n = checkpoint(_chunk_ce, cfg, model, hx, lx,
+                              use_reentrant=False)
+        else:
+            l, n = _chunk_ce(cfg, model, hx, lx)
+        tot, cnt = tot + l, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict
+            ) -> torch.Tensor:
+    """The training loss: ``backbone`` (whisper's encoder on
+    ``batch["enc_embeds"]`` first) then ``chunked_loss`` on
+    ``batch["labels"]``."""
+    h, _ = backbone(cfg, rc, model, batch)
+    return chunked_loss(cfg, rc, model, h, batch["labels"])
 
 
 def prefill(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
@@ -342,12 +412,14 @@ def prefill(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
 
 def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> dict[str, Any]:
+               device: torch.device | str | None = None) -> dict[str, Any]:
     """Decode cache: attention segments get k/v (count, B, size, KH, hd) in
     ``dtype``, with size the window for sliding-window segments (a ring
     buffer) and ``max_len`` for full attention; mamba state is O(1): conv
     (count, B, cw-1, di) in ``dtype`` and ssm (count, B, di, n) float32.
-    ``index`` is the number of tokens seen."""
+    ``index`` is the number of tokens seen.  On the card unless ``device``
+    says otherwise (``device.resolve``)."""
+    device = _device.resolve(device)
     cache: dict[str, Any] = {"index": 0}
     kh, hd = cfg.num_kv_heads, cfg.head_dim
     for si, (kind, count) in enumerate(cfg.block_pattern):

@@ -112,7 +112,8 @@ def test_cpml_cluster_alcc_cpu_smoke(tmp_path, flags):
     assert got["bit_identical"] is True and got["device"] == "cpu"
     assert got["config"]["engine"] == "alcc"
     assert got["launches_run"] == {"modmatmul": 0, "coded_grad": 0,
-                                   "selective_scan": 0}
+                                   "selective_scan": 0,
+                                   "selective_scan_bwd": 0}
 
 
 def test_cpml_serve_cpu_smoke(tmp_path):
@@ -186,6 +187,6 @@ def test_cpml_cluster_socket_cpu_smoke(tmp_path):
         # the plain version on the CPU: no kernel launch, warm-up or round
         for counts in (reports[w]["launches"], reports[w]["warmup_launches"]):
             assert set(counts) == {"coded_grad", "modmatmul",
-                                   "selective_scan"}
+                                   "selective_scan", "selective_scan_bwd"}
             assert set(counts.values()) == {0}
 

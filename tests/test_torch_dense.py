@@ -224,7 +224,7 @@ def test_unported_kinds_still_raise_naming_their_item():
     # the reference's analytic count leaves out enc_norm
     n = sum(p.numel() for p in model.parameters())
     assert n == tcfg.param_count() + tcfg.d_model
-    cache = TM.init_cache(tcfg, RC, 2, 8)
+    cache = TM.init_cache(tcfg, RC, 2, 8, device="cpu")
     assert sorted(cache["seg0"]) == ["k", "v"]
     assert cache["seg0"]["k"].shape == (2, 2, 8, tcfg.num_kv_heads,
                                         tcfg.head_dim)

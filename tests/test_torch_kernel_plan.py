@@ -298,7 +298,7 @@ def test_mamba_mix_hands_the_scan_its_bf16_dt(monkeypatch):
     from repro_torch.models import model as TM
 
     cfg = registry.reduced_config(registry.get_config("falcon-mamba-7b"))
-    model = TM.Model(cfg, dtype=torch.bfloat16, seed=0)
+    model = TM.Model(cfg, dtype=torch.bfloat16, device="cpu", seed=0)
     p = model.segments[0][0].mamba
     gen = torch.Generator().manual_seed(0)
     x_in = torch.randn((2, 9, cfg.d_inner), generator=gen).to(torch.bfloat16)

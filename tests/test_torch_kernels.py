@@ -169,4 +169,4 @@ def test_launch_counts_only_kernel_launches():
     with pytest.raises(ValueError):
         tmm.modmatmul(a, a.T.contiguous(), jf.P)
     assert ops.LAUNCHES == {"modmatmul": 0, "coded_grad": 0,
-                            "selective_scan": 0}
+                            "selective_scan": 0, "selective_scan_bwd": 0}

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import mamba_scan as jms  # noqa: E402
@@ -143,3 +144,103 @@ def test_ops_passes_the_mode_and_refuses_bad_ones():
         with pytest.raises(ValueError, match="ssm_dtype"):
             tms.check_mode(mode, chunk)
     assert kernels.LAUNCHES["selective_scan"] == 0
+
+
+# -- the gradient: the plain reverse recurrence (what csrc/mamba_scan_bwd.cu
+#    computes) against autograd, jax.grad and gradcheck.  Tolerance: each
+#    gradient within 1e-5 of its largest magnitude (float32 sums over
+#    channels, batch and time in another order).
+GRAD_REL = 1e-5
+GRAD_NAMES = ("x", "dt", "bm", "cm", "a_log", "d", "h0")
+
+
+def close_rel(got, want, name):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, name
+    err = float(np.abs(got - want).max())
+    assert err <= GRAD_REL * max(float(np.abs(want).max()), 1e-30), (name, err)
+
+
+def cotangents(seed, B, S, di, n):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, di)).astype(np.float32),
+            rng.standard_normal((B, di, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("S", [1, 33, 130])
+@pytest.mark.parametrize("n", [1, 16])
+def test_plain_backward_matches_autograd_and_jax_grad(S, n):
+    B, di = 2, 6
+    args = make_inputs(S + n, B, S, di, n, h0_scale=0.7)
+    dy, dh = cotangents(S * n, B, S, di, n)
+    got = ref.selective_scan_bwd_ref(*(torch.as_tensor(a) for a in args),
+                                     torch.as_tensor(dy), torch.as_tensor(dh))
+    targs = [torch.as_tensor(a).requires_grad_(True) for a in args]
+    y, h = ref.selective_scan_ref(*targs)
+    auto = torch.autograd.grad((y * torch.as_tensor(dy)).sum()
+                               + (h * torch.as_tensor(dh)).sum(), targs)
+    _, vjp = jax.vjp(jms.ref_selective_scan, *(jnp.asarray(a) for a in args))
+    jgrads = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    for name, g, a, j in zip(GRAD_NAMES, got, auto, jgrads):
+        assert g.dtype == torch.float32
+        close_rel(g, a, name)
+        close_rel(g, j, name)
+
+
+def test_scan_fn_passes_gradcheck_in_float64():
+    args = [torch.as_tensor(a, dtype=torch.float64).requires_grad_(True)
+            for a in make_inputs(11, 2, 5, 3, 4, h0_scale=0.5)]
+    assert torch.autograd.gradcheck(
+        lambda *a: tms.SelectiveScanFn.apply(*a, "f32", 0), args)
+
+
+def test_scan_fn_returns_grads_in_the_inputs_dtypes_through_views():
+    """x and dt in bf16 (the serve path's dtypes) get bf16 gradients, the
+    float32 ones rounded; bm and cm as slices of one projection (as
+    ``mamba._ssm_params`` makes them) get their own slices of its
+    gradient."""
+    B, S, di, n = 2, 9, 6, 4
+    x, dt, bm, cm, a_log, d, h0 = (torch.as_tensor(a) for a in
+                                   make_inputs(7, B, S, di, n, 0.5))
+    proj = torch.cat([bm, cm], -1).requires_grad_(True)
+    xb, dtb = (t.bfloat16().requires_grad_(True) for t in (x, dt))
+    y, h = tms.SelectiveScanFn.apply(xb, dtb, proj[..., :n], proj[..., n:],
+                                     a_log, d, h0, "f32", 0)
+    dy, dh = (torch.as_tensor(t) for t in cotangents(8, B, S, di, n))
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    want = ref.selective_scan_bwd_ref(xb.detach(), dtb.detach(), bm, cm, a_log,
+                                      d, h0, dy, dh)
+    assert xb.grad.dtype == dtb.grad.dtype == torch.bfloat16
+    assert torch.equal(xb.grad, want[0].bfloat16())
+    assert torch.equal(dtb.grad, want[1].bfloat16())
+    assert torch.equal(proj.grad, torch.cat([want[2], want[3]], -1))
+
+
+def test_ops_differentiates_the_plain_version_on_the_cpu():
+    args = [torch.as_tensor(a).requires_grad_(True)
+            for a in make_inputs(9, 2, 7, 5, 3, 0.5)]
+    ops.reset_launches()
+    y, h = ops.selective_scan(*args)
+    assert y.grad_fn is not None
+    assert "SelectiveScanFn" not in type(y.grad_fn).__name__
+    y.sum().backward()
+    assert all(a.grad is not None for a in args)
+    assert kernels.LAUNCHES["selective_scan"] == 0
+    assert kernels.LAUNCHES["selective_scan_bwd"] == 0
+
+
+def test_bf16_ab_mode_backward_raises_naming_its_item():
+    args = [torch.as_tensor(a).requires_grad_(True)
+            for a in make_inputs(10, 1, 6, 4, 2, 0.5)]
+    y, _ = tms.SelectiveScanFn.apply(*args, "bf16", 4)
+    with pytest.raises(NotImplementedError, match="list 1b item 8"):
+        y.sum().backward()
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    args = [torch.as_tensor(a) for a in make_inputs(2, 1, 3, 4, 2)]
+    dy, dh = (torch.as_tensor(t) for t in cotangents(2, 1, 3, 4, 2))
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tms.selective_scan_bwd(*args, dy, dh)
+    assert kernels.LAUNCHES["selective_scan_bwd"] == 0

@@ -229,8 +229,9 @@ def test_params_from_reference_unstacks_and_keeps_dtypes():
 
 def test_init_is_deterministic_per_seed_with_reference_distributions():
     cfg = treg.reduced_config(treg.get_config(ARCH))
-    a, b = TM.Model(cfg, seed=3), TM.Model(cfg, seed=3)
-    c = TM.Model(cfg, seed=4)
+    a, b = (TM.Model(cfg, device="cpu", seed=3),
+            TM.Model(cfg, device="cpu", seed=3))
+    c = TM.Model(cfg, device="cpu", seed=4)
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
                                                  b.parameters()))
     assert not torch.equal(a.embed, c.embed)
@@ -248,9 +249,9 @@ def test_unported_kinds_and_options_raise():
     and ``ssm_dtype="bf16"`` runs the scan's bf16 a/b mode (close to the
     float32 scan, not equal to it); an unknown ``ssm_dtype`` raises."""
     cfg = treg.reduced_config(treg.get_config("whisper-tiny"))
-    model = TM.Model(cfg)
+    model = TM.Model(cfg, device="cpu")
     assert len(model.enc) == cfg.num_encoder_layers
-    assert "k" in TM.init_cache(cfg, RC, 1, 8)["seg0"]
+    assert "k" in TM.init_cache(cfg, RC, 1, 8, device="cpu")["seg0"]
     _, tcfg, _, model = carried("f32")
     x = torch.as_tensor(np.random.default_rng(3).standard_normal(
         (1, 12, tcfg.d_inner)).astype(np.float32))
