@@ -39,7 +39,9 @@ iterating on a kernel); such a partial run prints no ok line.
             gradient of its plain version at hymba's and falcon-mamba's
             training shapes (x and dt bf16 and float32), S = 1, 33 and
             8192, n in {1, 3, 16} with di not a multiple of the block's
-            channels, h0 and dh_last non-zero; and times each
+            channels, h0 and dh_last non-zero, and ``SelectiveScanFn``'s
+            bfloat16 gradients through views of one projection; and
+            times each
             main-path shape (CUDA events; the
             field kernels also replayed from a CUDA graph, the device's time
             without the host's launch cost) beside its plain version and
@@ -300,7 +302,9 @@ GELU_SAMPLES = 1 << 20
 # then per-block partials that torch.sum folds), dA_log and dD over time
 # and batch, in another order than the plain version, and takes a_t from
 # ex2.approx (2 ulp) where the plain version calls exp.  No atomics: the
-# kernel's result is the same in every run.
+# kernel's result is the same in every run.  Where x and dt are bfloat16
+# the kernel writes dx and ddt in bfloat16: the error is measured after
+# taking off that one rounding's share (``bwd_err``).
 BWD_RTOL = 1e-4
 # LM training at full width and depth on one card (PERF.md section 4):
 # bf16 parameters, float32 AdamW state, block remat, 10 steps through
@@ -852,18 +856,68 @@ def scan_bwd_inputs(torch, gen, B, S, di, n, x_dtype, dt_dtype):
 def scan_bwd_bound(B: int, S: int, di: int, n: int, xbytes: int
                    ) -> tuple[float, str, float, float]:
     """The backward's least time: (bound ms, by, bytes ms, operations ms).
-    Bytes: each input read once in its dtype (x, dt; Bm, Cm, A_log, D, h0,
-    dy, dh_last float32) and each output written once (dx, ddt, dbm, dcm,
-    dA_log, dD, dh0 float32).  Operations: one exp (a_t) and ~17 flops a
-    (b, t, i, j) at their rates."""
+    Bytes: each input read once in its dtype (x, dt in ``xbytes``; Bm, Cm,
+    A_log, D, h0, dy, dh_last float32) and each output written once (dx,
+    ddt in x's dtype; dbm, dcm, dA_log, dD, dh0 float32).  Operations: one
+    exp (a_t) and ~17 flops a (b, t, i, j) at their rates."""
     el = B * S * di * n
     nbytes = (B * S * di * 2 * xbytes + 2 * B * S * n * 4 + (di * n + di) * 4
               + 2 * B * di * n * 4 + B * S * di * 4              # inputs
-              + 2 * B * S * di * 4 + 2 * B * S * n * 4 + (di * n + di) * 4
-              + B * di * n * 4)                                   # outputs
+              + B * S * di * 2 * xbytes + 2 * B * S * n * 4
+              + (di * n + di) * 4 + B * di * n * 4)               # outputs
     b_ms, b_by = bound(nbytes, 17 * el, el)
     return (b_ms, b_by, nbytes / HBM_BYTES_PER_S * 1e3,
             max(17 * el / SCALAR_OPS_PER_S, el / SPECIAL_OPS_PER_S) * 1e3)
+
+
+def bwd_err(torch, g, w) -> tuple[float, float]:
+    """(max |g - w|, the kernel's float32 error as a share of max |w|) for
+    a gradient g of the kernel against w of the plain version (float32).
+    A bfloat16 g is that error rounded once to nearest even: the rounding's
+    share, up to 2^-8 |g| an element, is taken off before it is measured."""
+    gf = g.float()
+    diff = (gf - w).abs()
+    if g.dtype == torch.bfloat16:
+        err = float((diff - 2.0 ** -8 * gf.abs()).clamp_min(0).max())
+    else:
+        err = float(diff.max())
+    return float(diff.max()), err / max(float(w.abs().max()), 1e-30)
+
+
+def scan_fn_views(torch, gen) -> None:
+    """``SelectiveScanFn`` as the model calls it: bfloat16 x and dt, and bm
+    and cm bfloat16 views of one projection (``models/mamba.py``
+    ``_ssm_params``).  Each gradient comes back in its input's dtype and
+    slice, within ``BWD_RTOL`` of the plain version's (``bwd_err``)."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+
+    B, S, di, n = 2, 45, 1001, 16
+    x, dt, bm, cm, a_log, d, h0, dy, dh = scan_bwd_inputs(
+        torch, gen, B, S, di, n, torch.bfloat16, torch.bfloat16)
+    proj = torch.cat([bm, cm], -1).bfloat16().requires_grad_(True)
+    xb, dtb = (t.detach().requires_grad_(True) for t in (x, dt))
+    y, h = ms.SelectiveScanFn.apply(xb, dtb, proj[..., :n], proj[..., n:],
+                                    a_log, d, h0, "f32", 0)
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    torch.cuda.synchronize()
+    w = ref.selective_scan_bwd_ref(x, dt, proj[..., :n].detach(),
+                                   proj[..., n:].detach(), a_log, d, h0, dy,
+                                   dh)
+    rel = {}
+    for name, g, want in (("dx", xb.grad, w[0]), ("ddt", dtb.grad, w[1]),
+                          ("dproj", proj.grad, torch.cat(w[2:4], -1))):
+        if g.dtype != torch.bfloat16 or g.shape != want.shape:
+            raise AssertionError(f"SelectiveScanFn {name}: {g.dtype} "
+                                 f"{tuple(g.shape)}, expected bfloat16 "
+                                 f"{tuple(want.shape)}")
+        rel[name] = bwd_err(torch, g, want)[1]
+    emit({"phase": "kernels", "kernel": "selective_scan_bwd",
+          "case": "SelectiveScanFn_bf16_views", "max_rel_err": rel,
+          "tolerance_rel": BWD_RTOL})
+    if not all(v <= BWD_RTOL for v in rel.values()):
+        raise AssertionError(f"SelectiveScanFn through views: {rel} beyond "
+                             f"{BWD_RTOL}")
 
 
 def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
@@ -872,7 +926,8 @@ def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
     ``BWD_RTOL`` of its largest magnitude: hymba's and falcon-mamba's
     training shapes with x and dt bf16 and float32, S = 1, 33 and 8192, n
     in {1, 3, 16} with di not a multiple of the block's 64 channels,
-    h0 and dh_last non-zero throughout; then timed at the two training
+    h0 and dh_last non-zero throughout (``bwd_err``), and through
+    ``SelectiveScanFn`` (``scan_fn_views``); then timed at the two training
     shapes (CUDA events, and replayed from a CUDA graph) beside its bound
     and the plain version."""
     from repro_torch.kernels import mamba_scan as ms
@@ -898,13 +953,16 @@ def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
         got = ms.selective_scan_bwd(*args)
         torch.cuda.synchronize()
         want = ref.selective_scan_bwd_ref(*args)
+        # dx and ddt in the dtype the kernel reads x and dt in
+        xd = bf16 if x_dtype == dt_dtype == bf16 else f32
         abs_err, rel = {}, {}
         for name, g, w in zip(names, got, want):
-            if g.shape != w.shape or g.dtype != torch.float32:
+            dtype = xd if name in ("dx", "ddt") else f32
+            if g.shape != w.shape or g.dtype != dtype:
                 raise AssertionError(f"selective_scan_bwd {case} {name}: "
-                                     f"{g.shape} {g.dtype} vs {w.shape}")
-            abs_err[name] = float((g - w).abs().max())
-            rel[name] = abs_err[name] / max(float(w.abs().max()), 1e-30)
+                                     f"{g.shape} {g.dtype} vs {w.shape} "
+                                     f"{dtype}")
+            abs_err[name], rel[name] = bwd_err(torch, g, w)
         checks.max_err["selective_scan_bwd"] = max(
             checks.max_err["selective_scan_bwd"], *abs_err.values())
         emit({"phase": "kernels", "kernel": "selective_scan_bwd",
@@ -917,6 +975,7 @@ def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
                                  f"version beyond {BWD_RTOL} relative: {bad}")
         del args, got, want
         torch.cuda.empty_cache()
+    scan_fn_views(torch, gen)
     timings = []
     for case, di in (("hymba_train_bf16", 3200), ("falcon_train_bf16", 8192)):
         B, S, n = 4, 2048, 16
@@ -1303,11 +1362,14 @@ def device_profile(torch, step, n: int) -> dict:
             "kernels_per_step": kernels / n}
 
 
-def profile_window(torch, fn) -> dict:
+def profile_window(torch, fn, ranges: tuple[str, ...] = ()) -> dict:
     """``fn()`` once under ``torch.profiler``: device time by kernel group
     and by kernel (the top 8), kernel launches, and the device's busy share
     of the host-clock time (the profiler's own host cost included, so the
-    idle share is an upper bound)."""
+    idle share is an upper bound); and for each of ``ranges`` (names of
+    ``record_function`` ranges) the device time of the kernels launched
+    inside it.  The ranges' own device-side spans are not kernels and are
+    not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1319,12 +1381,15 @@ def profile_window(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
+    by_range = dict.fromkeys(ranges, 0.0)
     launches = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.device_time_total / 1e3)
             launches += 1
+        elif e.device_type == DeviceType.CPU and e.name in by_range:
+            by_range[e.name] += e.device_time_total / 1e3
     groups: dict[str, float] = {}
     for k, ms in by_name.items():
         groups[_kernel_group(k)] = groups.get(_kernel_group(k), 0) + ms
@@ -1336,7 +1401,8 @@ def profile_window(torch, fn) -> dict:
                 groups.get("selective_scan", 0.0) / busy,
             "device_busy_share": busy / wall_ms,
             "kernel_launches": launches,
-            "top_kernels_ms": {k[:80]: v for k, v in top}}
+            "top_kernels_ms": {k[:80]: v for k, v in top},
+            **({"device_ms_by_range": by_range} if ranges else {})}
 
 
 def serve_profile(torch, arch: str, B: int, S: int, steps: int = 8,
@@ -1782,15 +1848,6 @@ def phase_consistency_whisper(torch) -> dict:
     return info
 
 
-def _train_rc(S: int):
-    """``repro_torch.launch.train``'s run configuration for sequences of S
-    tokens."""
-    from repro_torch.configs.base import RunConfig
-
-    return RunConfig(q_block=min(512, S), kv_block=min(1024, S),
-                     loss_chunk=min(512, S), scan_chunk=min(128, S))
-
-
 def _ssm_layers(cfg) -> int:
     return sum(c for k, c in cfg.block_pattern
                if k.startswith(("mamba", "hybrid")))
@@ -1833,58 +1890,51 @@ def attention_train_ms(torch, cfg, rc, B: int, S: int) -> dict:
 
 
 def train_profile(torch, cfg, spec: dict) -> dict:
-    """One warm training step of ``cfg`` at ``spec``'s shape (the train
-    CLI's run configuration and optimizer) under ``torch.profiler``, in two
-    windows: forward + backward (``loss_fn``, ``backward()``) and the
-    optimizer (``apply_updates``).  Device ms by kernel group, launches,
-    the busy share of the host-clock step, the scan kernels' share; then
-    attention alone at the step's shapes (``attention_train_ms``)."""
+    """One warm step of ``repro_torch.launch.train.train_step_fn`` for
+    ``cfg`` at ``spec``'s shape (the train CLI's run configuration and
+    optimizer) under ``torch.profiler``: device ms by kernel group, the
+    optimizer's share (the kernels inside the step's
+    ``train.OPTIMIZER_RANGE``), launches, the busy share of the host-clock
+    step, the scan kernels' share; then attention alone at the step's
+    shapes (``attention_train_ms``)."""
     from repro_torch.data.loader import LMBatchLoader
+    from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt
 
     B, S = spec["batch"], spec["seq"]
-    rc = _train_rc(S)
+    rc = train.run_config(S, B)
     ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=10)
     model = M.Model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    state = opt.init_state(ocfg, params)
+    state = {"opt": opt.init_state(ocfg, params)}
+    step = train.train_step_fn(cfg, rc, ocfg, model)
     with LMBatchLoader("cuda", B, S, cfg.vocab_size) as loader:
         batches = [next(loader) for _ in range(2)]
 
-    def fwd_bwd(batch):
-        M.loss_fn(cfg, rc, model, batch).backward()
+    def run(batch):
+        _, state["opt"], _ = step(params, state["opt"], batch)
 
-    def update():
-        opt.apply_updates(ocfg, params, {k: p.grad for k, p in params.items()},
-                          state)
-        for p in params.values():
-            p.grad = None
-
-    fwd_bwd(batches[0])     # warm-up: the allocator's pools, cuBLAS plans
-    update()
-    windows = {"forward_backward": profile_window(
-                   torch, lambda: fwd_bwd(batches[1])),
-               "optimizer": profile_window(torch, update)}
-    del model, params, state
+    run(batches[0])     # warm-up: the allocator's pools, cuBLAS plans
+    w = profile_window(torch, lambda: run(batches[1]),
+                       ranges=(train.OPTIMIZER_RANGE,))
+    del model, params, state, step
     gc.collect()
     torch.cuda.empty_cache()
-    groups: dict[str, float] = {}
-    for w in windows.values():
-        for g, ms in w["device_ms_by_group"].items():
-            groups[g] = groups.get(g, 0.0) + ms
-    device = sum(groups.values())
-    host = sum(w["host_ms"] for w in windows.values())
-    info = {"windows": windows, "step_host_ms": host, "step_device_ms": device,
-            "device_ms_by_group": groups,
-            "optimizer_device_ms": windows["optimizer"]["device_ms"],
-            "launches_per_step": sum(w["kernel_launches"]
-                                     for w in windows.values()),
-            "device_busy_share": device / host,
+    groups, device = w["device_ms_by_group"], w["device_ms"]
+    optimizer_ms = w["device_ms_by_range"][train.OPTIMIZER_RANGE]
+    if not 0 < optimizer_ms < device:
+        raise AssertionError(f"train_profile {cfg.name}: the optimizer's "
+                             f"range holds {optimizer_ms} of {device} ms")
+    info = {"step_host_ms": w["host_ms"], "step_device_ms": device,
+            "device_ms_by_group": groups, "optimizer_device_ms": optimizer_ms,
+            "launches_per_step": w["kernel_launches"],
+            "device_busy_share": w["device_busy_share"],
             "scan_share_of_device_ms": (groups.get("selective_scan", 0.0)
                                         + groups.get("selective_scan_bwd",
-                                                     0.0)) / device}
+                                                     0.0)) / device,
+            "top_kernels_ms": w["top_kernels_ms"]}
     if cfg.num_heads:
         att = attention_train_ms(torch, cfg, rc, B, S)
         att["share_of_step_device_ms"] = att["ms_per_step"] / device
@@ -1959,6 +2009,7 @@ def phase_consistency_train(torch) -> dict:
     every leaf within ``GRAD_REL`` of its largest |g|."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
+    from repro_torch.launch import train
     from repro_torch.models import model as M
 
     spec = CONSISTENCY_TRAIN
@@ -1966,7 +2017,7 @@ def phase_consistency_train(torch) -> dict:
     cfg = dataclasses.replace(full, num_layers=len(spec["pattern"]),
                               block_pattern=spec["pattern"])
     B, S = spec["batch"], spec["seq"]
-    rc = _train_rc(S)
+    rc = train.run_config(S, B)
     gen = torch.Generator(device="cuda").manual_seed(10)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                          device="cuda")

@@ -18,8 +18,9 @@
 //     dD        = sum_{b,t} dy_t x_t              dh0 = a_0 g_0
 // Inputs as the forward's: x and dt (B,S,di) both float32 or both bf16; bc
 // (B,S,2,16) float32, B_t and C_t zero-padded; A_log (di,n), D (di,), h0
-// (B,di,n), dy (B,S,di) and dh_last (B,di,n) float32.  Outputs float32:
-// dx, ddt (B,S,di); dbc_part (blocks, B,S,2,16), the per-block sums of dB_t
+// (B,di,n), dy (B,S,di) and dh_last (B,di,n) float32.  Outputs: dx, ddt
+// (B,S,di) in x's and dt's dtype (computed in float32; bf16 stores round to
+// nearest even); float32 dbc_part (blocks, B,S,2,16), the per-block sums of dB_t
 // and dC_t; da_part (B,di,n), dd_part (B,di), each batch row's dA_log and
 // dD; dh0 (B,di,n).  The wrapper folds the partials with torch.sum, so the
 // result does not depend on the order blocks run in: no atomics.
@@ -105,7 +106,7 @@ scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const float* __restrict__ bc, const float* __restrict__ a_log,
                 const float* __restrict__ dvec, const float* __restrict__ h0,
                 const float* __restrict__ dy, const float* __restrict__ dh_last,
-                float* __restrict__ hck, float* __restrict__ dx, float* __restrict__ ddt,
+                float* __restrict__ hck, T* __restrict__ dx, T* __restrict__ ddt,
                 float* __restrict__ dbc_part, float* __restrict__ da_part,
                 float* __restrict__ dd_part, float* __restrict__ dh0, int S, int di,
                 int n) {
@@ -182,8 +183,8 @@ scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         g[j] = a * gj;
       }
       if (live) {
-        dx[r * di + i] = fmaf(gB, dv, Dv * dyv);
-        ddt[r * di + i] = fmaf(gB, xv, gdt);
+        store(dx + r * di + i, fmaf(gB, dv, Dv * dyv));
+        store(ddt + r * di + i, fmaf(gB, xv, gdt));
       }
       dD = fmaf(dyv, xv, dD);
       red[(warp * kL + tt) * kV + lane] = warp_sums(v, lane);
@@ -214,7 +215,7 @@ scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 template <typename T>
 cudaError_t launch(dim3 grid, cudaStream_t st, const void* x, const void* dt,
                    const float* bc, const float* a_log, const float* d, const float* h0,
-                   const float* dy, const float* dh_last, float* hck, float* dx, float* ddt,
+                   const float* dy, const float* dh_last, float* hck, void* dx, void* ddt,
                    float* dbc_part, float* da_part, float* dd_part, float* dh0, int S, int di,
                    int n) {
   auto* kernel = scan_bwd_kernel<T>;
@@ -222,14 +223,16 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const void* x, const void* dt,
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kCh, kSmem, st>>>(static_cast<const T*>(x), static_cast<const T*>(dt), bc,
-                                   a_log, d, h0, dy, dh_last, hck, dx, ddt, dbc_part, da_part,
+                                   a_log, d, h0, dy, dh_last, hck, static_cast<T*>(dx),
+                                   static_cast<T*>(ddt), dbc_part, da_part,
                                    dd_part, dh0, S, di, n);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16: 1 when x and dt are bfloat16, 0 when both are float32.  channels
+// bf16: 1 when x and dt are bfloat16 (and dx, ddt are written in bfloat16),
+// 0 when all four are float32.  channels
 // and chunk are the wrapper's sizes of dbc_part's blocks (channels a block)
 // and of hck's chunks (steps a chunk): refused unless they are this
 // kernel's kCh and kL.  hck holds B * ceil(S / chunk) * 16 * di floats,
@@ -249,10 +252,10 @@ extern "C" int mamba_scan_bwd_launch(const void* x, const void* dt, const void* 
   const auto o = [](void* p) { return static_cast<float*>(p); };
   const cudaError_t err =
       bf16 ? launch<__nv_bfloat16>(grid, st, x, dt, f(bc), f(a_log), f(d), f(h0), f(dy),
-                                   f(dh_last), o(hck), o(dx), o(ddt), o(dbc_part),
+                                   f(dh_last), o(hck), dx, ddt, o(dbc_part),
                                    o(da_part), o(dd_part), o(dh0), S, di, n)
            : launch<float>(grid, st, x, dt, f(bc), f(a_log), f(d), f(h0), f(dy), f(dh_last),
-                           o(hck), o(dx), o(ddt), o(dbc_part), o(da_part), o(dd_part),
+                           o(hck), dx, ddt, o(dbc_part), o(da_part), o(dd_part),
                            o(dh0), S, di, n);
   return static_cast<int>(err);
 }

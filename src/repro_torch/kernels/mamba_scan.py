@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build
 
 MAX_STATE = 16   # the kernel keeps 16 states in registers; n <= 16 are live
 
@@ -135,11 +135,14 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                        dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """The float32 scan's gradient: the forward's inputs, dy (B, S, di) and
     dh_last (B, di, n), on one CUDA device -> (dx, ddt (B, S, di); dbm, dcm
-    (B, S, n); da_log (di, n); dd (di,); dh0 (B, di, n)), all float32, as
+    (B, S, n); da_log (di, n); dd (di,); dh0 (B, di, n)), as
     ``ref.selective_scan_bwd_ref`` computes them.  Launches on the current
     stream.
 
-    x and dt are read as the forward reads them (``operands``).  The kernel
+    x and dt are read as the forward reads them (``operands``), and dx and
+    ddt are written in that dtype: bfloat16 when x and dt both are
+    (computed in float32, rounded to nearest even), else float32.  The
+    other gradients are float32.  The kernel
     writes its sums over channels (dbm, dcm) as one partial a block of
     ``BWD_CHANNELS`` channels and its sums over time (da_log, dd) as one
     partial a batch row; ``torch.sum`` folds them, so the result is the
@@ -155,7 +158,7 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     blocks = -(-di // BWD_CHANNELS)
     hck = torch.empty((B, -(-S // BWD_CHUNK), MAX_STATE, di),
                       dtype=torch.float32, device=dev)
-    dx = torch.empty((B, S, di), dtype=torch.float32, device=dev)
+    dx = torch.empty((B, S, di), dtype=x.dtype, device=dev)
     ddt = torch.empty_like(dx)
     dbc = torch.empty((blocks, B, S, 2, MAX_STATE), dtype=torch.float32,
                       device=dev)
@@ -178,13 +181,13 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
 
 
 class SelectiveScanFn(torch.autograd.Function):
-    """``selective_scan`` with its gradient: on CUDA tensors the forward
-    kernel and ``selective_scan_bwd``; on CPU tensors (the tests) the
-    plain versions, ``ref.selective_scan_ref`` and
-    ``ref.selective_scan_bwd_ref``.  The gradients come back in their
-    inputs' dtypes (bfloat16 x and dt on the serve path: computed in
-    float32, then rounded).  Under ``torch.utils.checkpoint`` the forward
-    runs twice a step and its saved inputs go with each run's context.
+    """``selective_scan`` with its gradient, ``selective_scan_bwd``, on CUDA
+    tensors (``kernels/ops.py`` lets autograd differentiate the plain
+    version on the CPU).  The gradients come back in their inputs' dtypes:
+    the kernel writes bfloat16 dx and ddt when x and dt are both bfloat16
+    (the model's path), and the rest are cast from float32.  Under
+    ``torch.utils.checkpoint`` the forward runs twice a step and its saved
+    inputs go with each run's context.
 
     ``apply(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)`` ->
     (y, h_last).  The bf16 a/b mode's backward is not written: it raises.
@@ -195,9 +198,6 @@ class SelectiveScanFn(torch.autograd.Function):
         check_mode(ssm_dtype, chunk)
         ctx.ssm_dtype = ssm_dtype
         ctx.save_for_backward(x, dt, bm, cm, a_log, d, h0)
-        if x.device.type == "cpu":
-            return ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0,
-                                          ssm_dtype, chunk)
         return selective_scan(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)
 
     @staticmethod
@@ -208,7 +208,5 @@ class SelectiveScanFn(torch.autograd.Function):
                 "(ssm_dtype='bf16') is not ported: ROADMAP.md list 1b item 8; "
                 "train with RunConfig's default ssm_dtype='f32'")
         ins = ctx.saved_tensors
-        bwd = (ref.selective_scan_bwd_ref if ins[0].device.type == "cpu"
-               else selective_scan_bwd)
-        grads = bwd(*ins, dy, dh_last)
+        grads = selective_scan_bwd(*ins, dy, dh_last)
         return (*(g.to(t.dtype) for g, t in zip(grads, ins)), None, None)

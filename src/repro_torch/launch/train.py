@@ -24,6 +24,7 @@ import json
 import math
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -36,21 +37,37 @@ from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt
 from repro_torch.runtime.resilience import ResilientLoop
 
+# inside the checkout (``build/`` is git-ignored), so that two checkouts
+# never restore each other's checkpoints
+CHECKPOINT_DIR = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
+# the profiler range around the optimizer's update in ``train_step_fn``
+OPTIMIZER_RANGE = "train_step.apply_updates"
+
+
+def run_config(seq: int, batch: int) -> RunConfig:
+    """The reference driver's run configuration for ``batch`` sequences of
+    ``seq`` tokens: attention, loss and scan blocks no longer than one."""
+    return RunConfig(seq_len=seq, global_batch=batch, q_block=min(512, seq),
+                     kv_block=min(1024, seq), loss_chunk=min(512, seq),
+                     scan_chunk=min(128, seq))
+
 
 def train_step_fn(cfg, rc, ocfg, model: M.Model):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss, its gradients by ``backward()``, then ``apply_updates``, the
     reference's ``value_and_grad`` step.  ``params`` is
     ``dict(model.named_parameters())``, updated in place; the gradients
-    are freed after the update."""
+    are freed after the update.  The update runs inside the profiler range
+    ``OPTIMIZER_RANGE`` (a no-op unless a profiler is recording)."""
     def step(params, opt_state, batch):
         for p in params.values():
             p.grad = None
         loss = M.loss_fn(cfg, rc, model, batch)
         loss.backward()
         grads = {k: p.grad for k, p in params.items()}
-        params, opt_state, metrics = opt.apply_updates(ocfg, params, grads,
-                                                       opt_state)
+        with torch.profiler.record_function(OPTIMIZER_RANGE):
+            params, opt_state, metrics = opt.apply_updates(ocfg, params,
+                                                           grads, opt_state)
         for p in params.values():
             p.grad = None
         return params, opt_state, {"loss": loss.detach(), **metrics}
@@ -75,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="CPU-sized config of the same family")
     ap.add_argument("--production-mesh", action="store_true",
                     help="not on one device: exits 2")
-    ap.add_argument("--checkpoint-dir", default="/tmp/repro_ckpt")
+    ap.add_argument("--checkpoint-dir", default=str(CHECKPOINT_DIR),
+                    help="default: build/train_ckpt in this checkout")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=5)
@@ -106,10 +124,7 @@ def main(argv: list[str] | None = None, config_override=None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    rc = RunConfig(seq_len=args.seq, global_batch=args.batch,
-                   q_block=min(512, args.seq), kv_block=min(1024, args.seq),
-                   loss_chunk=min(512, args.seq),
-                   scan_chunk=min(128, args.seq))
+    rc = run_config(args.seq, args.batch)
     ocfg = opt.OptimizerConfig(learning_rate=args.lr,
                                warmup_steps=max(2, args.steps // 10),
                                total_steps=max(args.steps, 10))

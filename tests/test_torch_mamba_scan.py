@@ -3,6 +3,8 @@ Pallas kernel (interpret mode), plus the CPU-side behaviour of the CUDA
 wrapper.  The CUDA kernel itself is held against the plain version on the
 GPU by chip_smoke.py.  Tolerance 1e-4, the reference kernel test's own:
 the same float32 recurrence summed in another order."""
+import types
+
 import numpy as np
 import pytest
 
@@ -187,33 +189,25 @@ def test_plain_backward_matches_autograd_and_jax_grad(S, n):
         close_rel(g, j, name)
 
 
+class _PlainScanFn(torch.autograd.Function):
+    """The plain scan with the plain reverse recurrence as its backward."""
+
+    @staticmethod
+    def forward(ctx, *ins):
+        ctx.save_for_backward(*ins)
+        return ref.selective_scan_ref(*ins)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        return ref.selective_scan_bwd_ref(*ctx.saved_tensors, dy, dh_last)
+
+
 def test_scan_fn_passes_gradcheck_in_float64():
+    """``selective_scan_bwd_ref`` against finite differences of
+    ``selective_scan_ref``, both in float64."""
     args = [torch.as_tensor(a, dtype=torch.float64).requires_grad_(True)
             for a in make_inputs(11, 2, 5, 3, 4, h0_scale=0.5)]
-    assert torch.autograd.gradcheck(
-        lambda *a: tms.SelectiveScanFn.apply(*a, "f32", 0), args)
-
-
-def test_scan_fn_returns_grads_in_the_inputs_dtypes_through_views():
-    """x and dt in bf16 (the serve path's dtypes) get bf16 gradients, the
-    float32 ones rounded; bm and cm as slices of one projection (as
-    ``mamba._ssm_params`` makes them) get their own slices of its
-    gradient."""
-    B, S, di, n = 2, 9, 6, 4
-    x, dt, bm, cm, a_log, d, h0 = (torch.as_tensor(a) for a in
-                                   make_inputs(7, B, S, di, n, 0.5))
-    proj = torch.cat([bm, cm], -1).requires_grad_(True)
-    xb, dtb = (t.bfloat16().requires_grad_(True) for t in (x, dt))
-    y, h = tms.SelectiveScanFn.apply(xb, dtb, proj[..., :n], proj[..., n:],
-                                     a_log, d, h0, "f32", 0)
-    dy, dh = (torch.as_tensor(t) for t in cotangents(8, B, S, di, n))
-    ((y * dy).sum() + (h * dh).sum()).backward()
-    want = ref.selective_scan_bwd_ref(xb.detach(), dtb.detach(), bm, cm, a_log,
-                                      d, h0, dy, dh)
-    assert xb.grad.dtype == dtb.grad.dtype == torch.bfloat16
-    assert torch.equal(xb.grad, want[0].bfloat16())
-    assert torch.equal(dtb.grad, want[1].bfloat16())
-    assert torch.equal(proj.grad, torch.cat([want[2], want[3]], -1))
+    assert torch.autograd.gradcheck(_PlainScanFn.apply, args)
 
 
 def test_ops_differentiates_the_plain_version_on_the_cpu():
@@ -230,11 +224,14 @@ def test_ops_differentiates_the_plain_version_on_the_cpu():
 
 
 def test_bf16_ab_mode_backward_raises_naming_its_item():
-    args = [torch.as_tensor(a).requires_grad_(True)
-            for a in make_inputs(10, 1, 6, 4, 2, 0.5)]
-    y, _ = tms.SelectiveScanFn.apply(*args, "bf16", 4)
+    """``SelectiveScanFn`` runs on the card only; its backward refuses the
+    bf16 a/b mode before it reads a saved tensor."""
+    ctx = types.SimpleNamespace(ssm_dtype="bf16", saved_tensors=())
+    dy, dh = (torch.as_tensor(t) for t in cotangents(10, 1, 6, 4, 2))
+    ops.reset_launches()
     with pytest.raises(NotImplementedError, match="list 1b item 8"):
-        y.sum().backward()
+        tms.SelectiveScanFn.backward(ctx, dy, dh)
+    assert kernels.LAUNCHES["selective_scan_bwd"] == 0
 
 
 def test_backward_wrapper_refuses_cpu_tensors():

@@ -11,6 +11,7 @@ another order in the global norm.  Quantized gradients are integers and
 must be bit-equal."""
 import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -318,3 +319,12 @@ def test_train_driver_defaults_to_the_card(capsys):
         pytest.skip("a CUDA card is present: the default device runs")
     assert ttrain.main(["--reduced", "--steps", "1"]) == 2
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_train_driver_checkpoints_inside_the_checkout_by_default():
+    """Two checkouts never share a default checkpoint directory: it is the
+    git-ignored build/train_ckpt of the checkout the driver runs from."""
+    root = Path(ttrain.__file__).resolve().parents[3]
+    default = Path(ttrain.build_parser().parse_args([]).checkpoint_dir)
+    assert default == root / "build" / "train_ckpt"
+    assert "build/" in (root / ".gitignore").read_text().split()

@@ -12,12 +12,16 @@ in another order.  Each gradient leaf within 1e-4 of that leaf's largest
 |g|: float32 summation order again, and on the mamba layers the port's
 sequential scan (and its explicit reverse recurrence) against the
 reference's chunked associative scan, which multiply the decays in
-another order.  Over the three steps: losses within 1e-4 relative, and
-each parameter within 2 lr a step taken of the reference's.  AdamW's
-normalised update m/√v is about ±1 an element whatever the gradient's size
-(exactly ±1 at the first step), so where a gradient element is near 0
-the two runs' float noise can give it opposite signs, and the parameter
-moves up to 2 lr apart that step."""
+another order.  Over the three steps: losses within 1e-4 relative; the
+float32 moments, which follow the gradients smoothly, each leaf's mu within
+1e-4 of its largest |mu| and nu (a square) within 2e-4 of its largest
+|nu|; and the parameters within 1e-5 but for at most 1 in 10^4 elements,
+every one within 2 lr a step taken.  AdamW's normalised update m/√v is
+about ±1 an element whatever the gradient's size (exactly ±1 at the first
+step), so where a gradient element is near 0 the two runs' float noise can
+give it opposite signs, and that element moves up to 2 lr apart that
+step: only the moments and the share of elements that agree hold the
+trajectory."""
 import dataclasses
 
 import numpy as np
@@ -42,6 +46,8 @@ from test_torch_models import JRC, RC, carried  # noqa: E402
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 STEP_LOSS_RTOL = 1e-4
+PARAM_ATOL = 1e-5
+PARAM_OUTLIERS = 1e-4   # share of elements allowed beyond PARAM_ATOL
 ARCHS = ["tinyllama-1.1b", "hymba-1.5b", "falcon-mamba-7b",
          "phi3.5-moe-42b-a6.6b", "whisper-tiny"]
 B, S = 2, 24   # S not a multiple of the loss chunk (16): padded with -1
@@ -146,12 +152,28 @@ def test_three_adamw_steps_track_the_reference(arch):
             jl_, tl_ = float(jm["loss"]), float(tm["loss"])
             assert abs(tl_ - jl_) <= STEP_LOSS_RTOL * abs(jl_), (step, tl_,
                                                                  jl_)
-            want = dict(convert.params_from_reference(
-                tcfg, jax.tree.map(np.asarray, jp)).named_parameters())
+            want = as_port(tcfg, jp)
             bound = 2 * kw["learning_rate"] * step
+            outliers = total = 0
             for k, p in tp.items():
-                err = float((p.detach() - want[k]).abs().max())
-                assert err <= bound, (step, k, err, bound)
+                diff = (p.detach() - want[k]).abs()
+                assert float(diff.max()) <= bound, (step, k, bound)
+                outliers += int((diff > PARAM_ATOL).sum())
+                total += diff.numel()
+            assert outliers <= PARAM_OUTLIERS * total, (step, outliers, total)
+            for name, rel in (("mu", GRAD_REL), ("nu", 2 * GRAD_REL)):
+                ref_m = as_port(tcfg, js[name])
+                for k, m in ts[name].items():
+                    assert m.dtype == torch.float32, (name, k)
+                    err = float((m - ref_m[k]).abs().max())
+                    scale = float(ref_m[k].abs().max())
+                    assert err <= rel * scale, (step, name, k, err, scale)
+
+
+def as_port(tcfg, tree):
+    """A reference parameter-shaped pytree as the port's named leaves."""
+    return dict(convert.params_from_reference(
+        tcfg, jax.tree.map(np.asarray, tree)).named_parameters())
 
 
 def test_attention_gradient_is_finite_where_a_window_row_starts_masked():
