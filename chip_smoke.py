@@ -35,12 +35,15 @@ iterating on a kernel); such a partial run prints no ok line.
             against CPU within 2^-7 of the largest output (``ab16_mix``);
             ``modmatmul`` at the BGW baseline's two local
             products at Case 1 in both orientations; the scan's backward
-            kernel (``selective_scan_bwd``) within 1e-4 of its largest
-            gradient of its plain version at hymba's and falcon-mamba's
-            training shapes (x and dt bf16 and float32), S = 1, 33 and
-            8192, n in {1, 3, 16} with di not a multiple of the block's
-            channels, h0 and dh_last non-zero, and ``SelectiveScanFn``'s
-            bfloat16 gradients through views of one projection; and
+            kernels (``selective_scan_bwd``: chunk summaries, carries,
+            chunk backward) within 1e-4 of its largest gradient of its
+            plain version at hymba's and falcon-mamba's training shapes (x
+            and dt bf16 and float32), S = 1, 33 and 8192, n in {1, 3, 16}
+            with di not a multiple of the block's channels, one chunk and
+            one chunk and a step at hymba's width, h0 and dh_last non-zero,
+            and ``SelectiveScanFn``'s bfloat16 gradients through views of
+            one projection; two calls bit-identical; its device launches a
+            call, per-kernel device ms and ptxas registers and spills; and
             times each
             main-path shape (CUDA events; the
             field kernels also replayed from a CUDA graph, the device's time
@@ -296,15 +299,17 @@ CONSISTENCY_WHISPER = dict(batch=2, prompt_len=16, extra=3)
 # width, float32 parameters, S not a multiple of the chunk
 AB16_MIX = dict(layers=2, batch=2, prompt_len=300)
 GELU_SAMPLES = 1 << 20
-# The scan's backward kernel against its plain version on the card: each
+# The scan's backward kernels against their plain version on the card: each
 # gradient within 1e-4 of its largest magnitude.  Both run the same float32
-# recurrence; the kernel sums dbm and dcm over channels (warp butterflies,
-# then per-block partials that torch.sum folds), dA_log and dD over time
-# and batch, in another order than the plain version, and takes a_t from
-# ex2.approx (2 ulp) where the plain version calls exp.  No atomics: the
-# kernel's result is the same in every run.  Where x and dt are bfloat16
-# the kernel writes dx and ddt in bfloat16: the error is measured after
-# taking off that one rounding's share (``bwd_err``).
+# recurrence; the kernels cut the sequence into chunks joined by carries
+# (which reassociate products and sums), sum dbm and dcm over channels
+# (warp butterflies, then per-block partials that torch.sum folds), dA_log
+# and dD over time, chunks and batch, in another order than the plain
+# version, and take a_t from ex2.approx (2 ulp) where the plain version
+# calls exp.  No atomics: the kernels' result is the same in every run.
+# Where x and dt are bfloat16 the kernel writes dx and ddt in bfloat16: the
+# error is measured after taking off that one rounding's share
+# (``bwd_err``).
 BWD_RTOL = 1e-4
 # LM training at full width and depth on one card (PERF.md section 4):
 # bf16 parameters, float32 AdamW state, block remat, 10 steps through
@@ -920,37 +925,103 @@ def scan_fn_views(torch, gen) -> None:
                              f"{BWD_RTOL}")
 
 
+def ptxas_report(name: str, match: str) -> dict:
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu`` whose
+    entry contains ``match``, read from the ``-Xptxas -v`` log that the
+    build keeps beside the library: {"<kernel><type>": {...}}."""
+    import re
+
+    from repro_torch.kernels import build
+
+    log = build.build_all()[name].parent / f"{name}.log"
+    out, cur = {}, None
+    for ln in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1)
+            k = re.search(match + r"_[a-z]+_kernel", entry)
+            cur = None
+            if k:
+                t = entry[k.end():]
+                cur = k.group(0) + (
+                    "<bf16>" if t.startswith("I13__nv_bf")
+                    else "<f32>" if t.startswith("IfE") else "")
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def device_launches(torch, fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: the device kernels it
+    launches, in all and by group (``_kernel_group``), and the device ms
+    of each kernel by its unqualified name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups: dict[str, int] = {}
+    ms: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            g = _kernel_group(e.name)
+            groups[g] = groups.get(g, 0) + 1
+            k = e.name.replace("(anonymous namespace)::", "")
+            k = k.split("<")[0].split("(")[0].split()[-1].split("::")[-1]
+            ms[k] = ms.get(k, 0.0) + e.device_time_total / 1e3
+    return {"all": sum(groups.values()), "by_group": groups,
+            "device_ms_by_kernel": ms}
+
+
 def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
-    """The scan's backward kernel against its plain version
+    """The scan's backward kernels against their plain version
     (``ref.selective_scan_bwd_ref``) on the card, each gradient within
     ``BWD_RTOL`` of its largest magnitude: hymba's and falcon-mamba's
     training shapes with x and dt bf16 and float32, S = 1, 33 and 8192, n
-    in {1, 3, 16} with di not a multiple of the block's 64 channels,
-    h0 and dh_last non-zero throughout (``bwd_err``), and through
-    ``SelectiveScanFn`` (``scan_fn_views``); then timed at the two training
-    shapes (CUDA events, and replayed from a CUDA graph) beside its bound
-    and the plain version."""
+    in {1, 3, 16} with di not a multiple of the block's 32 channels, one
+    chunk and one chunk and a step (S = L and L + 1 at hymba's width, L the
+    plan's chunk at hymba's training shape, forced), h0 and dh_last non-zero
+    throughout (``bwd_err``), and through ``SelectiveScanFn``
+    (``scan_fn_views``); two calls on the same inputs give the same bits.
+    Then timed at the two training shapes (CUDA events, and replayed from a
+    CUDA graph) beside its bound and the plain version, with the device
+    launches a call and each kernel's registers and spills."""
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
 
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(9)
     names = ("dx", "ddt", "dbm", "dcm", "da_log", "dd", "dh0")
+    L = ms.plan_bwd(4, 2048, 3200, 2).chunk
     cases = [
-        ("hymba_train_bf16", (4, 2048, 3200, 16), bf16, bf16),
-        ("hymba_train_f32", (4, 2048, 3200, 16), f32, f32),
-        ("falcon_train_bf16", (4, 2048, 8192, 16), bf16, bf16),
-        ("falcon_train_f32", (4, 2048, 8192, 16), f32, f32),
-        ("S1", (4, 1, 8192, 16), bf16, bf16),
-        ("S33", (2, 33, 8192, 16), f32, f32),
-        ("long_S8192", (1, 8192, 8192, 16), bf16, bf16),
-        ("di1000_n1", (2, 45, 1000, 1), bf16, bf16),
-        ("di1001_n3", (2, 45, 1001, 3), f32, bf16),
-        ("di1001_n16_x_bf16", (3, 40, 1001, 16), bf16, f32),
+        ("hymba_train_bf16", (4, 2048, 3200, 16), bf16, bf16, None),
+        ("hymba_train_f32", (4, 2048, 3200, 16), f32, f32, None),
+        ("falcon_train_bf16", (4, 2048, 8192, 16), bf16, bf16, None),
+        ("falcon_train_f32", (4, 2048, 8192, 16), f32, f32, None),
+        ("S1", (4, 1, 8192, 16), bf16, bf16, None),
+        ("S33", (2, 33, 8192, 16), f32, f32, None),
+        ("long_S8192", (1, 8192, 8192, 16), bf16, bf16, None),
+        ("di1000_n1", (2, 45, 1000, 1), bf16, bf16, None),
+        ("di1001_n3", (2, 45, 1001, 3), f32, bf16, None),
+        ("di1001_n16_x_bf16", (3, 40, 1001, 16), bf16, f32, None),
+        ("hymba_S_eq_L", (4, L, 3200, 16), bf16, bf16, L),
+        ("hymba_S_eq_L_plus_1", (4, L + 1, 3200, 16), bf16, bf16, L),
     ]
-    for case, shape, x_dtype, dt_dtype in cases:
+    for case, shape, x_dtype, dt_dtype, chunk in cases:
         args = scan_bwd_inputs(torch, gen, *shape, x_dtype, dt_dtype)
-        got = ms.selective_scan_bwd(*args)
+        got = ms.run_bwd(chunk, *args)
         torch.cuda.synchronize()
         want = ref.selective_scan_bwd_ref(*args)
         # dx and ddt in the dtype the kernel reads x and dt in
@@ -965,32 +1036,53 @@ def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
             abs_err[name], rel[name] = bwd_err(torch, g, w)
         checks.max_err["selective_scan_bwd"] = max(
             checks.max_err["selective_scan_bwd"], *abs_err.values())
+        pl = ms.plan_bwd(*shape[:3], xd.itemsize, chunk=chunk)
         emit({"phase": "kernels", "kernel": "selective_scan_bwd",
               "case": case, "shape": list(shape), "x_dtype": str(x_dtype),
-              "dt_dtype": str(dt_dtype), "max_abs_err": abs_err,
+              "dt_dtype": str(dt_dtype), "chunk": pl.chunk,
+              "grid": list(pl.grid), "max_abs_err": abs_err,
               "max_rel_err": rel, "tolerance_rel": BWD_RTOL})
         bad = {k: v for k, v in rel.items() if not v <= BWD_RTOL}
         if bad:
             raise AssertionError(f"selective_scan_bwd {case}: kernel != plain "
                                  f"version beyond {BWD_RTOL} relative: {bad}")
+        if case == "hymba_train_bf16":
+            again = ms.selective_scan_bwd(*args)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            emit({"phase": "kernels", "kernel": "selective_scan_bwd",
+                  "case": case, "bit_identical_second_call": same})
+            if not same:
+                raise AssertionError("selective_scan_bwd: two calls on the "
+                                     "same inputs differ")
+            del again
         del args, got, want
         torch.cuda.empty_cache()
     scan_fn_views(torch, gen)
+    ptxas = ptxas_report("mamba_scan_bwd", "scan_bwd")
     timings = []
     for case, di in (("hymba_train_bf16", 3200), ("falcon_train_bf16", 8192)):
         B, S, n = 4, 2048, 16
         args = scan_bwd_inputs(torch, gen, B, S, di, n, bf16, bf16)
         b_ms, b_by, bytes_ms, ops_ms = scan_bwd_bound(B, S, di, n, 2)
+        pl = ms.plan_bwd(B, S, di, 2)
         timings.append({
             "kernel": "selective_scan_bwd", "case": case,
             "shape": [B, S, di, n], "dt_dtype": str(bf16),
+            "chunk": pl.chunk, "grid": list(pl.grid),
             "ms": time_ms(torch, lambda: ms.selective_scan_bwd(*args), 5),
             "graph_ms": graph_ms(torch, lambda: ms.selective_scan_bwd(*args),
                                  3),
             "plain_ms": time_ms(
                 torch, lambda: ref.selective_scan_bwd_ref(*args), 1, trials=1),
             "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms,
-            "operations_ms": ops_ms})
+            "operations_ms": ops_ms,
+            "device_launches": device_launches(
+                torch, lambda: ms.selective_scan_bwd(*args)),
+            "ptxas": ptxas})
+        if case == "hymba_train_bf16":  # the plan's chunk and its neighbours
+            timings[-1]["graph_ms_by_chunk"] = {
+                L: graph_ms(torch, lambda: ms.run_bwd(L, *args), 3)
+                for L in (pl.chunk // 2, pl.chunk, 2 * pl.chunk)}
         emit({"phase": "kernels", "timing": timings[-1]})
         del args
         torch.cuda.empty_cache()
@@ -1321,7 +1413,7 @@ def phase_serve_arctic(torch) -> dict:
 
 
 def _kernel_group(name: str) -> str:
-    if "scan_bwd_kernel" in name:
+    if "scan_bwd" in name:
         return "selective_scan_bwd"
     if "scan_kernel" in name:
         return "selective_scan"

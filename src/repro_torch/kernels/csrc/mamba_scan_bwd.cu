@@ -6,46 +6,95 @@
 // and this is its gradient (kernels/mamba_scan.py: SelectiveScanFn).
 //
 // The forward, for every (batch b, channel i, state j), A = -exp(A_log):
-//     a_t = exp(dt_t[i] A[i,j]),  h_t = a_t h_{t-1} + dt_t[i] x_t[i] B_t[j]
+//     a_t = exp(dt_t[i] A[i,j]),  h_t = a_t h_{t-1} + u_t B_t[j],  u_t = dt_t[i] x_t[i]
 //     y_t[i] = sum_j C_t[j] h_t[j] + D[i] x_t[i]
 // Given dy (B,S,di) and dh_last (B,di,n), the reverse recurrence
 //     g_t = dy_t C_t + a_{t+1} g_{t+1},   g_{S-1} = dy_{S-1} C_{S-1} + dh_last
 // (g_t = dL/dh_t) gives
 //     dx_t      = dt_t sum_j g_t[j] B_t[j] + D dy_t
 //     ddt_t     = x_t sum_j g_t[j] B_t[j] + sum_j g_t[j] h_{t-1}[j] a_t[j] A[j]
-//     dB_t[j]   = sum_i g_t[j] dt_t x_t          dC_t[j] = sum_i dy_t h_t[j]
+//     dB_t[j]   = sum_i g_t[j] u_t             dC_t[j] = sum_i dy_t h_t[j]
 //     dA_log    = A sum_{b,t} g_t h_{t-1} a_t dt_t   (dA/dA_log = A)
 //     dD        = sum_{b,t} dy_t x_t              dh0 = a_0 g_0
 // Inputs as the forward's: x and dt (B,S,di) both float32 or both bf16; bc
 // (B,S,2,16) float32, B_t and C_t zero-padded; A_log (di,n), D (di,), h0
 // (B,di,n), dy (B,S,di) and dh_last (B,di,n) float32.  Outputs: dx, ddt
 // (B,S,di) in x's and dt's dtype (computed in float32; bf16 stores round to
-// nearest even); float32 dbc_part (blocks, B,S,2,16), the per-block sums of dB_t
-// and dC_t; da_part (B,di,n), dd_part (B,di), each batch row's dA_log and
-// dD; dh0 (B,di,n).  The wrapper folds the partials with torch.sum, so the
-// result does not depend on the order blocks run in: no atomics.
+// nearest even); float32 dbc_part (blocks, B,S,2,16), each block's sums of
+// dB_t and dC_t over its channels; da_part (B,chunks,di,16) and dd_part
+// (B,chunks,di), each (batch row, chunk)'s dA_log and dD; dh0 (B,di,n).  The
+// wrapper folds the partials with torch.sum, so the result does not depend
+// on the order blocks run in: no atomics, and two calls give the same bits.
 //
-// What makes it hard, and this design (right and simple first):
-//  * The reverse walk needs h_{t-1} in reverse order.  One thread per
-//    (b, channel) holds its 16 states, as the forward does.  A first pass
-//    runs the forward from h0 and writes the state at the start of every
-//    chunk of kL = 16 steps to scratch (hck, [b][chunk][j][i], coalesced
-//    across channels).  Then, chunk by chunk from the last, the thread runs
-//    the chunk forward again from its checkpoint, keeping each step's
-//    h_{t-1} in shared memory (its own column: no barrier), and walks the
-//    chunk in reverse, carrying g in registers.  a_t is recomputed (one
-//    ex2 a state), so the scan costs three passes of exps.
-//  * dB_t and dC_t are sums over all di channels, which live in different
-//    threads and blocks.  Each warp sums its 32 channels' 32 values (16 dB,
-//    16 dC) in 31 shuffles, a transposing butterfly that leaves lane l with
-//    the warp's sum of value l; the block's warps are added in shared memory
-//    once a chunk, and each block writes its own partial.
-//  * dA_log and dD are sums over batch and time: each thread sums its
-//    channel's over time in registers and writes one partial a batch row.
-// What bounds it on an H100: the exps (3 a state and step) and the
-// latency of a step's dependent chain; it runs 64-thread blocks with 68 KB
-// of shared memory, 3 to an SM.  Making it fast (chunked in parallel
-// across time, wgmma for the channel sums) is later work.
+// The decomposition.  Both recurrences are first-order and linear, so the
+// sequence is cut into chunks of L steps (the launch plan's `chunk`,
+// kernels/mamba_scan.py: plan_bwd), run side by side and joined by a short
+// carry pass.  Three launches on the caller's stream, in order:
+//  1. scan_bwd_summary_kernel, per chunk c of steps f..l, from zero: the
+//     local state hloc_c (the chunk's forward from h = 0), the adjoint sum
+//     gamma_c = sum_t P_t dy_t C_t with P_t = a_f ... a_t, and
+//     D_c = sum_t dt_t, so that P_c = a_f ... a_l = exp(D_c A).  One exp an
+//     element.
+//  2. scan_bwd_carry_kernel, one thread per (b, i, j), sequential over the
+//     chunks only: the state entering each chunk, H_0 = h0 and
+//     H_{c+1} = P_c H_c + hloc_c, and the adjoint entering it from the
+//     right, Gamma_last = dh_last and Gamma_{c-1} = gamma_c + P_c Gamma_c
+//     (Gamma_c = a_{l+1} g_{l+1}: what the reverse walk carries).  Written
+//     in place of hloc and gamma.
+//  3. scan_bwd_chunk_kernel, per chunk: the chunk's backward from H_c and
+//     Gamma_c.  h_{t-1} is needed in reverse: the chunk's forward from H_c
+//     checkpoints the state every kSub = 8 steps in shared memory (the last
+//     sub-chunk needs none); then, sub-chunk by sub-chunk from the last, the
+//     sub-chunk's forward again from its checkpoint keeps each h_{t-1} in
+//     shared memory and the reverse walk carries g in registers.  dx and ddt
+//     on the chunk's rows, the block's dB_t/dC_t sums on the chunk's rows
+//     (no two blocks write one element), one dA_log and dD partial per
+//     (b, chunk); chunk 0 writes dh0 = a_0 g_0.
+// Exps: 1 + (L - kSub)/L + 2, just under 4 an element where one chunk over
+// the whole sequence would take 3, spread over ceil(S / L) times as many
+// threads.
+//
+// What bounds it on an H100: instruction issue, not bytes or exps.  At
+// hymba's training shape (B 4, S 2048, di 3200, n 16: 4.2e8 elements) the
+// bytes take 0.095 ms and the exps 0.40 ms at the multi-function unit's 16
+// a clock per SM, but each element also costs about 40 other instructions
+// (the summary ~8, the checkpoints and the recompute ~6 each, the reverse
+// walk ~20 with its share of the channel sums): ~0.5 ms of issue at 4
+// warp-instructions a clock per SM.  One thread per (b, channel) over the
+// whole sequence would give that shape 12,800 threads, too few to hide
+// each step's loads.  This design fills the card and keeps the issue
+// slots busy:
+//  * A quad of threads per (b, channel), 4 states a thread: a quarter of the
+//    registers and of the shared-memory history a thread of 16 states
+//    needs, so 5 blocks of 128 threads (20 warps) fit on an SM at L = 64
+//    (__launch_bounds__ holds the registers to 102; ptxas uses 96, no
+//    spills), and the grid has 1.6 million threads.  The sums over a
+//    quad's states (dx, ddt) take 3 shuffles.
+//  * x, dt, dy and B_t/C_t tiles of kSub steps come through a 2-stage
+//    cp.async ring in shared memory (coalesced across the block's 32
+//    channels), in the order the passes use them: sub-chunks 0..K-2 for the
+//    checkpoints, then K-1..0.  Each thread's copies of a tile (one or two
+//    16-byte chunks) are worked out once a block, so a tile costs a few
+//    instructions.  B_t and C_t are read as broadcast 128-bit loads, x, dt
+//    and dy as one word a quad.
+//  * dB_t and dC_t sum over channels, which live in other lanes, warps and
+//    blocks: each thread's 8 values (4 dB, 4 dC) are summed over the warp's
+//    8 channels in 7 shuffles, a transposing butterfly that leaves each
+//    lane with one of the warp's 32 sums; the block's 4 warps are added in
+//    shared memory once a sub-chunk and written as one partial.
+//  * The reverse walk takes dC's h_t from the history (the next step's
+//    h_{t-1}) and g_t h_{t-1} a_t from the updated g: 10 operations a state.
+//  * Rows past the end of the sequence are zero-filled, which makes them
+//    identity steps (a = 1, u = 0, dy = 0), so every sub-chunk runs its kSub
+//    steps unrolled; only the stores are guarded.
+// Measured on an H100 (700 W) by chip_smoke.py at hymba's training shape,
+// bf16: 1.05 ms from a CUDA graph, of which the chunk kernel 0.76, the
+// summaries 0.19, the carries 0.04 and torch.sum's folds 0.06.
+// The plan (kernels/mamba_scan.py: plan_bwd) picks L from {64, 32, 16, 8},
+// the largest whose grid of (ceil(di/32), ceil(S/L), B) blocks covers the
+// SMs twice at 5 blocks an SM (64 at the training shapes: L = 32 and 128
+// were slower there); the C entry refuses channels, chunks and
+// shared-memory sizes it was not built for.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,208 +103,520 @@
 
 namespace {
 
-constexpr int kCh = 64;  // channels (threads) per block
-constexpr int kWarps = kCh / 32;
-constexpr int kL = 16;   // steps per chunk: the interval of the checkpoints
-constexpr int kV = 2 * NS;  // dB_t and dC_t values a step: one per lane
-constexpr size_t kHist = static_cast<size_t>(kL) * NS * kCh;  // floats
-constexpr size_t kSmem = (kHist + static_cast<size_t>(kWarps) * kL * kV) * sizeof(float);
-static_assert(kV == 32, "one dB/dC value per lane of a warp");
+constexpr int kQ = 4;                     // states a thread
+constexpr int kQuads = NS / kQ;           // threads a channel
+constexpr int kCh = 32;                   // channels a block
+constexpr int kThreads = kCh * kQuads;    // 128
+constexpr int kWarps = kThreads / 32;
+constexpr int kSub = 8;                   // steps a tile and a history
+constexpr int kMaxChunk = 256;            // steps a chunk, at most
+constexpr int kStages = 2;                // tiles in the ring
+constexpr int kV = 2 * NS;                // dB_t and dC_t values a step
+constexpr int kMinBlocks = 5;             // blocks an SM: registers <= 65536 / (5 * 128)
+constexpr int kCarryThreads = 256;
+static_assert(kV == 32 && kQ * kQuads == NS, "one dB/dC value per lane of a warp");
 
-template <int W>
-__device__ __forceinline__ void fold(float (&v)[kV], int lane) {
+// One ring stage: kSub steps of B_t/C_t, x, dt (in T) and dy (float32).
+template <typename T>
+struct Tile {
+  static constexpr size_t kX = kSub * kV * sizeof(float);
+  static constexpr size_t kDt = kX + kSub * kCh * sizeof(T);
+  static constexpr size_t kDy = kDt + kSub * kCh * sizeof(T);
+  static constexpr size_t kBytes = kDy + kSub * kCh * sizeof(float);
+};
+
+constexpr size_t kHistBytes = static_cast<size_t>(kSub) * kThreads * sizeof(float4);
+constexpr size_t kRedBytes = static_cast<size_t>(kWarps) * kSub * kV * sizeof(float);
+
+// The chunk kernel's dynamic shared memory: ring, history, the warps' sums,
+// and a checkpoint for each of the chunk's sub-chunks.
+template <typename T>
+constexpr size_t chunk_smem(int chunk) {
+  return kStages * Tile<T>::kBytes + kHistBytes + kRedBytes +
+         static_cast<size_t>(chunk / kSub) * kThreads * sizeof(float4);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// One 16-byte copy that a thread makes of every tile of its chunk: tile k
+// copies src + k stride to byte dst of the stage if its step tt is one of
+// the tile's, else zero-fills it (tt = kSub: always); src null: no copy.
+struct Copy {
+  const char* src;
+  size_t stride;
+  unsigned dst;
+  int tt;
+};
+
+// Copy e of the (kSub x kCh) tile of a (B,S,di) operand whose first row is
+// `row`, to byte dst0 + 16 e of a stage.
+template <typename U>
+__device__ __forceinline__ Copy rows_copy(const U* src, size_t row, int e, int di, int c0,
+                                          size_t dst0) {
+  constexpr int E = 16 / sizeof(U);  // elements per 16-byte chunk
+  constexpr int CPR = kCh / E;       // chunks per row of the tile
+  const int tt = e / CPR, cc = (e % CPR) * E;
+  const bool on = c0 + cc < di;
+  return {reinterpret_cast<const char*>(src + (row + tt) * di + c0 + cc),
+          static_cast<size_t>(kSub) * di * sizeof(U), static_cast<unsigned>(dst0 + 16 * e),
+          on ? tt : kSub};
+}
+
+// The copies this thread makes of each tile of its chunk (first row `row`):
+// copy 0 is B_t/C_t (threads 0-63) or dy (64-127), copy 1 x or dt or none.
+template <typename T>
+__device__ __forceinline__ void plan_copies(Copy (&cp)[2], const T* x, const T* dt,
+                                            const float* dy, const float* bc, size_t row,
+                                            int di, int c0) {
+  constexpr int kBcCopies = kSub * kV / 4, kXCopies = kSub * kCh * sizeof(T) / 16;
+  static_assert(kBcCopies == kThreads / 2 && kSub * kCh / 4 == kThreads / 2 &&
+                    2 * kXCopies <= kThreads,
+                "one B_t/C_t or dy copy a thread, at most one x or dt copy");
+  const int t = threadIdx.x;
+  if (t < kBcCopies)
+    cp[0] = {reinterpret_cast<const char*>(bc + row * kV) + 16 * t,
+             static_cast<size_t>(kSub) * kV * sizeof(float), static_cast<unsigned>(16 * t),
+             t / (kV / 4)};
+  else
+    cp[0] = rows_copy(dy, row, t - kBcCopies, di, c0, Tile<T>::kDy);
+  if (t < kXCopies)
+    cp[1] = rows_copy(x, row, t, di, c0, Tile<T>::kX);
+  else if (t < 2 * kXCopies)
+    cp[1] = rows_copy(dt, row, t - kXCopies, di, c0, Tile<T>::kDt);
+  else
+    cp[1] = {nullptr, 0, 0, kSub};
+}
+
+__device__ __forceinline__ void issue(unsigned char* st, const Copy& c, int k, int steps,
+                                      const void* safe) {
+  if (c.src == nullptr) return;  // no copy (a zero-filling one would still write)
+  const bool ok = c.tt < steps;
+  cp_async16(st + c.dst, ok ? c.src + static_cast<size_t>(k) * c.stride : safe, ok);
+}
+
+// `steps` rows of the block's kCh channels of a (B,S,di) operand from `row`
+// into a (kSub x kCh) tile with plain loads (rows not 16-byte aligned);
+// rows past `steps` and channels past di are 0.
+template <typename U>
+__device__ __forceinline__ void load_rows(U* dst, const U* __restrict__ src, size_t row,
+                                          int steps, int di, int c0) {
+  for (int e = threadIdx.x; e < kSub * kCh; e += kThreads) {
+    const int tt = e / kCh, cc = e % kCh;
+    const bool ok = tt < steps && c0 + cc < di;
+    dst[e] = ok ? src[(row + tt) * di + c0 + cc] : static_cast<U>(0.f);
+  }
+}
+
+// Tile k of the chunk (first row `row`), its first `steps` <= kSub steps,
+// into the stage st; then commits a group.  vec: cp.async of 16-byte chunks (the
+// copies cp); else B_t/C_t by cp.async and the rest by plain loads.
+template <typename T>
+__device__ __forceinline__ void load_tile(unsigned char* st, const Copy (&cp)[2], int k,
+                                          int steps, bool vec, const T* __restrict__ x,
+                                          const T* __restrict__ dt,
+                                          const float* __restrict__ dy,
+                                          const float* __restrict__ bc, size_t row, int di,
+                                          int c0) {
+  if (vec) {
+    issue(st, cp[0], k, steps, bc);
+    issue(st, cp[1], k, steps, bc);
+  } else {
+    if (threadIdx.x < kThreads / 2) issue(st, cp[0], k, steps, bc);
+    const size_t r = row + static_cast<size_t>(k) * kSub;
+    load_rows(reinterpret_cast<T*>(st + Tile<T>::kX), x, r, steps, di, c0);
+    load_rows(reinterpret_cast<T*>(st + Tile<T>::kDt), dt, r, steps, di, c0);
+    load_rows(reinterpret_cast<float*>(st + Tile<T>::kDy), dy, r, steps, di, c0);
+  }
+  cp_async_commit();
+}
+
+// What a thread reads of step tt of a tile: its channel's x, dt, dy and its
+// quad's 4 states of B_t and C_t.
+struct Step {
+  float x, dt, dy, B[kQ], C[kQ];
+};
+
+template <typename T>
+__device__ __forceinline__ Step read_step(const unsigned char* st, int tt, int ch, int q) {
+  Step s;
+  s.x = to_f32(reinterpret_cast<const T*>(st + Tile<T>::kX)[tt * kCh + ch]);
+  s.dt = to_f32(reinterpret_cast<const T*>(st + Tile<T>::kDt)[tt * kCh + ch]);
+  s.dy = reinterpret_cast<const float*>(st + Tile<T>::kDy)[tt * kCh + ch];
+  const float* bcs = reinterpret_cast<const float*>(st) + tt * kV;
+  const float4 bq = reinterpret_cast<const float4*>(bcs)[q];
+  const float4 cq = reinterpret_cast<const float4*>(bcs + NS)[q];
+  s.B[0] = bq.x; s.B[1] = bq.y; s.B[2] = bq.z; s.B[3] = bq.w;
+  s.C[0] = cq.x; s.C[1] = cq.y; s.C[2] = cq.z; s.C[3] = cq.w;
+  return s;
+}
+
+__device__ __forceinline__ float4 pack(const float (&v)[kQ]) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void unpack(float4 p, float (&v)[kQ]) {
+  v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+}
+
+// A = -exp(A_log) of the thread's 4 states; 0 for states j >= n and
+// channels past di, which then run on zeros and store nothing.
+__device__ __forceinline__ void load_A(const float* __restrict__ a_log, int i, int q, int n,
+                                       bool live, float (&A)[kQ]) {
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    const int j = kQ * q + k;
+    A[k] = (live && j < n) ? -expf(a_log[static_cast<size_t>(i) * n + j]) : 0.f;
+  }
+}
+
+// kSub forward steps of the thread's states from h; with kKeep, each
+// h_{t-1} to hist[tt kThreads].
+template <bool kKeep, typename T>
+__device__ __forceinline__ void forward(const unsigned char* st, int ch, int q,
+                                        const float (&A)[kQ], float (&h)[kQ], float4* hist) {
+#pragma unroll
+  for (int tt = 0; tt < kSub; ++tt) {
+    const Step s = read_step<T>(st, tt, ch, q);
+    if constexpr (kKeep) hist[tt * kThreads] = pack(h);
+    const float u = s.dt * s.x, dl = s.dt * kLog2e;
+#pragma unroll
+    for (int k = 0; k < kQ; ++k) h[k] = fmaf(ex2(dl * A[k]), h[k], u * s.B[k]);
+  }
+}
+
+// The transposing butterfly's level over lane bit W on 2H values: lanes with
+// the bit set keep the upper half, the others the lower, each adding its
+// partner's copy of the half it keeps.
+template <int W, int H>
+__device__ __forceinline__ void fold(float (&v)[2 * kQ], int lane) {
   const bool up = lane & W;
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
-    const float send = up ? v[k] : v[k + W];
-    const float keep = up ? v[k + W] : v[k];
+  for (int k = 0; k < H; ++k) {
+    const float send = up ? v[k] : v[k + H];
+    const float keep = up ? v[k + H] : v[k];
     v[k] = keep + __shfl_xor_sync(0xffffffffu, send, W);
   }
 }
 
-// Lane l gets the sum over the warp's lanes of v[l] (31 shuffles).
-__device__ __forceinline__ float warp_sums(float (&v)[kV], int lane) {
-  fold<16>(v, lane);
-  fold<8>(v, lane);
-  fold<4>(v, lane);
-  fold<2>(v, lane);
-  fold<1>(v, lane);
-  return v[0];
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scan_bwd_summary_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                        const float* __restrict__ bc, const float* __restrict__ a_log,
+                        const float* __restrict__ dy, float* __restrict__ hsum,
+                        float* __restrict__ gsum, float* __restrict__ dsum, int S, int di,
+                        int n, int chunk, bool vec) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int b = blockIdx.z, c = blockIdx.y, nck = gridDim.y;
+  const int c0 = blockIdx.x * kCh, ch = threadIdx.x / kQuads, q = threadIdx.x % kQuads;
+  const int i = c0 + ch;
+  const bool live = i < di;
+  const int f = c * chunk, steps = min(chunk, S - f), K = (steps + kSub - 1) / kSub;
+  const size_t row = static_cast<size_t>(b) * S + f;
+
+  float A[kQ], h[kQ], P[kQ], gm[kQ];
+  load_A(a_log, i, q, n, live, A);
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    h[k] = 0.f;
+    P[k] = 1.f;
+    gm[k] = 0.f;
+  }
+  float D = 0.f;
+  Copy cp[2];
+  plan_copies(cp, x, dt, dy, bc, row, di, c0);
+  auto load = [&](int k) {
+    if (k < K)
+      load_tile(ring + (k % kStages) * Tile<T>::kBytes, cp, k, min(kSub, steps - k * kSub),
+                vec, x, dt, dy, bc, row, di, c0);
+    else
+      cp_async_commit();
+  };
+  load(0);
+  for (int k = 0; k < K; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // tile k is in; tile k-1's slot is free
+    load(k + 1);
+    const unsigned char* st = ring + (k % kStages) * Tile<T>::kBytes;
+#pragma unroll
+    for (int tt = 0; tt < kSub; ++tt) {
+      const Step s = read_step<T>(st, tt, ch, q);
+      const float u = s.dt * s.x, dl = s.dt * kLog2e;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const float a = ex2(dl * A[j]);
+        P[j] *= a;
+        h[j] = fmaf(a, h[j], u * s.B[j]);
+        gm[j] = fmaf(P[j], s.dy * s.C[j], gm[j]);
+      }
+      D += s.dt;
+    }
+  }
+  if (live) {
+    const size_t r = (static_cast<size_t>(b) * nck + c) * di + i;
+    reinterpret_cast<float4*>(hsum + r * NS)[q] = pack(h);
+    reinterpret_cast<float4*>(gsum + r * NS)[q] = pack(gm);
+    if (q == 0) dsum[r] = D;
+  }
 }
 
-// One forward step of row r from h; with kKeep, h_{t-1} to hist[j kCh].
-template <bool kKeep, typename T>
-__device__ __forceinline__ void fwd_step(const T* __restrict__ x, const T* __restrict__ dt,
-                                         const float* __restrict__ bc, size_t r, int i, int di,
-                                         bool live, const float (&A)[NS], float (&h)[NS],
-                                         float* hist) {
-  const float xv = live ? to_f32(x[r * di + i]) : 0.f;
-  const float dv = live ? to_f32(dt[r * di + i]) : 0.f;
-  const float* bt = bc + r * kV;
-  const float u = dv * xv, dl = dv * kLog2e;
+// One chain of the carry pass for one (b, i, j): v_{k+1} = P_k v_k + s_k
+// over the chunks k in order (kRev: from the last), P_k = exp2(D_k A2),
+// each v_k written in place of s_k.  Batches of kBatch chunks; the next
+// batch's loads are issued before this batch's stores, so a batch's
+// latency hides behind the one before.
+template <bool kRev>
+__device__ __forceinline__ void carry_chain(float* __restrict__ sv, const float* __restrict__ dsum,
+                                            size_t r0, int di, int nck, int j, float A2,
+                                            float v) {
+  constexpr int kBatch = 8;
+  const auto row = [&](int k) { return r0 + static_cast<size_t>(kRev ? nck - 1 - k : k) * di; };
+  float s[kBatch], P[kBatch], sn[kBatch], Pn[kBatch];
+  const auto fetch = [&](int k0, float (&s_)[kBatch], float (&P_)[kBatch]) {
 #pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    if constexpr (kKeep) hist[j * kCh] = h[j];
-    h[j] = fmaf(ex2(dl * A[j]), h[j], u * __ldg(bt + j));
+    for (int u = 0; u < kBatch; ++u) {  // past the last chunk: the last again
+      const size_t r = row(min(k0 + u, nck - 1));
+      s_[u] = sv[r * NS + j];
+      P_[u] = ex2(dsum[r] * A2);
+    }
+  };
+  fetch(0, s, P);
+  for (int k0 = 0; k0 < nck; k0 += kBatch) {
+    fetch(k0 + kBatch, sn, Pn);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u < nck) {
+        sv[row(k0 + u) * NS + j] = v;
+        v = fmaf(P[u], v, s[u]);
+      }
+      s[u] = sn[u];
+      P[u] = Pn[u];
+    }
   }
+}
+
+// One thread per (b, i, j): H and Gamma across the chunks, in place of the
+// summaries (hcar: hloc in, H out; gcar: gamma in, Gamma out).
+__global__ void __launch_bounds__(kCarryThreads)
+scan_bwd_carry_kernel(const float* __restrict__ a_log, const float* __restrict__ h0,
+                      const float* __restrict__ dh_last, const float* __restrict__ dsum,
+                      float* __restrict__ hcar, float* __restrict__ gcar, int B, int di,
+                      int n, int nck) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * kCarryThreads + threadIdx.x;
+  if (e >= static_cast<size_t>(B) * di * NS) return;
+  const int j = static_cast<int>(e % NS);
+  const size_t bi = e / NS;  // b di + i
+  const int i = static_cast<int>(bi % di), b = static_cast<int>(bi / di);
+  const bool on = j < n;
+  const float A2 = on ? -expf(a_log[static_cast<size_t>(i) * n + j]) * kLog2e : 0.f;
+  const size_t r0 = static_cast<size_t>(b) * nck * di + i;  // + k di: (b, k, i)
+  carry_chain<false>(hcar, dsum, r0, di, nck, j, A2, on ? h0[bi * n + j] : 0.f);
+  carry_chain<true>(gcar, dsum, r0, di, nck, j, A2, on ? dh_last[bi * n + j] : 0.f);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kCh)
-scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                const float* __restrict__ bc, const float* __restrict__ a_log,
-                const float* __restrict__ dvec, const float* __restrict__ h0,
-                const float* __restrict__ dy, const float* __restrict__ dh_last,
-                float* __restrict__ hck, T* __restrict__ dx, T* __restrict__ ddt,
-                float* __restrict__ dbc_part, float* __restrict__ da_part,
-                float* __restrict__ dd_part, float* __restrict__ dh0, int S, int di,
-                int n) {
-  extern __shared__ __align__(16) float smem[];
-  float* red = smem + kHist;  // [kWarps][kL][kV]: the warps' dB_t, dC_t sums
-  const int b = blockIdx.y;
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+scan_bwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                      const float* __restrict__ bc, const float* __restrict__ a_log,
+                      const float* __restrict__ dvec, const float* __restrict__ dy,
+                      const float* __restrict__ hcar, const float* __restrict__ gcar,
+                      T* __restrict__ dx, T* __restrict__ ddt, float* __restrict__ dbc_part,
+                      float* __restrict__ da_part, float* __restrict__ dd_part,
+                      float* __restrict__ dh0, int S, int di, int n, int chunk, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float4* hist = reinterpret_cast<float4*>(smem + kStages * Tile<T>::kBytes) + threadIdx.x;
+  float* red = reinterpret_cast<float*>(smem + kStages * Tile<T>::kBytes + kHistBytes);
+  float4* ckpt = reinterpret_cast<float4*>(smem + kStages * Tile<T>::kBytes + kHistBytes +
+                                           kRedBytes) + threadIdx.x;  // + k kThreads
+  const int b = blockIdx.z, c = blockIdx.y, nck = gridDim.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * kCh + threadIdx.x;
+  const int c0 = blockIdx.x * kCh, ch = threadIdx.x / kQuads, q = threadIdx.x % kQuads;
+  const int i = c0 + ch;
   const bool live = i < di;
-  const size_t row0 = static_cast<size_t>(b) * S;  // row of (b, t = 0)
-  const size_t hoff = (static_cast<size_t>(b) * di + i) * n;
-  const int nck = (S + kL - 1) / kL;
-  float* ck = hck + static_cast<size_t>(b) * nck * NS * di + i;  // + (c NS + j) di
-  float* hist = smem + threadIdx.x;  // + (tt NS + j) kCh: h_{t-1} of step tt
+  const int f = c * chunk, steps = min(chunk, S - f), K = (steps + kSub - 1) / kSub;
+  const size_t row = static_cast<size_t>(b) * S + f;  // row of (b, f)
+  const size_t r = (static_cast<size_t>(b) * nck + c) * di + i;
+  // this lane's sum after the butterfly: value (lane >> 2) & 7 of quad q,
+  // dB (values 0-3) or dC (4-7) of state 4q + (value & 3)
+  const int val = (lane >> 2) & 7;
+  const int slot = (val >> 2) * NS + kQ * q + (val & 3);
 
-  // Channels i >= di and states j >= n run on zeros and store nothing.
-  float A[NS], h[NS];
+  float A[kQ], h[kQ], g[kQ], dA[kQ];
+  load_A(a_log, i, q, n, live, A);
+  unpack(live ? reinterpret_cast<const float4*>(hcar + r * NS)[q] : make_float4(0, 0, 0, 0), h);
+  unpack(live ? reinterpret_cast<const float4*>(gcar + r * NS)[q] : make_float4(0, 0, 0, 0), g);
 #pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    const bool on = live && j < n;
-    A[j] = on ? -expf(a_log[static_cast<size_t>(i) * n + j]) : 0.f;
-    h[j] = on ? h0[hoff + j] : 0.f;
-  }
+  for (int k = 0; k < kQ; ++k) dA[k] = 0.f;
   const float Dv = live ? dvec[i] : 0.f;
-
-  // 1. The forward from h0: the state before each chunk's first step.
-  for (int c = 0; c < nck; ++c) {
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j) ck[(static_cast<size_t>(c) * NS + j) * di] = h[j];
-    }
-    const int t0 = c * kL, steps = min(kL, S - t0);
-    for (int tt = 0; tt < steps; ++tt)
-      fwd_step<false>(x, dt, bc, row0 + t0 + tt, i, di, live, A, h, hist + tt * NS * kCh);
-  }
-
-  // 2. Chunk by chunk from the last, g (= dL/dh) carried in registers.
-  float g[NS], dA[NS];
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    g[j] = (live && j < n) ? dh_last[hoff + j] : 0.f;
-    dA[j] = 0.f;
-  }
   float dD = 0.f;
-  for (int c = nck - 1; c >= 0; --c) {
-    const int t0 = c * kL, steps = min(kL, S - t0);
-    // 2a. The chunk's states again, from its checkpoint.
+  // lane q = 0 of a quad writes dx, q = 1 ddt, on the chunk's rows
+  T* out = (live && q < 2) ? (q == 0 ? dx : ddt) + row * di + i : nullptr;
+
+  // Tiles in the order the passes use them: sub-chunks 0..K-2 (the
+  // checkpoints), then K-1 down to 0 (recompute and reverse).
+  const int last = 2 * K - 2;
+  auto sub = [&](int s) { return s < K - 1 ? s : last - s; };
+  Copy cp[2];
+  plan_copies(cp, x, dt, dy, bc, row, di, c0);
+  auto load = [&](int s) {
+    if (s <= last) {
+      const int k = sub(s);
+      load_tile(ring + (s % kStages) * Tile<T>::kBytes, cp, k, min(kSub, steps - k * kSub),
+                vec, x, dt, dy, bc, row, di, c0);
+    } else {
+      cp_async_commit();
+    }
+  };
+  load(0);
+  for (int s = 0; s <= last; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // tile s is in; tile s-1's slot, `red` and `hist` are free
+    load(s + 1);
+    const unsigned char* st = ring + (s % kStages) * Tile<T>::kBytes;
+    const int k = sub(s);
+    if (s < K - 1) {  // the checkpoint of sub-chunk k, then its steps
+      ckpt[k * kThreads] = pack(h);
+      forward<false, T>(st, ch, q, A, h, nullptr);
+      continue;
+    }
+    if (s > K - 1) unpack(ckpt[k * kThreads], h);
+    forward<true, T>(st, ch, q, A, h, hist);  // h_{t-1} of each step
+    const int t0 = k * kSub, n_t = min(kSub, steps - t0);
+    // h holds the sub-chunk's last h_t; each step's h_{t-1} is the next h_t
 #pragma unroll
-    for (int j = 0; j < NS; ++j) h[j] = live ? ck[(static_cast<size_t>(c) * NS + j) * di] : 0.f;
-    for (int tt = 0; tt < steps; ++tt)
-      fwd_step<true>(x, dt, bc, row0 + t0 + tt, i, di, live, A, h, hist + tt * NS * kCh);
-    // 2b. The chunk in reverse.
-    for (int tt = steps - 1; tt >= 0; --tt) {
-      const size_t r = row0 + t0 + tt;
-      const float xv = live ? to_f32(x[r * di + i]) : 0.f;
-      const float dv = live ? to_f32(dt[r * di + i]) : 0.f;
-      const float dyv = live ? dy[r * di + i] : 0.f;
-      const float* bt = bc + r * kV;
-      const float u = dv * xv, dl = dv * kLog2e;
-      float v[kV];  // this channel's dB_t[j] (j < NS) and dC_t[j] (NS + j)
+    for (int tt = kSub - 1; tt >= 0; --tt) {
+      const Step st_ = read_step<T>(st, tt, ch, q);
+      float hp[kQ];
+      unpack(hist[tt * kThreads], hp);
+      const float u = st_.dt * st_.x, dl = st_.dt * kLog2e;
+      float v[2 * kQ];  // dB_t (0-3) and dC_t (4-7) of this channel's 4 states
       float gB = 0.f, gdt = 0.f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float Bj = __ldg(bt + j), Cj = __ldg(bt + NS + j);
-        const float hp = hist[(tt * NS + j) * kCh];
+      for (int j = 0; j < kQ; ++j) {
         const float a = ex2(dl * A[j]);
-        const float gj = fmaf(dyv, Cj, g[j]);
+        const float gj = fmaf(st_.dy, st_.C[j], g[j]);
         v[j] = gj * u;
-        v[NS + j] = dyv * fmaf(a, hp, u * Bj);  // dy_t h_t[j]
-        gB = fmaf(gj, Bj, gB);
-        const float gha = gj * hp * a;
-        gdt = fmaf(gha, A[j], gdt);
-        dA[j] = fmaf(gha, dv, dA[j]);
+        v[kQ + j] = st_.dy * h[j];
+        h[j] = hp[j];
+        gB = fmaf(gj, st_.B[j], gB);
         g[j] = a * gj;
+        const float gha = g[j] * hp[j];  // g_t h_{t-1} a_t
+        gdt = fmaf(gha, A[j], gdt);
+        dA[j] = fmaf(gha, st_.dt, dA[j]);
       }
-      if (live) {
-        store(dx + r * di + i, fmaf(gB, dv, Dv * dyv));
-        store(ddt + r * di + i, fmaf(gB, xv, gdt));
-      }
-      dD = fmaf(dyv, xv, dD);
-      red[(warp * kL + tt) * kV + lane] = warp_sums(v, lane);
+      // the quad's sums: lanes q even get sum gB, odd sum (x gB + gdt)
+      float w[2] = {gB, fmaf(gB, st_.x, gdt)};
+      const bool odd = lane & 1;
+      float qs = (odd ? w[1] : w[0]) + __shfl_xor_sync(0xffffffffu, odd ? w[0] : w[1], 1);
+      qs += __shfl_xor_sync(0xffffffffu, qs, 2);
+      dD = fmaf(st_.dy, st_.x, dD);
+      if (out && tt < n_t)
+        store(out + static_cast<size_t>(t0 + tt) * di, q == 0 ? fmaf(qs, st_.dt, Dv * st_.dy) : qs);
+      fold<16, 4>(v, lane);
+      fold<8, 2>(v, lane);
+      fold<4, 1>(v, lane);
+      red[(warp * kSub + tt) * kV + slot] = v[0];
     }
-    __syncthreads();  // every warp's sums of the chunk are in `red`
-    // 2c. The block's dB_t, dC_t of the chunk: its warps' sums added.
-    for (int e = threadIdx.x; e < steps * kV; e += kCh) {
-      float s = 0.f;
+    __syncthreads();  // every warp's sums of the sub-chunk are in `red`
+    for (int e = threadIdx.x; e < n_t * kV; e += kThreads) {
+      float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red[w * kL * kV + e];
-      dbc_part[(static_cast<size_t>(blockIdx.x) * gridDim.y * S + row0 + t0) * kV + e] = s;
+      for (int w2 = 0; w2 < kWarps; ++w2) sum += red[w2 * kSub * kV + e];
+      dbc_part[(static_cast<size_t>(blockIdx.x) * gridDim.z * S + row + t0) * kV + e] = sum;
     }
-    __syncthreads();  // `red` is free for the next chunk
   }
-
   if (live) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      if (j < n) {
-        da_part[hoff + j] = dA[j] * A[j];
-        dh0[hoff + j] = g[j];
+    for (int k = 0; k < kQ; ++k) dA[k] *= A[k];
+    reinterpret_cast<float4*>(da_part + r * NS)[q] = pack(dA);
+    if (q == 0) dd_part[r] = dD;
+    if (c == 0) {
+#pragma unroll
+      for (int k = 0; k < kQ; ++k) {
+        const int j = kQ * q + k;
+        if (j < n) dh0[(static_cast<size_t>(b) * di + i) * n + j] = g[k];
       }
     }
-    dd_part[static_cast<size_t>(b) * di + i] = dD;
   }
 }
 
 template <typename T>
-cudaError_t launch(dim3 grid, cudaStream_t st, const void* x, const void* dt,
-                   const float* bc, const float* a_log, const float* d, const float* h0,
-                   const float* dy, const float* dh_last, float* hck, void* dx, void* ddt,
-                   float* dbc_part, float* da_part, float* dd_part, float* dh0, int S, int di,
-                   int n) {
-  auto* kernel = scan_bwd_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+cudaError_t launch(int B, int S, int di, int n, int chunk, bool vec, cudaStream_t st,
+                   const void* x, const void* dt, const float* bc, const float* a_log,
+                   const float* d, const float* h0, const float* dy, const float* dh_last,
+                   float* hcar, float* gcar, float* dsum, void* dx, void* ddt,
+                   float* dbc_part, float* da_part, float* dd_part, float* dh0) {
+  const int nck = (S + chunk - 1) / chunk;
+  const dim3 grid((di + kCh - 1) / kCh, nck, B);
+  const T* xt = static_cast<const T*>(x);
+  const T* dtt = static_cast<const T*>(dt);
+  scan_bwd_summary_kernel<T><<<grid, kThreads, kStages * Tile<T>::kBytes, st>>>(
+      xt, dtt, bc, a_log, dy, hcar, gcar, dsum, S, di, n, chunk, vec);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kCh, kSmem, st>>>(static_cast<const T*>(x), static_cast<const T*>(dt), bc,
-                                   a_log, d, h0, dy, dh_last, hck, static_cast<T*>(dx),
-                                   static_cast<T*>(ddt), dbc_part, da_part,
-                                   dd_part, dh0, S, di, n);
+  const size_t carry = static_cast<size_t>(B) * di * NS;
+  scan_bwd_carry_kernel<<<static_cast<unsigned>((carry + kCarryThreads - 1) / kCarryThreads),
+                          kCarryThreads, 0, st>>>(a_log, h0, dh_last, dsum, hcar, gcar, B, di,
+                                                  n, nck);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto* kernel = scan_bwd_chunk_kernel<T>;
+  const size_t smem = chunk_smem<T>(chunk);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(xt, dtt, bc, a_log, d, dy, hcar, gcar,
+                                       static_cast<T*>(dx), static_cast<T*>(ddt), dbc_part,
+                                       da_part, dd_part, dh0, S, di, n, chunk, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16: 1 when x and dt are bfloat16 (and dx, ddt are written in bfloat16),
-// 0 when all four are float32.  channels
-// and chunk are the wrapper's sizes of dbc_part's blocks (channels a block)
-// and of hck's chunks (steps a chunk): refused unless they are this
-// kernel's kCh and kL.  hck holds B * ceil(S / chunk) * 16 * di floats,
-// dbc_part ceil(di / channels) * B * S * 32.
+// 0 when all four are float32.  vec: 1 when di % 8 == 0 and x, dt and dy are
+// 16-byte aligned (cp.async in 16-byte chunks).  channels, chunk and smem
+// are the plan's (kernels/mamba_scan.py: plan_bwd): channels a block (one
+// dbc partial each), steps a chunk and the chunk kernel's dynamic shared
+// memory in bytes; refused unless channels is kCh, chunk a multiple of kSub
+// up to kMaxChunk and smem what this kernel lays out for that chunk.
+// Scratch, all float32: hcar and gcar B * chunks * di * 16 (the summaries,
+// then the carries), dsum B * chunks * di; outputs dbc_part
+// ceil(di / channels) * B * S * 32, da_part B * chunks * di * 16, dd_part
+// B * chunks * di, chunks = ceil(S / chunk) <= 65535.
 extern "C" int mamba_scan_bwd_launch(const void* x, const void* dt, const void* bc,
                                      const void* a_log, const void* d, const void* h0,
-                                     const void* dy, const void* dh_last, void* hck, void* dx,
-                                     void* ddt, void* dbc_part, void* da_part, void* dd_part,
-                                     void* dh0, int B, int S, int di, int n, int bf16,
-                                     int channels, int chunk, void* stream) {
+                                     const void* dy, const void* dh_last, void* hcar,
+                                     void* gcar, void* dsum, void* dx, void* ddt,
+                                     void* dbc_part, void* da_part, void* dd_part, void* dh0,
+                                     int B, int S, int di, int n, int bf16, int vec,
+                                     int channels, int chunk, int smem, void* stream) {
   if (B <= 0 || S <= 0 || di <= 0 || n <= 0 || n > NS || B > 65535 || channels != kCh ||
-      chunk != kL)
+      chunk <= 0 || chunk % kSub != 0 || chunk > kMaxChunk ||
+      (S + chunk - 1) / chunk > 65535 || (vec && di % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((di + kCh - 1) / kCh, B);
+  const size_t want = bf16 ? chunk_smem<__nv_bfloat16>(chunk) : chunk_smem<float>(chunk);
+  if (static_cast<size_t>(smem) != want) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto o = [](void* p) { return static_cast<float*>(p); };
   const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(grid, st, x, dt, f(bc), f(a_log), f(d), f(h0), f(dy),
-                                   f(dh_last), o(hck), dx, ddt, o(dbc_part),
-                                   o(da_part), o(dd_part), o(dh0), S, di, n)
-           : launch<float>(grid, st, x, dt, f(bc), f(a_log), f(d), f(h0), f(dy), f(dh_last),
-                           o(hck), dx, ddt, o(dbc_part), o(da_part), o(dd_part),
-                           o(dh0), S, di, n);
+      bf16 ? launch<__nv_bfloat16>(B, S, di, n, chunk, vec != 0, st, x, dt, f(bc), f(a_log),
+                                   f(d), f(h0), f(dy), f(dh_last), o(hcar), o(gcar),
+                                   o(dsum), dx, ddt, o(dbc_part), o(da_part), o(dd_part),
+                                   o(dh0))
+           : launch<float>(B, S, di, n, chunk, vec != 0, st, x, dt, f(bc), f(a_log), f(d),
+                           f(h0), f(dy), f(dh_last), o(hcar), o(gcar), o(dsum), dx, ddt,
+                           o(dbc_part), o(da_part), o(dd_part), o(dh0));
   return static_cast<int>(err);
 }

@@ -11,10 +11,14 @@ only; ``kernels/ops.py`` sends CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.modmatmul import SMS, sm_count
 
 MAX_STATE = 16   # the kernel keeps 16 states in registers; n <= 16 are live
 
@@ -122,11 +126,114 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     return y, h_last
 
 
-# csrc/mamba_scan_bwd.cu's kCh and kL: channels a block (one partial of dB
-# and dC each) and steps between the state checkpoints; the kernel refuses
-# other values
-BWD_CHANNELS = 64
-BWD_CHUNK = 16
+# csrc/mamba_scan_bwd.cu's layout, which the kernel refuses to change:
+# channels a block (one dB/dC partial each), threads a block (a quad of 4
+# states a channel), steps a sub-chunk (a tile of the ring and the history
+# kept in shared memory), most steps a chunk, tiles in the ring
+BWD_CHANNELS = 32
+BWD_THREADS = 4 * BWD_CHANNELS
+BWD_SUB = 8
+BWD_MAX_CHUNK = 256
+BWD_STAGES = 2
+# The plan's chunks, largest first: 64 steps keeps five blocks on an SM
+BWD_CHUNKS = (64, 32, 16, 8)
+# Blocks an SM that the chunk kernel's registers allow: its __launch_bounds__
+# (kMinBlocks) holds it to 65536 / (5 * 128) = 102 registers a thread
+BWD_REG_BLOCKS = 5
+SM_SMEM = 233_472         # shared memory an SM gives its blocks (228 KB)
+BLOCK_SMEM_RESERVED = 1024  # the system's share of it, per block
+MAX_GRID_YZ = 65535
+
+
+def bwd_smem(chunk: int, xbytes: int) -> int:
+    """The chunk kernel's dynamic shared memory for ``chunk`` steps and x,
+    dt of ``xbytes`` bytes (2 bf16, 4 float32): a ring of BWD_STAGES tiles
+    (BWD_SUB steps of B_t/C_t, x, dt and dy), the history of a sub-chunk,
+    the warps' dB/dC sums and one checkpoint a sub-chunk (16 bytes a
+    thread each)."""
+    tile = BWD_SUB * (2 * MAX_STATE * 4 + BWD_CHANNELS * (2 * xbytes + 4))
+    hist = BWD_SUB * BWD_THREADS * 16
+    red = BWD_THREADS // 32 * BWD_SUB * 2 * MAX_STATE * 4
+    return BWD_STAGES * tile + hist + red + chunk // BWD_SUB * BWD_THREADS * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's launch: chunks of ``chunk`` steps, a grid of
+    (``blocks`` channel blocks, ``chunks``, B) blocks of BWD_THREADS for the
+    summary and chunk kernels (the carry kernel: one thread per (b, i, j)),
+    ``smem`` bytes of dynamic shared memory for the chunk kernel and
+    ``per_sm`` of its blocks on an SM, as its shared memory and registers
+    allow."""
+    B: int
+    S: int
+    di: int
+    xbytes: int
+    chunk: int
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.S // self.chunk)
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.di // BWD_CHANNELS)
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (self.blocks, self.chunks, self.B)
+
+    @property
+    def threads(self) -> int:
+        return self.blocks * self.chunks * self.B * BWD_THREADS
+
+    @property
+    def smem(self) -> int:
+        return bwd_smem(self.chunk, self.xbytes)
+
+    @property
+    def per_sm(self) -> int:
+        return min(SM_SMEM // (self.smem + BLOCK_SMEM_RESERVED),
+                   BWD_REG_BLOCKS)
+
+    @property
+    def scratch(self) -> dict[str, tuple[int, ...]]:
+        """float32 buffers: the summaries, then the carries (hcar, gcar),
+        each chunk's dt sum, and the partials ``torch.sum`` folds."""
+        B, S, di, nck = self.B, self.S, self.di, self.chunks
+        return {"hcar": (B, nck, di, MAX_STATE),
+                "gcar": (B, nck, di, MAX_STATE), "dsum": (B, nck, di),
+                "dbc_part": (self.blocks, B, S, 2, MAX_STATE),
+                "da_part": (B, nck, di, MAX_STATE), "dd_part": (B, nck, di)}
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bwd(B: int, S: int, di: int, xbytes: int, sms: int = SMS,
+             chunk: int | None = None) -> BwdPlan:
+    """The backward's launch on a card of ``sms`` SMs: the largest of
+    BWD_CHUNKS whose grid covers the SMs twice at the chunk kernel's
+    occupancy (the smallest when none does), or ``chunk`` itself, a
+    multiple of BWD_SUB up to BWD_MAX_CHUNK, where a check forces it."""
+    if chunk is not None:
+        if chunk < 1 or chunk % BWD_SUB or chunk > BWD_MAX_CHUNK:
+            raise ValueError(f"selective_scan_bwd chunk must be a multiple of "
+                             f"{BWD_SUB} up to {BWD_MAX_CHUNK}, got {chunk}")
+        pl = BwdPlan(B, S, di, xbytes, chunk)
+    else:
+        for L in BWD_CHUNKS:
+            pl = BwdPlan(B, S, di, xbytes, L)
+            if pl.blocks * pl.chunks * B >= 2 * sms * pl.per_sm:
+                break
+    if pl.chunks > MAX_GRID_YZ:
+        raise ValueError(f"selective_scan_bwd: S={S} needs {pl.chunks} chunks "
+                         f"of {pl.chunk}, more than {MAX_GRID_YZ}")
+    return pl
+
+
+def bwd_buffers(pl: BwdPlan, device) -> dict[str, torch.Tensor]:
+    """The plan's scratch (``BwdPlan.scratch``), uninitialised float32."""
+    return {k: torch.empty(v, dtype=torch.float32, device=device)
+            for k, v in pl.scratch.items()}
 
 
 def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
@@ -136,48 +243,57 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     """The float32 scan's gradient: the forward's inputs, dy (B, S, di) and
     dh_last (B, di, n), on one CUDA device -> (dx, ddt (B, S, di); dbm, dcm
     (B, S, n); da_log (di, n); dd (di,); dh0 (B, di, n)), as
-    ``ref.selective_scan_bwd_ref`` computes them.  Launches on the current
-    stream.
+    ``ref.selective_scan_bwd_ref`` computes them.  Launches three kernels
+    on the current stream (``csrc/mamba_scan_bwd.cu``: the chunks'
+    summaries, the carries between chunks, each chunk's backward) with
+    ``plan_bwd``'s chunks, then ``torch.sum`` folds the partials.
 
     x and dt are read as the forward reads them (``operands``), and dx and
     ddt are written in that dtype: bfloat16 when x and dt both are
     (computed in float32, rounded to nearest even), else float32.  The
-    other gradients are float32.  The kernel
-    writes its sums over channels (dbm, dcm) as one partial a block of
-    ``BWD_CHANNELS`` channels and its sums over time (da_log, dd) as one
-    partial a batch row; ``torch.sum`` folds them, so the result is the
-    same whatever order the blocks run in.  Scratch: the state at every
-    ``BWD_CHUNK``-th step, B * ceil(S / 16) * 16 * di floats.
+    other gradients are float32.  The kernel writes its sums over channels
+    (dbm, dcm) as one partial a block of ``BWD_CHANNELS`` channels and its
+    sums over time (da_log, dd) as one partial a (batch row, chunk); the
+    folds do not depend on the order the blocks run in, so two calls give
+    the same bits.  Scratch: ``BwdPlan.scratch``.
     """
+    return run_bwd(None, x, dt, bm, cm, a_log, d, h0, dy, dh_last)
+
+
+def run_bwd(chunk: int | None, x: torch.Tensor, dt: torch.Tensor,
+            bm: torch.Tensor, cm: torch.Tensor, a_log: torch.Tensor,
+            d: torch.Tensor, h0: torch.Tensor, dy: torch.Tensor,
+            dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``selective_scan_bwd`` with the plan's chunk forced to ``chunk``
+    (None: ``plan_bwd``'s own), as a check forces one."""
     B, S, di, n = _check("selective_scan_bwd", (
         ("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
         ("d", d), ("h0", h0), ("dy", dy), ("dh_last", dh_last)))
     x, dt, bc = operands(x, dt, bm, cm)
     f32 = [t.float().contiguous() for t in (a_log, d, h0, dy, dh_last)]
     dev = x.device
-    blocks = -(-di // BWD_CHANNELS)
-    hck = torch.empty((B, -(-S // BWD_CHUNK), MAX_STATE, di),
-                      dtype=torch.float32, device=dev)
+    pl = plan_bwd(B, S, di, x.element_size(), sm_count(dev), chunk)
+    buf = bwd_buffers(pl, dev)
     dx = torch.empty((B, S, di), dtype=x.dtype, device=dev)
     ddt = torch.empty_like(dx)
-    dbc = torch.empty((blocks, B, S, 2, MAX_STATE), dtype=torch.float32,
-                      device=dev)
-    da = torch.empty((B, di, n), dtype=torch.float32, device=dev)
-    dd = torch.empty((B, di), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, di, n), dtype=torch.float32, device=dev)
+    # cp.async moves 16-byte chunks of x, dt and dy rows when they allow it
+    vec = di % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, dt, f32[3]))
     lib = build.library("mamba_scan_bwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mamba_scan_bwd_launch(
         x.data_ptr(), dt.data_ptr(), bc.data_ptr(),
         *(t.data_ptr() for t in f32),
-        *(t.data_ptr() for t in (hck, dx, ddt, dbc, da, dd, dh0)),
-        B, S, di, n, int(x.dtype == torch.bfloat16), BWD_CHANNELS, BWD_CHUNK,
-        stream)
+        *(buf[k].data_ptr() for k in ("hcar", "gcar", "dsum")),
+        dx.data_ptr(), ddt.data_ptr(),
+        *(buf[k].data_ptr() for k in ("dbc_part", "da_part", "dd_part")),
+        dh0.data_ptr(), B, S, di, n, int(x.dtype == torch.bfloat16), int(vec),
+        BWD_CHANNELS, pl.chunk, pl.smem, stream)
     build.check(err, "selective_scan_bwd")
     kernels.LAUNCHES["selective_scan_bwd"] += 1
-    dbc = dbc.sum(0)
-    return (dx, ddt, dbc[:, :, 0, :n], dbc[:, :, 1, :n], da.sum(0), dd.sum(0),
-            dh0)
+    dbc = buf["dbc_part"].sum(0)
+    return (dx, ddt, dbc[:, :, 0, :n], dbc[:, :, 1, :n],
+            buf["da_part"].sum((0, 1))[:, :n], buf["dd_part"].sum((0, 1)), dh0)
 
 
 class SelectiveScanFn(torch.autograd.Function):

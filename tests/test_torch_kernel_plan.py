@@ -321,6 +321,235 @@ def test_mamba_mix_hands_the_scan_its_bf16_dt(monkeypatch):
     assert torch.equal(y, y32) and torch.equal(h, h32)
 
 
+# -- the scan's backward: csrc/mamba_scan_bwd.cu's chunked decomposition --
+#    (summaries per chunk, the two carries, each chunk's reverse walk) and
+#    its launch plan.  Tolerance: each gradient within 1e-5 of its largest
+#    magnitude, as tests/test_torch_mamba_scan.py holds the plain backward
+#    (float32 sums over channels, batch and time in another order).
+
+import functools  # noqa: E402
+
+import jax  # noqa: E402
+
+GRAD_REL = 1e-5
+LOG2E = math.log2(math.e)
+
+
+def _ftz(t):
+    """ex2.approx.ftz's flush of subnormal float32 results to zero."""
+    return torch.where(t.abs() < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(t), t)
+
+
+def chunked_bwd_model(x, dt, bm, cm, a_log, d, h0, dy, dh_last, L, exp2,
+                      wrong_carry=False):
+    """The kernel's three steps in the inputs' dtype, chunks of L steps.
+
+    1. Each chunk from zero: hloc (its forward from h = 0), gamma = sum_t
+       P_t dy_t C_t with P_t = a_f ... a_t, and D = sum_t dt_t.
+    2. The carries: H_0 = h0, H_{c+1} = P_c H_c + hloc_c; Gamma_last =
+       dh_last, Gamma_{c-1} = gamma_c + P_c Gamma_c, P_c = exp(D_c A)
+       (``wrong_carry``: without its P_c).
+    3. Each chunk's reverse recurrence from (H_c, Gamma_c).
+    ``exp2``: a_t = exp2(dt log2e A) and P_c = exp2(D_c log2e A), subnormal
+    results flushed to zero, as the kernel's ex2.approx.ftz; else exp.
+    Returns the gradients as ``ref.selective_scan_bwd_ref`` orders them,
+    and whether some P_t underflowed to 0 inside a chunk.
+    """
+    B, S, di = x.shape
+    A = -torch.exp(a_log)
+
+    def decay(z):  # exp(z A) for z (B, di) -> (B, di, n)
+        if exp2:
+            return _ftz(torch.exp2((z * LOG2E)[..., None] * A))
+        return torch.exp(z[..., None] * A)
+
+    u = dt * x
+    spans = [range(f, min(f + L, S)) for f in range(0, S, L)]
+    hloc, gam, dsum, p_zero = [], [], [], False
+    for span in spans:
+        h, g, P = torch.zeros_like(h0), torch.zeros_like(h0), torch.ones_like(h0)
+        D = torch.zeros_like(x[:, 0])
+        for t in span:
+            a = decay(dt[:, t])
+            P = P * a
+            h = a * h + u[:, t, :, None] * bm[:, t, None, :]
+            g = g + P * (dy[:, t, :, None] * cm[:, t, None, :])
+            D = D + dt[:, t]
+            p_zero |= t > span[0] and bool((P == 0).any())
+        hloc.append(h)
+        gam.append(g)
+        dsum.append(D)
+    Pc = [decay(D) for D in dsum]
+    H = [h0]
+    for c in range(len(spans) - 1):
+        H.append(Pc[c] * H[c] + hloc[c])
+    G = [dh_last] * len(spans)
+    for c in range(len(spans) - 1, 0, -1):
+        G[c - 1] = gam[c] + (G[c] if wrong_carry else Pc[c] * G[c])
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
+    dA = torch.zeros_like(h0)
+    for c, span in enumerate(spans):
+        hs = [H[c]]
+        for t in span:
+            hs.append(decay(dt[:, t]) * hs[-1]
+                      + u[:, t, :, None] * bm[:, t, None, :])
+        g = G[c]
+        for k in reversed(range(len(span))):
+            t = span[k]
+            a = decay(dt[:, t])
+            g = g + dy[:, t, :, None] * cm[:, t, None, :]
+            dcm[:, t] = (dy[:, t, :, None] * hs[k + 1]).sum(1)
+            dbm[:, t] = (g * u[:, t, :, None]).sum(1)
+            gb = (g * bm[:, t, None, :]).sum(-1)
+            gha = g * hs[k] * a
+            dx[:, t] = gb * dt[:, t] + d * dy[:, t]
+            ddt[:, t] = gb * x[:, t] + (gha * A).sum(-1)
+            dA = dA + gha * dt[:, t, :, None]
+            g = a * g
+        if c == 0:
+            dh0 = g
+    grads = (dx, ddt, dbm, dcm, dA.sum(0) * A, (dy * x).sum((0, 1)), dh0)
+    return grads, p_zero
+
+
+def bwd_case(S, n, big_a=False):
+    """Inputs (numpy float32) of a backward case: the forward's, h0 and the
+    cotangents dy, dh_last non-zero; ``big_a``: A = -exp(A_log) in
+    [-12, -8], so that products of a_t underflow within 16 steps."""
+    rng = np.random.default_rng(1000 * S + n + big_a)
+    args = list(scan_inputs(int(rng.integers(1 << 30)), 2, S, 5, n, 0.7))
+    if big_a:
+        args[4] = np.log(rng.uniform(8.0, 12.0, (5, n))).astype(np.float32)
+    dy = rng.standard_normal((2, S, 5)).astype(np.float32)
+    dh = rng.standard_normal((2, 5, n)).astype(np.float32)
+    return (*args, dy, dh)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_bwd(S, n, big_a=False):
+    """``jax.vjp`` of the reference's oracle scan at ``bwd_case``."""
+    *args, dy, dh = bwd_case(S, n, big_a)
+    _, vjp = jax.vjp(jms.ref_selective_scan, *(jnp.asarray(a) for a in args))
+    return tuple(np.asarray(g) for g in vjp((jnp.asarray(dy),
+                                             jnp.asarray(dh))))
+
+
+def bwd_rel_errs(got, want):
+    """max |got - want| over max |want|, per gradient."""
+    out = []
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape
+        out.append(float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                     1e-30))
+    return out
+
+
+def run_bwd_model(S, n, L, mode, big_a=False, wrong_carry=False):
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    ins = [torch.as_tensor(a).to(dtype) for a in bwd_case(S, n, big_a)]
+    got, p_zero = chunked_bwd_model(*ins, L, mode == "f32_exp2", wrong_carry)
+    return got, ref.selective_scan_bwd_ref(*ins), jax_bwd(S, n, big_a), p_zero
+
+
+BWD_CASES = sorted({(L, S) for L in (1, 7, 16)
+                    for S in (1, L - 1, L, L + 1, 3 * L + 5) if S >= 1})
+
+
+@pytest.mark.parametrize("L,S", BWD_CASES)
+@pytest.mark.parametrize("n", [1, 16])
+@pytest.mark.parametrize("mode", ["f64", "f32_exp2"])
+def test_chunked_backward_model_matches_reference_and_jax(L, S, n, mode):
+    """One chunk (S <= L), a ragged last chunk of one step (S = L + 1) and
+    several chunks; h0 and dh_last non-zero."""
+    got, want, jgrads, _ = run_bwd_model(S, n, L, mode)
+    for g in got:
+        assert g.dtype == (torch.float64 if mode == "f64" else torch.float32)
+    assert max(bwd_rel_errs(got, want)) <= GRAD_REL
+    assert max(bwd_rel_errs(got, jgrads)) <= GRAD_REL
+
+
+def test_chunked_backward_model_where_products_underflow():
+    """A = -exp(A_log) in [-12, -8]: within a chunk of 16 steps the running
+    product P_t underflows to 0 (flushed, as ex2.approx.ftz flushes); the
+    terms it multiplies are below float32's range, so the gradients still
+    match."""
+    got, want, jgrads, p_zero = run_bwd_model(53, 16, 16, "f32_exp2",
+                                              big_a=True)
+    assert p_zero
+    assert max(bwd_rel_errs(got, want)) <= GRAD_REL
+    assert max(bwd_rel_errs(got, jgrads)) <= GRAD_REL
+
+
+def test_chunked_backward_model_catches_a_wrong_carry():
+    """Gamma carried without its P_c factor: the gradients of every chunk
+    but the last are wrong, far beyond the tolerance."""
+    got, want, _, _ = run_bwd_model(26, 16, 7, "f64", wrong_carry=True)
+    assert max(bwd_rel_errs(got, want)) > 100 * GRAD_REL
+
+
+BWD_PLAN_SHAPES = {
+    "hymba_train": (4, 2048, 3200, 16),
+    "falcon_train": (4, 2048, 8192, 16),
+    "S1": (4, 1, 8192, 16),
+    "long_S8192": (1, 8192, 8192, 16),
+    "di1001_n3": (2, 45, 1001, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BWD_PLAN_SHAPES))
+@pytest.mark.parametrize("xbytes", [2, 4])
+def test_backward_plan_grid_and_scratch(name, xbytes):
+    """Every grid dimension within the card's limits, the chunk one the C
+    entry takes, the grid covering the SMs twice where any chunk can, and
+    the scratch the wrapper allocates (``bwd_buffers``) as the kernel's
+    source lays it out."""
+    B, S, di, _ = BWD_PLAN_SHAPES[name]
+    pl = tms.plan_bwd(B, S, di, xbytes)
+    assert pl.chunk in tms.BWD_CHUNKS
+    assert pl.chunk % tms.BWD_SUB == 0 and pl.chunk <= tms.BWD_MAX_CHUNK
+    nck = -(-S // pl.chunk)
+    gx, gy, gz = pl.grid
+    assert (gx - 1) * tms.BWD_CHANNELS < di <= gx * tms.BWD_CHANNELS
+    assert (gy, gz) == (nck, B) and max(gy, gz) <= 65535 and gx < 2 ** 31
+    assert pl.threads == gx * gy * gz * tms.BWD_THREADS
+    assert (pl.blocks * pl.chunks * B >= 2 * tms.SMS * pl.per_sm
+            or pl.chunk == min(tms.BWD_CHUNKS))
+    bufs = tms.bwd_buffers(pl, "meta")
+    want = {"hcar": (B, nck, di, 16), "gcar": (B, nck, di, 16),
+            "dsum": (B, nck, di), "dbc_part": (gx, B, S, 2, 16),
+            "da_part": (B, nck, di, 16), "dd_part": (B, nck, di)}
+    assert {k: tuple(v.shape) for k, v in bufs.items()} == want
+    assert all(v.dtype == torch.float32 for v in bufs.values())
+    # the chunk kernel's shared memory: ring, history, warps' sums, checkpoints
+    tile = 8 * (32 * 4 + 32 * (2 * xbytes + 4))
+    assert pl.smem == 2 * tile + 8 * 128 * 16 + 4 * 8 * 32 * 4 \
+        + pl.chunk // 8 * 128 * 16
+    assert pl.smem <= 232_448
+
+
+def test_backward_plan_fills_the_card_at_hymbas_training_shape():
+    """At least 8x the 12,800 threads of the single-chunk kernel, and five
+    blocks an SM (the kernel's launch bounds) at 64-step chunks."""
+    for xbytes in (2, 4):
+        pl = tms.plan_bwd(4, 2048, 3200, xbytes)
+        assert pl.chunk == 64 and pl.per_sm == 5
+        assert pl.threads >= 8 * 12_800
+        assert pl.blocks * pl.chunks * 4 >= 2 * tms.SMS * pl.per_sm
+
+
+def test_backward_plan_forced_chunks_and_refusals():
+    pl = tms.plan_bwd(4, 65, 3200, 2, chunk=64)
+    assert (pl.chunk, pl.chunks) == (64, 2)
+    for bad in (0, 4, 12, tms.BWD_MAX_CHUNK + tms.BWD_SUB):
+        with pytest.raises(ValueError, match="multiple of"):
+            tms.plan_bwd(4, 65, 3200, 2, chunk=bad)
+    with pytest.raises(ValueError, match="chunks"):
+        tms.plan_bwd(1, 65536 * 64 + 1, 32, 2)
+
+
 # -- coded_grad -----------------------------------------------------------
 
 from repro.kernels import ref as jref  # noqa: E402
