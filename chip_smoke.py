@@ -145,19 +145,36 @@ iterating on a kernel); such a partial run prints no ok line.
   cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
             Case 1 for 25 rounds under lognormal latencies with ``--pipeline
             off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
-            10 rounds with a worker dead from round 3; each bit-identical to
+            10 rounds with a worker dead from round 3, and Case 1 on a group
+            of two masters (``--masters 2``: the dataset encoded on the
+            card, a d-slice a master); each bit-identical to
             train_reference over its responder trace, ``coded_grad``
             launched once a round; round ms on the host clock, first-T and
-            wait-all waits on the simulated clock
+            wait-all waits on the simulated clock; the group run's weights
+            are the one-master run's bit for bit, its rounds launch what
+            that run's do and the whole of its ``main`` one ``modmatmul``
+            more (one a master for the dataset encode), and its line
+            carries each master's seconds
   socket    ``cpml_cluster --transport socket`` on the card, one worker
             process per slot, each on cuda: Case 1 with all 40 workers for
             25 rounds (``--pipeline full``), the N=8 fleet for 10 rounds with
             worker 5 killed at round 4 and worker 3 sleeping 0.1 s before
-            each reply, and that straggler again with ``--collect-all``;
+            each reply, that straggler again with ``--collect-all``, Case 1
+            on a group of four masters (``case1_masters4``: ``--pipeline
+            full --masters 4``), and the N=8 fleet for 14 rounds on a group
+            of two with a spare (``slack_elastic_masters2``: worker 5
+            killed at round 2 and retired, slot 8 joining at round 10);
             each bit-identical to train_reference, every live worker on
             cuda with a ``coded_grad`` launch per round it answered; start-up
             and provision seconds, median round wall time, first-T against
-            wait-all, wire bytes per round, peak device memory (nvidia-smi)
+            wait-all, wire bytes per round, peak device memory (nvidia-smi);
+            a group run's master launches ``modmatmul`` exactly S + 1
+            times a round (one a master for the weight encode, and the
+            mask shares with the pipeline on, the batch decode with it
+            off) and nothing else, case1_masters4's weights are
+            case1_full's, and its line sets each master's encode (CUDA
+            events) and decode (CPU) seconds beside the one-master run's
+            walls
   mpc       ``cpml_cluster --protocol mpc`` in process on the card at
             Case 1 (N=40, T=1) for 10 rounds: bit-identical to the
             single-host ``mpc_baseline.train``, ``modmatmul`` launched
@@ -2402,6 +2419,10 @@ CLUSTER_RUNS = (
     ("case1_lognormal_full", CASE1, ["--latency", "lognormal",
                                      "--pipeline", "full"]),
     ("slack_dead", SLACK, ["--latency", "dead"]),
+    # the dataset encoded through a group of two masters, a d-slice each
+    # on the card; in process each round runs as one engine round
+    ("case1_masters2", CASE1, ["--latency", "lognormal", "--pipeline", "off",
+                               "--masters", "2"]),
 )
 SOCKET_RUNS = (
     ("case1_full", CASE1, ["--pipeline", "full"]),
@@ -2413,7 +2434,37 @@ SOCKET_RUNS = (
     ("slack_straggle_collect_all", SLACK, ["--straggle-worker", "3",
                                            "--straggle-sleep", "0.1",
                                            "--collect-all"]),
+    # a group of four masters: the dataset and each round's split weight
+    # encode on the card, the streaming decode's folds on the host, a
+    # d-slice each
+    ("case1_masters4", CASE1, ["--pipeline", "full", "--masters", "4"]),
+    # the elastic fleet on a group of two: worker 5 killed at round 2, the
+    # spare slot 8 joining at round 10.  Worker 3 sleeps 0.1 s before each
+    # reply, so while the fleet is one short every round waits for it: 8
+    # rounds of at least 0.1 s put worker 5's silence past the 0.5 s
+    # heartbeat timeout, and it is retired (LEAVE) before the join
+    ("slack_elastic_masters2", dict(SLACK, iters=14),
+     ["--spares", "1", "--kill-worker", "5", "--kill-at-round", "2",
+      "--straggle-worker", "3", "--straggle-sleep", "0.1",
+      "--heartbeat-timeout", "0.5", "--join-at-round", "10",
+      "--masters", "2"]),
 )
+# Each group run and the one-master run it is set beside: the same flags
+# but --masters (case1_masters4's responders are all 40 workers every round,
+# so its weights are held to case1_full's bit for bit), or for the elastic
+# run the one-master fault run on the same fleet.  The master's launches at
+# S > 1, worked out from the code: each master's encode is one
+# ``modmatmul`` on its d-slice, and the streaming folds run on the host.
+# So set-up's dataset encode launches S where one master launches 1, in
+# process the rounds launch what the one-master run's do (the group only
+# encodes the dataset there), and over sockets each round launches S for
+# the weight encode (whole, or the split's data rows) plus one: with
+# ``--pipeline full`` the prefetched mask shares, with it off the batch
+# decode.
+MASTERS_TWINS = {"case1_masters2": "case1_lognormal_off",
+                 "case1_masters4": "case1_full",
+                 "slack_elastic_masters2": "slack_kill_straggle"}
+SAME_WEIGHTS = ("case1_masters2", "case1_masters4")
 
 
 def _cluster_argv(spec: dict, extra: list, out: Path) -> list:
@@ -2485,10 +2536,67 @@ def phase_cluster(torch, out_dir: Path) -> dict:
         if res["launches_run"]["modmatmul"] < 2 * iters:
             raise AssertionError(f"cluster {name}: modmatmul launches "
                                  f"{res['launches_run']}")
+        info["w_sha256"] = res["w_sha256"]
+        if name in MASTERS_TWINS:
+            one = runs[MASTERS_TWINS[name]]
+            # the rounds launch as one master's; set-up's dataset encode
+            # launched once a master (S - 1 more over the whole of main)
+            S = res["config"]["masters"]
+            want_main = dict(one["launches_main"],
+                             modmatmul=one["launches_main"]["modmatmul"]
+                             + S - 1)
+            if (res["launches_run"] != one["launches_run"]
+                    or launches != want_main):
+                raise AssertionError(f"cluster {name}: launches {launches}, "
+                                     f"run {res['launches_run']}; want "
+                                     f"{want_main}, {one['launches_run']}")
+            info["masters"] = masters_line("cluster", info, res, one)
         runs[name] = info
     return {"phase": "cluster", "runs": runs,
             "launches": {k: sum(r["launches_run"][k] for r in runs.values())
                          for k in runs[CLUSTER_RUNS[0][0]]["launches_run"]}}
+
+
+def masters_line(phase: str, info: dict, res: dict, one: dict) -> dict:
+    """A ``--masters S`` run's group beside its one-master run (``info``
+    and ``one``: the two runs' lines): S, each master's encode (on the
+    card, CUDA events) and decode (CPU) seconds, the group's totals and
+    critical path, and both runs' master encode and decode walls a round
+    (over sockets; in process the
+    round is simulated and its host ms are set side by side instead).
+    Fails unless the JSON reports the group at its size with a critical
+    path above 0 and, for ``SAME_WEIGHTS``, unless the weights are the
+    one-master run's bit for bit.  Printed with the card's name and power
+    limit."""
+    name = info["run"]
+    S = res["config"]["masters"]
+    g = res["wait_stats"].get("masters")
+    if (g is None or g["size"] != S or len(g["per_master"]) != S
+            or not g["critical_path_s"] > 0):
+        raise AssertionError(f"{phase} {name}: masters stats {g} for "
+                             f"--masters {S}")
+    same = info["w_sha256"] == one["w_sha256"]
+    if name in SAME_WEIGHTS and not same:
+        raise AssertionError(f"{phase} {name}: weights differ from the "
+                             f"one-master run {one['run']}")
+    line = {"phase": phase, "run": name, "card": nvidia_smi(),
+            "masters": S, "per_master": g["per_master"],
+            "encode_total_s": g["encode_total_s"],
+            "decode_total_s": g["decode_total_s"],
+            "critical_path_s": g["critical_path_s"],
+            "one_master_run": one["run"],
+            "weights_equal_one_master": same}
+    if phase == "socket":
+        for key, x in (("", info), ("one_master_", one)):
+            line[key + "encode_decode_walls_s"] = {
+                k: {q: x["waits_wall_s"][k][q] for q in ("mean", "p50")}
+                for k in ("encode", "decode")}
+            line[key + "round_ms_median"] = x["round_ms_median"]
+    else:
+        line["round_ms_host"] = info["round_ms_host"]
+        line["one_master_round_ms_host"] = one["round_ms_host"]
+    emit(line)
+    return line
 
 
 class _MemorySampler:
@@ -2531,11 +2639,14 @@ class _MemorySampler:
 def phase_socket(torch, out_dir: Path) -> dict:
     """``cpml_cluster --transport socket`` on the card: one worker process
     per slot, each on cuda.  Case 1 with all 40 workers, the N=8 fleet with
-    worker 5 killed at round 4 and worker 3 straggling, and that straggler
-    again with every round held to its last arrival.  Each run is
-    bit-identical to train_reference; every live worker reports cuda, one
-    ``coded_grad`` launch in its warm-up and exactly one a round it
-    answered."""
+    worker 5 killed at round 4 and worker 3 straggling, that straggler
+    again with every round held to its last arrival, and the two group
+    runs (``MASTERS_TWINS``).  Each run is bit-identical to
+    train_reference; every live worker (a joiner's slot included) reports
+    cuda, one ``coded_grad`` launch in its warm-up and exactly one a round
+    it answered.  A group run's master launches ``modmatmul`` S + 1 times
+    a round and nothing else; the elastic run both retires the killed worker and
+    admits the joiner."""
     st = statistics
     runs = {}
     for name, spec, extra in SOCKET_RUNS:
@@ -2549,7 +2660,8 @@ def phase_socket(torch, out_dir: Path) -> dict:
             killed = {int(extra[extra.index("--kill-worker") + 1])}
             kill_at = int(extra[extra.index("--kill-at-round") + 1])
         live = [r for r in reports if r["worker"] not in killed]
-        if sorted(r["worker"] for r in reports) != list(range(spec["N"])):
+        slots = spec["N"] + ("--join-at-round" in extra)
+        if sorted(r["worker"] for r in reports) != list(range(slots)):
             raise AssertionError(f"socket {name}: worker reports "
                                  f"{[r['worker'] for r in reports]}")
         for r in live:
@@ -2594,6 +2706,20 @@ def phase_socket(torch, out_dir: Path) -> dict:
             if kill_at is not None and int(t) >= kill_at and killed & set(surv):
                 raise AssertionError(f"socket {name}: killed worker decoded "
                                      f"in round {t}")
+        info["w_sha256"] = res["w_sha256"]
+        if name in MASTERS_TWINS:
+            want = {k: 0 for k in res["launches_run"]}
+            want["modmatmul"] = iters * (res["config"]["masters"] + 1)
+            if res["launches_run"] != want:
+                raise AssertionError(f"socket {name}: master launches "
+                                     f"{res['launches_run']}, want {want}")
+            memb = stats["membership"]
+            if "--join-at-round" in extra and not (
+                    memb["joins"] >= 1 and memb["leaves"] >= 1):
+                raise AssertionError(f"socket {name}: membership {memb}")
+            info["masters"] = masters_line("socket", info, res,
+                                           runs[MASTERS_TWINS[name]])
+            info["membership"] = memb
         runs[name] = info
     return {"phase": "socket", "runs": runs,
             "launches": {k: sum(r["launches_run"][k] for r in runs.values())

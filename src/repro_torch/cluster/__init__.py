@@ -27,14 +27,17 @@ collects results as they arrive, and decodes the moment the fastest
                        2(K+T-1)+1 responders
   alcc_mlp.py          ALCCMLPRunner: the gelu MLP as two coded ALCC phases
                        a step
+  master_group.py      MasterGroup, ShardedStreamingDecoder: the master's
+                       coding split over S logical masters, each a
+                       contiguous d-slice, bit-identical to one master
 
-Every module but ``runner.py``, ``mpc_runner.py``, ``serve.py`` and
-``alcc_mlp.py`` is numpy-only and a copy of the reference's.  Not ported:
-``master_group.py`` (ROADMAP.md queue 1 item 6).
+Every module but ``runner.py``, ``mpc_runner.py``, ``serve.py``,
+``alcc_mlp.py`` and ``master_group.py`` is numpy-only and a copy of the
+reference's.
 
-The package's names (the reference's ``__all__`` less ``master_group``'s)
-resolve on first use: importing ``repro_torch.cluster.socket_transport``
-in a worker process does not load the runner or torch's master side.
+The package's names (the reference's ``__all__``) resolve on first use:
+importing ``repro_torch.cluster.socket_transport`` in a worker process
+does not load the runner or torch's master side.
 """
 import importlib
 
@@ -43,6 +46,7 @@ _EXPORTS = {
                 "DeterministicLatency", "LatencyModel",
                 "LognormalTailLatency", "SleepyStragglerLatency",
                 "make_latency"),
+    "master_group": ("MasterGroup", "ShardedStreamingDecoder"),
     "membership": ("ClusterMembership", "MembershipView", "Transition"),
     "messages": ("MASTER", "PROVISION_ROUND", "SHUTDOWN_ROUND",
                  "CombineResult", "EncodeShare", "Epoch", "Heartbeat",

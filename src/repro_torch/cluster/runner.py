@@ -23,8 +23,16 @@ Differences from the reference:
   * the prefetch thread launches ``modmatmul`` on the consumer's CUDA
     stream and records an event on it that the consumer waits on before
     it reads the context;
-  * ``masters > 1`` (ROADMAP.md queue 1 item 6, ``master_group``) is not
-    ported and raises ``NotImplementedError``.
+  * ``close()`` (called by ``shutdown_workers``) stops the master
+    group's executors.
+
+``masters > 1`` builds a ``MasterGroup`` (cluster/master_group.py): S
+logical masters each own a contiguous d-slice of the dataset encode at
+setup and, on the socket path, of each round's weight encode (whole or
+split) and streaming decode; bit-identical to one master, since every draw
+is made at full shape.  ``wait_stats()["masters"]`` holds the group's
+per-master seconds (an encode on the card from CUDA events, on the CPU
+and every fold in per-thread CPU seconds) and critical path.
 
 ``engine="alcc"`` swaps in ``protocol/alcc_engine``: real-valued Lagrange
 coding with Gaussian masks and a least-squares decode.  Weight shares and
@@ -59,6 +67,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.cluster.latency import LatencyModel
+from repro_torch.cluster.master_group import MasterGroup
 from repro_torch.cluster.membership import ClusterMembership, MembershipView
 from repro_torch.cluster.messages import (
     MASTER,
@@ -99,7 +108,12 @@ def await_worker_acks(transport: Transport, clock_fn, expect,
                       control: list | None = None) -> None:
     """Block until every worker in ``expect`` (an int n for workers
     0..n-1, or a set of slots) has acked provisioning with a Heartbeat.
-    ``control`` collects JOIN frames drained off the master inbox here."""
+    ``control`` collects JOIN frames drained off the master inbox here.
+
+    No round is dispatched until the last ack, so an early acker is silent
+    for the rest of the barrier by the master's doing: every acked worker
+    is stamped live at the barrier's end, or with a heartbeat timeout
+    shorter than the acks' spread the first fence would retire it."""
     expect = (set(range(expect)) if isinstance(expect, int)
               else {int(w) for w in expect})
     deadline = clock_fn() + timeout_s
@@ -119,6 +133,10 @@ def await_worker_acks(transport: Transport, clock_fn, expect,
                 acked.add(msg.worker)
             elif isinstance(msg, Join) and control is not None:
                 control.append((at, msg))
+    if monitor is not None:
+        now = clock_fn()
+        for w in acked:
+            monitor.heartbeat(w, now=now)
 
 
 @dataclasses.dataclass
@@ -234,10 +252,6 @@ class ClusterRunner:
             if masters != 1 or spares or join_schedule:
                 raise ValueError("sharded masters / elastic membership are "
                                  "exact-engine only")
-        if masters != 1:
-            raise NotImplementedError(
-                "masters > 1 (cluster/master_group.py, the sharded master) "
-                "is not ported yet: ROADMAP.md queue 1 item 6")
         self.engine_name = engine
         self.eng = alcc_engine if engine == "alcc" else _eng
         self.device = _device.resolve(device)
@@ -255,7 +269,17 @@ class ClusterRunner:
         self.elastic = spares > 0 or bool(join_schedule)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         y = torch.as_tensor(y, device=self.device)
-        self.state = self.eng.setup(cfg, x, y, draws=self.draws)
+        # Sharded master group: S > 1 splits the master's dataset encode
+        # and, on the socket path, each round's encode and streaming decode
+        # over contiguous d-slices (bit-identical: randomness at full
+        # shape).  In simulation the round runs on the device as one
+        # engine round, where the group has nothing to shard.
+        self.masters = int(masters)
+        self.master_group = (MasterGroup(cfg, self.masters)
+                             if self.masters > 1 else None)
+        kw = ({} if self.master_group is None else
+              {"dataset_encoder": self.master_group.encode_dataset})
+        self.state = self.eng.setup(cfg, x, y, draws=self.draws, **kw)
         self.eta = (self.eng.lipschitz_eta(self.state.xq_real)
                     if eta is None else float(eta))
         if engine == "alcc":
@@ -571,6 +595,13 @@ class ClusterRunner:
         for w in self.membership.view().members:
             self.scheduler.transport.send(
                 worker_endpoint(w), EncodeShare(SHUTDOWN_ROUND, w), at=now)
+        self.close()
+
+    def close(self) -> None:
+        """Stop the master group's executors (nothing to stop with one
+        master); ``wait_stats`` still reads the group's seconds after."""
+        if self.master_group is not None:
+            self.master_group.close()
 
     # ------------------------------------------------------------------
     # Elastic membership: the per-round epoch fence
@@ -723,15 +754,21 @@ class ClusterRunner:
         payloads = None
         enc_t0 = _time.perf_counter()
         if self.distributed:
-            # this round's weight shares, one to each worker, as numpy
-            if ctx is not None:
+            # this round's weight shares, one to each worker, as numpy:
+            # (N, d, c, r) int32, or (N, d, c) float32 under ALCC; sharded
+            # masters each encode their own contiguous d-slice
+            if self.master_group is not None:
+                w_shares = (self.master_group.encode_round_shares_split(
+                                ctx.kq, ctx.mask_shares, self.w2)
+                            if ctx is not None else
+                            self.master_group.encode_round_shares(
+                                self.draws, t, self.w2))
+            elif ctx is not None:
                 w_shares = _eng.encode_round_shares_split(
-                    cfg, ctx.kq, ctx.mask_shares, self.w2)
+                    cfg, ctx.kq, ctx.mask_shares, self.w2).cpu().numpy()
             else:
-                w_shares = self.eng.encode_round_shares(cfg, self.draws, t,
-                                                        self.w2)
-            # (N, d, c, r) int32, or (N, d, c) float32 under ALCC
-            w_shares = w_shares.cpu().numpy()
+                w_shares = self.eng.encode_round_shares(
+                    cfg, self.draws, t, self.w2).cpu().numpy()
             batch_np = (None if bidx is None
                         else bidx.cpu().numpy().astype(np.int32))
             next_np = None if ctx is None else ctx.next_batch
@@ -747,7 +784,10 @@ class ClusterRunner:
             plan = (ctx.plan if ctx is not None and ctx.plan is not None
                     else decode.prefix_decode_plan(
                         cfg, self._predicted_order()))
-            decoder = decode.StreamingDecoder(cfg, plan)
+            decoder = (self.master_group.make_decoder(plan,
+                                                      self._w_shape[0])
+                       if self.master_group is not None
+                       else decode.StreamingDecoder(cfg, plan))
 
             def on_result(w, payload, _d=decoder):
                 self._m_folds.inc()
@@ -769,9 +809,12 @@ class ClusterRunner:
                 if int(w) not in trace.arrivals:
                     self.monitor.mark_failed(int(w))
                     self._m_marked_dead.inc()
+            silent = sorted(int(w) for w in workers
+                            if int(w) not in trace.arrivals)
             raise ClusterDecodeError(
                 f"round {t}: {len(trace.responders)} responses < threshold "
-                f"{cfg.threshold} within {self.round_timeout_s}s")
+                f"{cfg.threshold} within {self.round_timeout_s}s (no result "
+                f"from workers {silent})")
 
         streamed = False
         alcc = self.engine_name == "alcc"
@@ -958,6 +1001,8 @@ class ClusterRunner:
             "joins": float(sum(tr.kind == "join" for tr in trans)),
             "leaves": float(sum(tr.kind == "leave" for tr in trans)),
         }
+        if self.master_group is not None:
+            stats["masters"] = self.master_group.group_stats()
         if self.alcc_info:
             # the decode's conditioning and a-priori float error bound
             stats["alcc"] = {

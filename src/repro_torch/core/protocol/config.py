@@ -31,7 +31,7 @@ class CPMLConfig:
         if self.backend == "shard":
             raise NotImplementedError(
                 "backend='shard' (one share per GPU) is not ported yet: "
-                "ROADMAP.md queue 1 item 6")
+                "ROADMAP.md queue 1 item 4")
         if self.backend != "vmap":
             raise ValueError(f"unknown backend {self.backend!r}")
         need = lagrange.recovery_threshold(self.K, self.T, self.r)

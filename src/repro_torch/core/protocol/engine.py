@@ -63,14 +63,19 @@ def _w_public(cfg: CPMLConfig, w2: torch.Tensor) -> torch.Tensor:
 
 
 def setup(cfg: CPMLConfig, x: torch.Tensor, y: torch.Tensor,
-          w0: torch.Tensor | None = None, *, draws) -> CPMLState:
+          w0: torch.Tensor | None = None, *, draws,
+          dataset_encoder=None) -> CPMLState:
     """Encode the dataset once and precompute the master's cleartext context.
 
     x (m, d) float32 and y (m,) on the device the run uses; y holds 0/1
     labels when cfg.c == 1, integer class ids otherwise.  ``draws`` gives
-    the dataset's privacy masks (draws.py).
+    the dataset's privacy masks (draws.py).  ``dataset_encoder`` (the
+    signature of ``encode.encode_dataset``) lets a sharded master group own
+    the encode (cluster/master_group.py); it must be bit-identical to the
+    default, which the group guarantees by drawing at full shape.
     """
-    x_shares, ctx = encode.encode_dataset(cfg, draws, x)
+    encoder = dataset_encoder or encode.encode_dataset
+    x_shares, ctx = encoder(cfg, draws, x)
     xq_real = quantize.dequantize(ctx["xq"], cfg.lx, cfg.p)
     m_padded = ctx["m_padded"]
     mk = m_padded // cfg.K

@@ -9,6 +9,9 @@
         --kill-worker 5 --kill-at-round 4 --straggle-worker 3
     python -m repro_torch.launch.cpml_cluster --transport socket --resilient \\
         --kill-worker 0 1 --kill-at-round 4 --round-timeout 10
+    python -m repro_torch.launch.cpml_cluster --transport socket --masters 2 \\
+        --spares 1 --kill-worker 2 --kill-at-round 3 \\
+        --heartbeat-timeout 3 --join-at-round 5
     python -m repro_torch.launch.cpml_cluster --protocol mpc --latency lognormal
     python -m repro_torch.launch.cpml_cluster --protocol mpc --transport socket \\
         --workers 5 --privacy 2 --straggle-worker 4
@@ -56,13 +59,17 @@ as two coded phases a step (cluster/alcc_mlp.py), its final loss within
 ``ALCC_MLP_LOSS_TOL`` of the plaintext ``mlp_oracle``.  The reference's
 cross-flag refusals are kept, in its words (exit 2).
 
-Not ported, refused with exit 2: ``--masters > 1`` (ROADMAP.md queue 1
-item 6, ``master_group``).
+``--masters S`` splits the master's coding over a group of S logical
+masters, each owning a contiguous d-slice (cluster/master_group.py): the
+dataset encode, and over sockets each round's weight encode and streaming
+decode; the run stays bit-identical to one master and prints the group's
+per-master critical path.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -149,7 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "reprovisioned over the wire before the replay)")
     ap.add_argument("--checkpoint-every", type=int, default=5)
     ap.add_argument("--masters", type=int, default=1,
-                    help="only 1: the sharded master is not ported yet")
+                    help="shard the master role over this many d-slices: "
+                         "each master of the group encodes and "
+                         "stream-decodes a contiguous 1/S slice of the model "
+                         "dimension, bit-identical to one master")
     ap.add_argument("--spares", type=int, default=0,
                     help="pre-encode this many spare Lagrange evaluation "
                          "points beyond N for elastic joins")
@@ -331,9 +341,8 @@ def _emit_obs(args, runner, threshold: int) -> None:
 
 
 def _validate(args) -> str | None:
-    """The refusals: the reference's cross-flag matrix in its words, then
-    the flag this port does not have (naming its ROADMAP item); None when
-    the run is possible."""
+    """The refusals: the reference's cross-flag matrix in its words; None
+    when the run is possible."""
     if args.engine == "alcc" and args.protocol == "mpc":
         return ("--engine alcc cannot run --protocol mpc: BGW is an exact "
                 "finite-field protocol (Shamir shares, modular reshare "
@@ -365,9 +374,6 @@ def _validate(args) -> str | None:
             return ("--engine alcc needs --wire v2: float round shares and "
                     "results are wire v2 frames (like TRACE/JOIN) — a v1 "
                     "fleet has no frame for them")
-    if args.masters != 1:
-        return ("--masters > 1 (cluster/master_group.py) is not ported yet: "
-                "ROADMAP.md queue 1 item 6")
     return None
 
 
@@ -457,6 +463,7 @@ def _run_socket(args, cfg, x, y, draws, dev, out: dict):
                                heartbeat_timeout_s=args.heartbeat_timeout,
                                collect_all=args.collect_all,
                                pipeline=args.pipeline, spares=spares,
+                               masters=args.masters,
                                recorder=_recorder_for(args),
                                engine=args.engine)
         runner.provision(timeout_s=300.0)
@@ -538,9 +545,11 @@ def _run_inprocess(args, cfg, x, y, draws, dev, out: dict):
                            encode_cost_s=args.encode_cost_s,
                            decode_cost_s=args.decode_cost_s,
                            spares=spares, join_schedule=join_schedule,
+                           masters=args.masters,
                            recorder=_recorder_for(args), engine=args.engine)
     w = _timed_run(runner, args.iters, dev, out, resilient=args.resilient,
                    checkpoint_every=args.checkpoint_every)
+    runner.close()
     print(f"in-process run: {args.iters} rounds in {out['run_s']:.3f}s "
           f"({out['run_s'] / args.iters * 1e3:.2f} ms/round, host clock, "
           f"{dev})")
@@ -756,6 +765,11 @@ def main(argv: list[str] | None = None) -> int:
               f"{int(memb['members'])} member(s) "
               f"({int(memb['joins'])} join(s), {int(memb['leaves'])} "
               f"leave(s), {int(memb['spares_left'])} spare(s) left)")
+    if args.masters > 1:
+        g = stats["masters"]
+        print(f"sharded masters x{args.masters}: per-master critical path "
+              f"{g['critical_path_s']:.3f}s (group totals: encode "
+              f"{g['encode_total_s']:.3f}s, decode {g['decode_total_s']:.3f}s)")
     coded, allw = stats["coded_T"], stats["wait_all"]
     print(f"per-round wait  coded-T: mean {coded['mean']:.4f}s  "
           f"p50 {coded['p50']:.4f}s  p95 {coded['p95']:.4f}s")
@@ -822,6 +836,7 @@ def main(argv: list[str] | None = None) -> int:
                            "sigma": args.sigma if alcc else None,
                            "batch_rows": cfg.batch_rows,
                            "spares": args.spares,
+                           "masters": args.masters,
                            "transport": args.transport,
                            "pipeline": args.pipeline,
                            "latency": (args.latency
@@ -830,6 +845,10 @@ def main(argv: list[str] | None = None) -> int:
                            "iters": args.iters},
                 "device": str(dev),
                 "bit_identical": same,
+                # the final weights' bytes, so that two runs (one master
+                # against S) can be held bit-identical to each other
+                "w_sha256": hashlib.sha256(
+                    w.cpu().numpy().tobytes()).hexdigest(),
                 "survivors": {int(t): np.asarray(r.survivors).tolist()
                               for t, r in sorted(runner.records.items())},
                 "wait_stats": stats,

@@ -51,7 +51,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     if args.backend == "shard":
         ap.error("--backend shard (one share per GPU) is not ported yet "
-                 "(ROADMAP.md queue 1 item 6)")
+                 "(ROADMAP.md queue 1 item 4)")
 
     import numpy as np
     import torch

@@ -169,8 +169,22 @@ def test_encode_decode_identity_and_sum(kind):
                                np.asarray(dec).sum(axis=0), rtol=1e-12)
 
 
+def _gamma(n: int, eps: float) -> float:
+    """gamma_n = n*u / (1 - n*u), u = eps / 2: the relative bound on an
+    n-term dot product in that precision, in any summation order."""
+    u = eps / 2
+    return n * u / (1 - n * u)
+
+
 @pytest.mark.parametrize("survivor_seed", [0, 1, 2, 3])
 def test_decode_from_any_threshold_subset(survivor_seed):
+    """Both decode paths against the exact product, each within float64's
+    own bound for the product it computes.  The numpy path is ``C.T @
+    flat`` and the torch path ``ct @ used``, which sum in other orders;
+    where the decode cancels (|C|ᵀ|r| far above the result) each may err
+    by gamma_n |C|ᵀ|r|, so a bound taken from the operands, element by
+    element, is what float64 can hold both to.  The exact product is taken
+    in np.longdouble, whose own gamma_n joins the bound."""
     s = _scheme()
     rng = np.random.default_rng(survivor_seed)
     parts = rng.normal(size=(3, 6))
@@ -179,8 +193,19 @@ def test_decode_from_any_threshold_subset(survivor_seed):
     dec, info = s.decode(shares[surv] ** 2, surv, deg_f=2)
     np.testing.assert_allclose(dec, parts ** 2, atol=1e-7)
     dec_t, info_t = s.decode(torch.from_numpy(shares[surv] ** 2), surv, 2)
-    np.testing.assert_allclose(dec_t.numpy(), dec, rtol=1e-12, atol=1e-13)
     assert info_t == info
+    C, _ = s.decode_matrix(surv, 2)
+    n = info["rows"]
+    r = (shares[surv] ** 2)[:n]
+    exact = C.T.astype(np.longdouble) @ r.astype(np.longdouble)
+    bound = ((_gamma(n, np.finfo(np.float64).eps)
+              + _gamma(n, float(np.finfo(np.longdouble).eps)))
+             * (np.abs(C).T @ np.abs(r)))
+    for got in (dec, dec_t.numpy()):
+        assert got.dtype == np.float64
+        assert (np.abs(got - exact) <= bound).all(), np.max(
+            np.abs(got - exact) / bound)
+    assert (np.abs(dec_t.numpy() - dec) <= 2 * bound).all()
 
 
 @pytest.mark.parametrize("sigma", [0.0, 100.0])

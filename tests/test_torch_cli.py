@@ -82,16 +82,33 @@ CLUSTER_SMALL = ["--device", "cpu", "--m", "200", "--d", "12", "--iters", "4"]
 @pytest.mark.parametrize("flags,item", [
     (["--engine", "alcc", "--pipeline", "full"], "exact-engine only"),
     (["--model", "mlp"], "needs --engine alcc"),
-    (["--masters", "2"], "queue 1 item 6"),
 ])
 def test_cpml_cluster_refuses_unported_flags(flags, item):
-    """``--masters 2`` is not ported; ``--engine alcc`` and ``--model mlp``
-    are, and refuse what the reference refuses, in its words."""
+    """``--engine alcc`` and ``--model mlp`` refuse what the reference
+    refuses, in its words."""
     res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
                *flags])
     assert res.returncode == 2
     assert item in res.stderr
-    assert ("not ported" in res.stderr) == (flags[0] == "--masters")
+    assert "not ported" not in res.stderr
+
+
+@pytest.mark.parametrize("transport", ["inprocess", "socket"])
+def test_cpml_cluster_sharded_masters_cpu_smoke(tmp_path, transport):
+    """``--masters 2``: bit-identical to train_reference over the observed
+    responder trace, the group's line printed and its stats in the JSON."""
+    out = tmp_path / "m.json"
+    res = run(["-m", "repro_torch.launch.cpml_cluster", *CLUSTER_SMALL,
+               "--masters", "2", "--pipeline", "full", "--transport",
+               transport, "--json-out", str(out)])
+    assert res.returncode == 0, res.stderr
+    assert ("bit-identical to train_reference over the observed "
+            "responder trace: True") in res.stdout
+    assert "sharded masters x2: per-master critical path" in res.stdout
+    got = json.loads(out.read_text())
+    assert got["config"]["masters"] == 2 and got["bit_identical"] is True
+    g = got["wait_stats"]["masters"]
+    assert g["size"] == 2 and g["critical_path_s"] > 0
 
 
 @pytest.mark.parametrize("flags", [

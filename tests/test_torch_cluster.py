@@ -15,9 +15,10 @@ mini-batch, and with a spare and a join:
   * the port's run is bit-identical to the port's own train_reference
     over its responder trace.
 
-Also: the port's StreamingDecoder and prefix_decode_plan against the
-reference's on hits, misses and near-miss variants (bit-equal), and the
-port's refusals.
+With a group of S masters (``masters=S``) the same holds, and the weights
+equal the one-master run's bit for bit.  Also: the port's StreamingDecoder
+and prefix_decode_plan against the reference's on hits, misses and
+near-miss variants (bit-equal), and the port's refusals.
 """
 import itertools
 import math
@@ -159,6 +160,9 @@ def run_both(cfg_kw, lat_name, pipeline="off", iters=ITERS, c=1, **kw):
                                                   abs=1e-9), t
     stats_j, stats_t = jrun.wait_stats(), trun.wait_stats()
     assert stats_j["membership"] == stats_t["membership"]
+    # a master group's seconds are each package's own CPU time
+    gj, gt = stats_j.pop("masters", None), stats_t.pop("masters", None)
+    assert (gj and gj["size"]) == (gt and gt["size"])
     if pipeline != "full":
         assert stats_j == stats_t
 
@@ -188,6 +192,27 @@ def test_runner_matches_reference(lat, pipeline):
         assert all(0 not in set(map(int, trun.records[t].survivors))
                    for t in range(3, ITERS))
         assert math.isinf(trun.records[ITERS - 1].all_wait_s)
+
+
+@pytest.mark.parametrize("masters,pipeline,c,extra", [
+    (2, "off", 1, {}),
+    (3, "full", 3, {}),
+    (2, "off", 1, {"spares": 1, "join_schedule": {8: 3}}),
+])
+def test_runner_matches_reference_sharded_masters(masters, pipeline, c,
+                                                  extra):
+    """A group of S masters on both packages (in process the group encodes
+    the dataset; with a spare, the spare-extended config's): the same
+    traces, bit-equal parts, and the port's weights bit-identical to the
+    port's one-master run of the same flags and to its replay."""
+    cfg_kw = dict(BINARY, c=c, batch_rows=16 if c > 1 else None)
+    _, trun = run_both(cfg_kw, "lognormal", pipeline, c=c, masters=masters,
+                       **extra)
+    _, one = run_both(cfg_kw, "lognormal", pipeline, c=c, **extra)
+    assert torch.equal(trun.w2, one.w2)
+    assert torch.equal(trun.state.x_shares, one.state.x_shares)
+    g = trun.wait_stats()["masters"]
+    assert g["size"] == masters and g["critical_path_s"] > 0
 
 
 @pytest.mark.parametrize("pipeline", ["off", "full"])
@@ -247,13 +272,42 @@ def test_runner_refusals():
         TRunner(ca, x, y, lat, device="cpu", engine="alcc", masters=2)
     with pytest.raises(ValueError, match="unknown engine"):
         TRunner(ct, x, y, lat, device="cpu", engine="sideways")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TRunner(ct, x, y, lat, device="cpu", masters=2)
     with pytest.raises(ValueError):
         TRunner(ct, x, y, lat, device="cpu", pipeline="sideways")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TRunner(ct, x, y, lat)
+
+
+def test_provisioning_barrier_keeps_early_ackers_live():
+    """Acks spread over 1 s against a 0.5 s heartbeat timeout: the worker
+    that acked first was silent for the rest of the barrier only because
+    no round was dispatched, so every acked worker is live when it ends
+    (the first fence of an elastic run would otherwise retire it)."""
+    from repro_torch.cluster.messages import Heartbeat
+    from repro_torch.cluster.runner import await_worker_acks
+    from repro_torch.runtime.resilience import HeartbeatMonitor
+
+    class AckTransport:
+        def __init__(self, acks):
+            self.acks = list(acks)              # (arrival time, worker)
+            self.now = 0.0
+
+        def next_delivery(self, dst):
+            return self.acks[0][0] if self.acks else None
+
+        def recv(self, dst, now):
+            self.now = now
+            out = [(t, Heartbeat(w, t)) for t, w in self.acks if t <= now]
+            self.acks = [a for a in self.acks if a[0] > now]
+            return out
+
+    tr = AckTransport([(0.0, 0), (0.4, 1), (1.0, 2)])
+    mon = HeartbeatMonitor(3, timeout_s=0.5, now=0.0)
+    await_worker_acks(tr, lambda: tr.now, 3, mon, timeout_s=10.0)
+    assert tr.now == 1.0
+    assert [mon.is_dead(w, now=1.0) for w in range(3)] == [False] * 3
+    assert mon.is_dead(0, now=1.6)              # silence after it counts
 
 
 # -- the streaming decode against the reference's --

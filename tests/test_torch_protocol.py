@@ -96,7 +96,7 @@ def test_config_conversion_and_refusals():
     cj, ct = configs(N=8, K=2, T=1, c=3, batch_rows=5)
     assert (ct.threshold, ct.grad_scale) == (cj.threshold, cj.grad_scale)
     assert ct.headroom_bits(1.0, 100) == cj.headroom_bits(1.0, 100)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         tp.CPMLConfig(N=8, K=2, T=1, backend="shard")
     with pytest.raises(ValueError):
         tp.CPMLConfig(N=6, K=2, T=1)                 # below threshold
