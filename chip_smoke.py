@@ -43,7 +43,16 @@ iterating on a kernel); such a partial run prints no ok line.
             one chunk and a step at hymba's width, h0 and dh_last non-zero,
             and ``SelectiveScanFn``'s bfloat16 gradients through views of
             one projection; two calls bit-identical; its device launches a
-            call, per-kernel device ms and ptxas registers and spills; and
+            call, per-kernel device ms and ptxas registers and spills; the
+            backward in the bf16 a/b mode (``kernels_scan_bwd_ab16``)
+            within 1e-4 of its largest gradient of the plain backward of
+            that mode at hymba's and falcon-mamba's training shapes (x and
+            dt bf16 and float32, chunks of 128), hymba's with chunks of
+            100 and 300 and with the plan's chunk forced to 128, chunks of
+            1 and 7, S = 1, S not a multiple of the chunk, a chunk of at
+            least S, n in {1, 3}, the element that sets each error printed,
+            two calls bit-identical, ``SelectiveScanFn`` in the mode, timed
+            beside the float32 mode; and
             times each
             main-path shape (CUDA events; the
             field kernels also replayed from a CUDA graph, the device's time
@@ -138,10 +147,20 @@ iterating on a kernel); such a partial run prints no ok line.
             each under torch.profiler (device ms by kernel group, the
             optimizer's, launches, busy share, the scan's share) and
             attention alone at the step's shapes
+  train_lm_ab16  hymba-1.5b at full width and depth trained in the scan's
+            bf16 a/b mode (chunks of 128) through ``train.train_step_fn``,
+            bf16 parameters, float32 AdamW, block remat, batch 4 x 2048, 4
+            steps: exactly 64 ``selective_scan`` and 32
+            ``selective_scan_bwd`` launches a step, finite losses, the last
+            below 1.05 x the first; step ms, peak device memory, and one
+            more step profiled (the scan backward's device ms a step)
   consistency_train  hymba at full width, 2 layers (one global, one
             windowed), float32, batch 2 x 256: the loss and every gradient
             leaf on the card against the CPU within 1e-3 of each leaf's
-            largest |g|; exactly 4 scan and 2 backward launches
+            largest |g|; exactly 4 scan and 2 backward launches; then in
+            the bf16 a/b mode: every leaf within 2^-7 of its largest |g|
+            and within a quarter of the float32 mode's RMS distance, with
+            the CPU gradient's own spread under one ulp of float32 noise
   cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
             Case 1 for 25 rounds under lognormal latencies with ``--pipeline
             off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
@@ -328,6 +347,23 @@ GELU_SAMPLES = 1 << 20
 # error is measured after taking off that one rounding's share
 # (``bwd_err``).
 BWD_RTOL = 1e-4
+# The backward in the bf16 a/b mode against its plain version on the card:
+# the kernels recompute the mode's forward with the forward kernel's
+# operations (expf, the products rounded singly), and the plain version on
+# the card with torch's exp and unfused products, the operations it runs
+# forward with; the forward's check (AB16_ATOL) finds both rounding a_t,
+# b_t, A_c and B_c alike.  What is left is BWD_RTOL's float32 sums in
+# another order, and in the split mode chunks the carries G (through P_s,
+# the product of the rounded a_t) where the plain version multiplies step
+# by step: 1e-4 of each gradient's largest magnitude, as in the float32
+# mode.  Where exp and expf straddled a bf16 rounding, one a_t would move
+# by 2^-8 of itself, and every later A_c, B_c of its chunk with it: the
+# check prints the element that sets each gradient's error to show it.
+AB16_BWD_RTOL = BWD_RTOL
+# LM training in the bf16 a/b mode (RunConfig(ssm_dtype="bf16"), chunks of
+# run_config's scan_chunk, 128): hymba at full width and depth, bf16
+# parameters, float32 AdamW, block remat, through train.train_step_fn
+TRAIN_AB16 = dict(arch="hymba-1.5b", batch=4, seq=2048, steps=4)
 # LM training at full width and depth on one card (PERF.md section 4):
 # bf16 parameters, float32 AdamW state, block remat, 10 steps through
 # repro_torch.launch.train; hymba's batch and sequence are the serve
@@ -342,6 +378,23 @@ CONSISTENCY_TRAIN = dict(arch="hymba-1.5b", pattern=(("hybrid_global", 1),
                                                      ("hybrid", 1)),
                          batch=2, seq=256)
 GRAD_REL = 1e-3
+# consistency_train's runs: the float32 scan, then the bf16 a/b mode (its
+# gradient on the CPU: the plain backward, ops.PlainAB16ScanFn)
+CONSISTENCY_MODES = ("f32", "bf16")
+# The bf16 a/b mode card against CPU: the two compute the same function, but
+# its forward rounds a_t and b_t to bf16, and where the card's and the CPU's
+# float32 inputs to those roundings (x_proj's and in_proj's products, exp)
+# differ in their last bits, an a_t or b_t moves one bf16 step (2^-8 of
+# itself) and A_c, B_c with it for the rest of the chunk: the gradient is
+# as far from itself under float32 noise as card from CPU (the phase
+# measures it: the CPU run again from parameters moved by one float32 ulp).
+# Each leaf within 2^-7 of its largest |g| (one bf16 step of a_t and of the
+# running products, as AB16_MIX_REL), and, to show that the card computes
+# the mode's gradient and not the float32 one, each leaf's RMS distance
+# card to CPU at most a quarter of its distance from the CPU's float32-mode
+# gradient.
+AB16_GRAD_REL = 2.0 ** -7
+AB16_GRAD_RMS_SHARE = 0.25
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
 PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
@@ -349,7 +402,7 @@ PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
           "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
           "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
           "serve_whisper", "consistency_whisper", "train_lm",
-          "consistency_train", "cluster", "socket", "mpc",
+          "train_lm_ab16", "consistency_train", "cluster", "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
 
@@ -875,21 +928,23 @@ def scan_bwd_inputs(torch, gen, B, S, di, n, x_dtype, dt_dtype):
             torch.randn((B, di, n), generator=gen, device="cuda"))
 
 
-def scan_bwd_bound(B: int, S: int, di: int, n: int, xbytes: int
-                   ) -> tuple[float, str, float, float]:
+def scan_bwd_bound(B: int, S: int, di: int, n: int, xbytes: int,
+                   flops: int = 17) -> tuple[float, str, float, float]:
     """The backward's least time: (bound ms, by, bytes ms, operations ms).
     Bytes: each input read once in its dtype (x, dt in ``xbytes``; Bm, Cm,
     A_log, D, h0, dy, dh_last float32) and each output written once (dx,
     ddt in x's dtype; dbm, dcm, dA_log, dD, dh0 float32).  Operations: one
-    exp (a_t) and ~17 flops a (b, t, i, j) at their rates."""
+    exp (a_t) and ``flops`` a (b, t, i, j) at their rates: ~17 for the
+    float32 recurrence; the bf16 a/b mode's forward adds b_t's two products,
+    A_c's and B_c's three, h_t's two and four roundings: ~28."""
     el = B * S * di * n
     nbytes = (B * S * di * 2 * xbytes + 2 * B * S * n * 4 + (di * n + di) * 4
               + 2 * B * di * n * 4 + B * S * di * 4              # inputs
               + B * S * di * 2 * xbytes + 2 * B * S * n * 4
               + (di * n + di) * 4 + B * di * n * 4)               # outputs
-    b_ms, b_by = bound(nbytes, 17 * el, el)
+    b_ms, b_by = bound(nbytes, flops * el, el)
     return (b_ms, b_by, nbytes / HBM_BYTES_PER_S * 1e3,
-            max(17 * el / SCALAR_OPS_PER_S, el / SPECIAL_OPS_PER_S) * 1e3)
+            max(flops * el / SCALAR_OPS_PER_S, el / SPECIAL_OPS_PER_S) * 1e3)
 
 
 def bwd_err(torch, g, w) -> tuple[float, float]:
@@ -906,40 +961,52 @@ def bwd_err(torch, g, w) -> tuple[float, float]:
     return float(diff.max()), err / max(float(w.abs().max()), 1e-30)
 
 
-def scan_fn_views(torch, gen) -> None:
-    """``SelectiveScanFn`` as the model calls it: bfloat16 x and dt, and bm
-    and cm bfloat16 views of one projection (``models/mamba.py``
-    ``_ssm_params``).  Each gradient comes back in its input's dtype and
-    slice, within ``BWD_RTOL`` of the plain version's (``bwd_err``)."""
+def scan_fn_views(torch, gen, ssm_dtype: str = "f32", chunk: int = 0,
+                  S: int = 45) -> dict:
+    """``SelectiveScanFn`` as the model calls it, in the mode ``ssm_dtype``
+    (``chunk``): bfloat16 x and dt, and bm and cm bfloat16 views of one
+    projection (``models/mamba.py`` ``_ssm_params``).  Each gradient comes
+    back in its input's dtype and slice, within ``BWD_RTOL`` of the plain
+    version's (``bwd_err``)."""
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
 
-    B, S, di, n = 2, 45, 1001, 16
+    B, di, n = 2, 1001, 16
     x, dt, bm, cm, a_log, d, h0, dy, dh = scan_bwd_inputs(
         torch, gen, B, S, di, n, torch.bfloat16, torch.bfloat16)
     proj = torch.cat([bm, cm], -1).bfloat16().requires_grad_(True)
-    xb, dtb = (t.detach().requires_grad_(True) for t in (x, dt))
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a_log, d, h0)]
+    xb, dtb, alb, db, h0b = leaves
     y, h = ms.SelectiveScanFn.apply(xb, dtb, proj[..., :n], proj[..., n:],
-                                    a_log, d, h0, "f32", 0)
+                                    alb, db, h0b, ssm_dtype, chunk)
     ((y * dy).sum() + (h * dh).sum()).backward()
     torch.cuda.synchronize()
     w = ref.selective_scan_bwd_ref(x, dt, proj[..., :n].detach(),
                                    proj[..., n:].detach(), a_log, d, h0, dy,
-                                   dh)
+                                   dh, ssm_dtype, chunk)
     rel = {}
-    for name, g, want in (("dx", xb.grad, w[0]), ("ddt", dtb.grad, w[1]),
-                          ("dproj", proj.grad, torch.cat(w[2:4], -1))):
-        if g.dtype != torch.bfloat16 or g.shape != want.shape:
-            raise AssertionError(f"SelectiveScanFn {name}: {g.dtype} "
-                                 f"{tuple(g.shape)}, expected bfloat16 "
-                                 f"{tuple(want.shape)}")
+    for name, g, want, dtype in (
+            ("dx", xb.grad, w[0], torch.bfloat16),
+            ("ddt", dtb.grad, w[1], torch.bfloat16),
+            ("dproj", proj.grad, torch.cat(w[2:4], -1), torch.bfloat16),
+            ("da_log", alb.grad, w[4], torch.float32),
+            ("dd", db.grad, w[5], torch.float32),
+            ("dh0", h0b.grad, w[6], torch.float32)):
+        if g.dtype != dtype or g.shape != want.shape:
+            raise AssertionError(f"SelectiveScanFn {ssm_dtype} {name}: "
+                                 f"{g.dtype} {tuple(g.shape)}, expected "
+                                 f"{dtype} {tuple(want.shape)}")
         rel[name] = bwd_err(torch, g, want)[1]
-    emit({"phase": "kernels", "kernel": "selective_scan_bwd",
-          "case": "SelectiveScanFn_bf16_views", "max_rel_err": rel,
-          "tolerance_rel": BWD_RTOL})
+    info = {"phase": "kernels", "kernel": "selective_scan_bwd",
+            "case": ("SelectiveScanFn_bf16_views" if ssm_dtype == "f32"
+                     else "ab16_SelectiveScanFn_bf16_views"),
+            "shape": [B, S, di, n], "ssm_dtype": ssm_dtype, "chunk": chunk,
+            "max_rel_err": rel, "tolerance_rel": BWD_RTOL}
+    emit(info)
     if not all(v <= BWD_RTOL for v in rel.values()):
-        raise AssertionError(f"SelectiveScanFn through views: {rel} beyond "
-                             f"{BWD_RTOL}")
+        raise AssertionError(f"SelectiveScanFn {ssm_dtype} through views: "
+                             f"{rel} beyond {BWD_RTOL}")
+    return info
 
 
 def ptxas_report(name: str, match: str) -> dict:
@@ -956,13 +1023,15 @@ def ptxas_report(name: str, match: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             entry = m.group(1)
-            k = re.search(match + r"_[a-z]+_kernel", entry)
+            k = re.search(match + r"_[a-z0-9_]+?_kernel", entry)
             cur = None
             if k:
                 t = entry[k.end():]
-                cur = k.group(0) + (
-                    "<bf16>" if t.startswith("I13__nv_bf")
-                    else "<f32>" if t.startswith("IfE") else "")
+                kind = ("bf16" if t.startswith("I13__nv_bf")
+                        else "f32" if t.startswith("If") else "")
+                if kind and "Lb1E" in t:   # the bf16 a/b mode's instance
+                    kind += ",ab16"
+                cur = k.group(0) + (f"<{kind}>" if kind else "")
                 out[cur] = {}
             continue
         if cur is None:
@@ -1002,25 +1071,132 @@ def device_launches(torch, fn) -> dict:
             "device_ms_by_kernel": ms}
 
 
-def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
-    """The scan's backward kernels against their plain version
-    (``ref.selective_scan_bwd_ref``) on the card, each gradient within
-    ``BWD_RTOL`` of its largest magnitude: hymba's and falcon-mamba's
-    training shapes with x and dt bf16 and float32, S = 1, 33 and 8192, n
-    in {1, 3, 16} with di not a multiple of the block's 32 channels, one
-    chunk and one chunk and a step (S = L and L + 1 at hymba's width, L the
-    plan's chunk at hymba's training shape, forced), h0 and dh_last non-zero
-    throughout (``bwd_err``), and through ``SelectiveScanFn``
-    (``scan_fn_views``); two calls on the same inputs give the same bits.
-    Then timed at the two training shapes (CUDA events, and replayed from a
-    CUDA graph) beside its bound and the plain version, with the device
-    launches a call and each kernel's registers and spills."""
+def bwd_worst(torch, g, w) -> dict:
+    """The element of a gradient g (kernel) that sets its error against w
+    (plain version): its index, both values, and max |w|."""
+    diff = (g.float() - w).abs()
+    k = int(diff.argmax())
+    idx = [int(v) for v in torch.unravel_index(torch.tensor(k), w.shape)]
+    return {"index": idx, "kernel": float(g.flatten()[k]),
+            "plain": float(w.flatten()[k]), "max_abs_plain":
+            float(w.abs().max())}
+
+
+def bwd_check(torch, checks: Checks, gen, case: str, shape, x_dtype,
+              dt_dtype, plan_chunk, mode=("f32", 0), tol: float = BWD_RTOL,
+              twice: bool = False) -> None:
+    """One case of the backward kernels (``run_bwd`` with the plan's chunk
+    forced to ``plan_chunk``, None: the plan's own) in ``mode``
+    (``ssm_dtype``, chunk) against the plain backward on the same inputs:
+    each gradient in its dtype and within ``tol`` of its largest magnitude
+    (``bwd_err``), the element that sets each error printed; ``twice``: a
+    second call on the same inputs gives the same bits."""
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
 
     bf16, f32 = torch.bfloat16, torch.float32
-    gen = torch.Generator(device="cuda").manual_seed(9)
     names = ("dx", "ddt", "dbm", "dcm", "da_log", "dd", "dh0")
+    args = scan_bwd_inputs(torch, gen, *shape, x_dtype, dt_dtype)
+    got = ms.run_bwd(plan_chunk, *args, *mode)
+    torch.cuda.synchronize()
+    want = ref.selective_scan_bwd_ref(*args, *mode)
+    # dx and ddt in the dtype the kernel reads x and dt in
+    xd = bf16 if x_dtype == dt_dtype == bf16 else f32
+    abs_err, rel, worst = {}, {}, {}
+    for name, g, w in zip(names, got, want):
+        dtype = xd if name in ("dx", "ddt") else f32
+        if g.shape != w.shape or g.dtype != dtype:
+            raise AssertionError(f"selective_scan_bwd {case} {name}: "
+                                 f"{g.shape} {g.dtype} vs {w.shape} {dtype}")
+        abs_err[name], rel[name] = bwd_err(torch, g, w)
+        worst[name] = bwd_worst(torch, g, w)
+    checks.max_err["selective_scan_bwd"] = max(
+        checks.max_err["selective_scan_bwd"], *abs_err.values())
+    ab = min(mode[1], shape[1]) if mode[0] == "bf16" else 0
+    pl = ms.plan_bwd(*shape[:3], xd.itemsize, chunk=plan_chunk, ab_chunk=ab)
+    emit({"phase": "kernels", "kernel": "selective_scan_bwd", "case": case,
+          "shape": list(shape), "x_dtype": str(x_dtype),
+          "dt_dtype": str(dt_dtype), "ssm_dtype": mode[0],
+          "mode_chunk": mode[1], "chunk": pl.chunk,
+          "per_mode_chunk": pl.per_ab, "grid": list(pl.grid),
+          "max_abs_err": abs_err, "max_rel_err": rel, "worst_element": worst,
+          "tolerance_rel": tol})
+    bad = {k: v for k, v in rel.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"selective_scan_bwd {case}: kernel != plain "
+                             f"version beyond {tol} relative: {bad}")
+    if twice:
+        again = ms.selective_scan_bwd(*args, *mode)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        emit({"phase": "kernels", "kernel": "selective_scan_bwd",
+              "case": case, "bit_identical_second_call": same})
+        if not same:
+            raise AssertionError(f"selective_scan_bwd {case}: two calls on "
+                                 f"the same inputs differ")
+    del args, got, want
+    torch.cuda.empty_cache()
+
+
+def bwd_timing(torch, gen, case: str, di: int, ptxas: dict,
+               mode=("f32", 0)) -> dict:
+    """The backward at a training shape (B 4, S 2048, ``di``, n 16; x and
+    dt bf16) in ``mode``: CUDA events and a CUDA graph, beside its bound
+    and the plain version, the device launches a call and ``ptxas``; at
+    hymba's width the plan's chunk against half and twice it; in the bf16
+    a/b mode also the float32 mode's graph time in the same call."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ref
+
+    B, S, n = 4, 2048, 16
+    ab16 = mode[0] == "bf16"
+    args = scan_bwd_inputs(torch, gen, B, S, di, n, torch.bfloat16,
+                           torch.bfloat16)
+    b_ms, b_by, bytes_ms, ops_ms = scan_bwd_bound(B, S, di, n, 2,
+                                                  28 if ab16 else 17)
+    pl = ms.plan_bwd(B, S, di, 2, ab_chunk=mode[1] if ab16 else 0)
+    t = {"kernel": "selective_scan_bwd", "case": case, "shape": [B, S, di, n],
+         "dt_dtype": str(torch.bfloat16), "chunk": pl.chunk,
+         "grid": list(pl.grid),
+         "ms": time_ms(torch, lambda: ms.selective_scan_bwd(*args, *mode), 5),
+         "graph_ms": graph_ms(
+             torch, lambda: ms.selective_scan_bwd(*args, *mode), 3),
+         "plain_ms": time_ms(
+             torch, lambda: ref.selective_scan_bwd_ref(*args, *mode), 1,
+             trials=1),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms,
+         "operations_ms": ops_ms,
+         "device_launches": device_launches(
+             torch, lambda: ms.selective_scan_bwd(*args, *mode)),
+         "ptxas": ptxas}
+    if ab16:
+        t.update(ssm_dtype="bf16", mode_chunk=mode[1],
+                 per_mode_chunk=pl.per_ab, f32_mode_graph_ms=graph_ms(
+                     torch, lambda: ms.selective_scan_bwd(*args), 3))
+    if di == 3200:  # the plan's chunk and its neighbours
+        t["graph_ms_by_chunk"] = {
+            L: graph_ms(torch, lambda: ms.run_bwd(L, *args, *mode), 3)
+            for L in (pl.chunk // 2, pl.chunk, 2 * pl.chunk)}
+    emit({"phase": "kernels", "timing": t})
+    del args
+    torch.cuda.empty_cache()
+    return t
+
+
+def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
+    """The scan's backward kernels against their plain version
+    (``ref.selective_scan_bwd_ref``) on the card, each gradient within
+    ``BWD_RTOL`` of its largest magnitude (``bwd_check``): hymba's and
+    falcon-mamba's training shapes with x and dt bf16 and float32, S = 1,
+    33 and 8192, n in {1, 3, 16} with di not a multiple of the block's 32
+    channels, one chunk and one chunk and a step (S = L and L + 1 at
+    hymba's width, L the plan's chunk at hymba's training shape, forced),
+    h0 and dh_last non-zero throughout, and through ``SelectiveScanFn``
+    (``scan_fn_views``); two calls on the same inputs give the same bits.
+    Then timed at the two training shapes (``bwd_timing``)."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(9)
     L = ms.plan_bwd(4, 2048, 3200, 2).chunk
     cases = [
         ("hymba_train_bf16", (4, 2048, 3200, 16), bf16, bf16, None),
@@ -1037,73 +1213,59 @@ def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
         ("hymba_S_eq_L_plus_1", (4, L + 1, 3200, 16), bf16, bf16, L),
     ]
     for case, shape, x_dtype, dt_dtype, chunk in cases:
-        args = scan_bwd_inputs(torch, gen, *shape, x_dtype, dt_dtype)
-        got = ms.run_bwd(chunk, *args)
-        torch.cuda.synchronize()
-        want = ref.selective_scan_bwd_ref(*args)
-        # dx and ddt in the dtype the kernel reads x and dt in
-        xd = bf16 if x_dtype == dt_dtype == bf16 else f32
-        abs_err, rel = {}, {}
-        for name, g, w in zip(names, got, want):
-            dtype = xd if name in ("dx", "ddt") else f32
-            if g.shape != w.shape or g.dtype != dtype:
-                raise AssertionError(f"selective_scan_bwd {case} {name}: "
-                                     f"{g.shape} {g.dtype} vs {w.shape} "
-                                     f"{dtype}")
-            abs_err[name], rel[name] = bwd_err(torch, g, w)
-        checks.max_err["selective_scan_bwd"] = max(
-            checks.max_err["selective_scan_bwd"], *abs_err.values())
-        pl = ms.plan_bwd(*shape[:3], xd.itemsize, chunk=chunk)
-        emit({"phase": "kernels", "kernel": "selective_scan_bwd",
-              "case": case, "shape": list(shape), "x_dtype": str(x_dtype),
-              "dt_dtype": str(dt_dtype), "chunk": pl.chunk,
-              "grid": list(pl.grid), "max_abs_err": abs_err,
-              "max_rel_err": rel, "tolerance_rel": BWD_RTOL})
-        bad = {k: v for k, v in rel.items() if not v <= BWD_RTOL}
-        if bad:
-            raise AssertionError(f"selective_scan_bwd {case}: kernel != plain "
-                                 f"version beyond {BWD_RTOL} relative: {bad}")
-        if case == "hymba_train_bf16":
-            again = ms.selective_scan_bwd(*args)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            emit({"phase": "kernels", "kernel": "selective_scan_bwd",
-                  "case": case, "bit_identical_second_call": same})
-            if not same:
-                raise AssertionError("selective_scan_bwd: two calls on the "
-                                     "same inputs differ")
-            del again
-        del args, got, want
-        torch.cuda.empty_cache()
+        bwd_check(torch, checks, gen, case, shape, x_dtype, dt_dtype, chunk,
+                  twice=case == "hymba_train_bf16")
     scan_fn_views(torch, gen)
     ptxas = ptxas_report("mamba_scan_bwd", "scan_bwd")
-    timings = []
-    for case, di in (("hymba_train_bf16", 3200), ("falcon_train_bf16", 8192)):
-        B, S, n = 4, 2048, 16
-        args = scan_bwd_inputs(torch, gen, B, S, di, n, bf16, bf16)
-        b_ms, b_by, bytes_ms, ops_ms = scan_bwd_bound(B, S, di, n, 2)
-        pl = ms.plan_bwd(B, S, di, 2)
-        timings.append({
-            "kernel": "selective_scan_bwd", "case": case,
-            "shape": [B, S, di, n], "dt_dtype": str(bf16),
-            "chunk": pl.chunk, "grid": list(pl.grid),
-            "ms": time_ms(torch, lambda: ms.selective_scan_bwd(*args), 5),
-            "graph_ms": graph_ms(torch, lambda: ms.selective_scan_bwd(*args),
-                                 3),
-            "plain_ms": time_ms(
-                torch, lambda: ref.selective_scan_bwd_ref(*args), 1, trials=1),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms,
-            "operations_ms": ops_ms,
-            "device_launches": device_launches(
-                torch, lambda: ms.selective_scan_bwd(*args)),
-            "ptxas": ptxas})
-        if case == "hymba_train_bf16":  # the plan's chunk and its neighbours
-            timings[-1]["graph_ms_by_chunk"] = {
-                L: graph_ms(torch, lambda: ms.run_bwd(L, *args), 3)
-                for L in (pl.chunk // 2, pl.chunk, 2 * pl.chunk)}
-        emit({"phase": "kernels", "timing": timings[-1]})
-        del args
-        torch.cuda.empty_cache()
-    return timings
+    return [bwd_timing(torch, gen, case, di, ptxas)
+            for case, di in (("hymba_train_bf16", 3200),
+                             ("falcon_train_bf16", 8192))]
+
+
+def phase_kernels_scan_bwd_ab16(torch, checks: Checks) -> list[dict]:
+    """The backward kernels in the bf16 a/b mode (``ssm_dtype="bf16"``)
+    against the plain backward of that mode on the card, each gradient
+    within ``AB16_BWD_RTOL`` of its largest magnitude (``bwd_check``, the
+    element that sets each error printed): hymba's and falcon-mamba's
+    training shapes with x and dt bf16 and float32 at chunks of 128,
+    hymba's with chunks of 100 (split into plan chunks of 64 and 36) and
+    300 (more than the plan's 256 steps), and with the plan's chunk forced
+    to the mode's 128 (one plan chunk a mode chunk); chunks of 1 and 7,
+    S = 1, S not a multiple of the chunk, a chunk of at least S, n in
+    {1, 3} with di not a multiple of the block's channels, mixed x/dt
+    dtypes; h0 and dh_last non-zero throughout; two calls on the same
+    inputs give the same bits; ``SelectiveScanFn`` in the mode
+    (``scan_fn_views``).  Then timed at the two training shapes beside the
+    float32 mode (``bwd_timing``), with the mode's registers and spills."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hymba, falcon = (4, 2048, 3200, 16), (4, 2048, 8192, 16)
+    # (case, shape, x dtype, dt dtype, mode chunk, forced plan chunk)
+    cases = [
+        ("ab16_hymba_train_bf16", hymba, bf16, bf16, AB16_CHUNK, None),
+        ("ab16_hymba_train_f32", hymba, f32, f32, AB16_CHUNK, None),
+        ("ab16_falcon_train_bf16", falcon, bf16, bf16, AB16_CHUNK, None),
+        ("ab16_falcon_train_f32", falcon, f32, f32, AB16_CHUNK, None),
+        ("ab16_hymba_chunk100", hymba, bf16, bf16, 100, None),
+        ("ab16_hymba_chunk300", hymba, bf16, bf16, 300, None),
+        ("ab16_hymba_plan128", hymba, bf16, bf16, AB16_CHUNK, AB16_CHUNK),
+        ("ab16_chunk1", (2, 512, 3200, 16), bf16, bf16, 1, None),
+        ("ab16_S1", (4, 1, 8192, 16), bf16, bf16, AB16_CHUNK, None),
+        ("ab16_chunk_ge_S", (2, 300, 3200, 16), f32, f32, 4096, None),
+        ("ab16_S1000_di1001_n3", (2, 1000, 1001, 3), f32, bf16, AB16_CHUNK,
+         None),
+        ("ab16_S45_chunk7_di1000_n1", (2, 45, 1000, 1), bf16, bf16, 7, None),
+    ]
+    for case, shape, x_dtype, dt_dtype, chunk, plan_chunk in cases:
+        bwd_check(torch, checks, gen, case, shape, x_dtype, dt_dtype,
+                  plan_chunk, ("bf16", chunk), AB16_BWD_RTOL,
+                  twice=case == "ab16_hymba_train_bf16")
+    scan_fn_views(torch, gen, "bf16", AB16_CHUNK, S=300)
+    ptxas = {k: v for k, v in ptxas_report("mamba_scan_bwd", "scan_bwd")
+             .items() if "ab16" in k}
+    return [bwd_timing(torch, gen, case, di, ptxas, ("bf16", AB16_CHUNK))
+            for case, di in (("ab16_hymba_train_bf16", 3200),
+                             ("ab16_falcon_train_bf16", 8192))]
 
 
 def phase_train(torch, out_dir: Path) -> dict:
@@ -2111,11 +2273,95 @@ def phase_train_lm(torch, out_dir: Path) -> dict:
     return info
 
 
+def phase_train_lm_ab16(torch) -> dict:
+    """hymba-1.5b at full width and depth trained in the scan's bf16 a/b
+    mode (``TRAIN_AB16``) through ``train.train_step_fn``, the entry point
+    the train driver runs, with ``dataclasses.replace(train.run_config(seq,
+    batch), ssm_dtype="bf16")``: bf16 parameters (seed 0), the driver's
+    AdamW and block remat, the reference loader's batches.  Launch counts
+    reset just before the steps and read just after (``selective_scan``
+    2 x 32 a step, ``selective_scan_bwd`` 32 a step, nothing else);
+    finite losses, the last below 1.05 x the first; step ms (the first
+    apart; the host clock around a step and its loss's read) and peak
+    device memory; then one more step under torch.profiler: the scan
+    backward's device ms a step (``selective_scan_bwd`` group)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.loader import LMBatchLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+
+    spec = TRAIN_AB16
+    arch, B, S, steps = spec["arch"], spec["batch"], spec["seq"], spec["steps"]
+    cfg = registry.get_config(arch)
+    rc = dataclasses.replace(train.run_config(S, B), ssm_dtype="bf16")
+    ocfg = opt.OptimizerConfig(warmup_steps=max(2, steps // 10),
+                               total_steps=max(steps, 10))
+    torch.cuda.reset_peak_memory_stats()
+    model = M.Model(cfg, dtype=getattr(torch, rc.param_dtype), device="cuda",
+                    seed=0)
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    state = {"opt": opt.init_state(ocfg, params)}
+    step = train.train_step_fn(cfg, rc, ocfg, model)
+    losses, step_ms = [], []
+    with LMBatchLoader("cuda", B, S, cfg.vocab_size) as loader:
+        batches = [next(loader) for _ in range(steps + 1)]
+    ops.reset_launches()
+    for batch in batches[:steps]:
+        t0 = time.perf_counter()
+        _, state["opt"], metrics = step(params, state["opt"], batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def one():
+        _, state["opt"], _ = step(params, state["opt"], batches[steps])
+
+    w = profile_window(torch, one)
+    groups = w["device_ms_by_group"]
+    ssm = _ssm_layers(cfg)
+    info = {"phase": "train_lm_ab16", "arch": arch, "batch": B, "seq": S,
+            "ssm_dtype": rc.ssm_dtype, "scan_chunk": rc.scan_chunk,
+            "remat": rc.remat, "layers": cfg.num_layers, "steps": steps,
+            "launches": launches, "losses": losses,
+            "first_step_ms": step_ms[0],
+            "step_ms_median": statistics.median(step_ms[1:]),
+            "step_ms": step_ms, "tokens_per_s":
+                B * S * (steps - 1) / sum(step_ms[1:]) * 1e3,
+            "peak_gb": peak_gb,
+            "profiled_step": {
+                "device_ms": w["device_ms"], "host_ms": w["host_ms"],
+                "device_busy_share": w["device_busy_share"],
+                "scan_bwd_device_ms": groups.get("selective_scan_bwd", 0.0),
+                "scan_device_ms": groups.get("selective_scan", 0.0),
+                "launches_per_step": w["kernel_launches"]}}
+    emit(info)
+    del model, params, state, step, batches
+    want = {"modmatmul": 0, "coded_grad": 0,
+            "selective_scan": 2 * ssm * steps,
+            "selective_scan_bwd": ssm * steps}
+    if launches != want:
+        raise AssertionError(f"train_lm_ab16: kernel launches {launches}, "
+                             f"expected {want}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] * 1.05):
+        raise AssertionError(f"train_lm_ab16: losses {losses}")
+    return info
+
+
 def phase_consistency_train(torch) -> dict:
     """hymba at full width cut to 2 layers, float32, batch 2 x 256 tokens:
     ``loss_fn`` and its gradients on the card (the scan kernels; launches
     counted) against the CPU (plain versions) from the same parameters,
-    every leaf within ``GRAD_REL`` of its largest |g|."""
+    every leaf within ``GRAD_REL`` of its largest |g|; then in the bf16 a/b
+    mode (``CONSISTENCY_MODES``), whose CPU gradient is the plain backward
+    of that mode, every leaf within ``AB16_GRAD_REL`` and nearer the CPU's
+    mode gradient than its float32 one (``AB16_GRAD_RMS_SHARE``), with the
+    CPU gradient's own spread under one ulp of float32 noise beside it."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -2126,7 +2372,6 @@ def phase_consistency_train(torch) -> dict:
     cfg = dataclasses.replace(full, num_layers=len(spec["pattern"]),
                               block_pattern=spec["pattern"])
     B, S = spec["batch"], spec["seq"]
-    rc = train.run_config(S, B)
     gen = torch.Generator(device="cuda").manual_seed(10)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                          device="cuda")
@@ -2134,42 +2379,92 @@ def phase_consistency_train(torch) -> dict:
     gpu = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
     cpu = M.Model(cfg, dtype=torch.float32, device="cpu", seed=None)
     cpu.load_state_dict(gpu.state_dict())
-    out = {}
-    for name, model in (("card", gpu), ("cpu", cpu)):
-        dev = next(model.parameters()).device
+    ssm = _ssm_layers(cfg)
+    want = {"modmatmul": 0, "coded_grad": 0, "selective_scan": 2 * ssm,
+            "selective_scan_bwd": ssm}
+    res: dict = {"phase": "consistency_train", "pattern": spec["pattern"],
+                 "d_model": cfg.d_model, "batch": B, "seq": S,
+                 "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+                 "tolerance_rel": GRAD_REL, "modes": {}}
+
+    def rms_rel(g, w):
+        return float((g - w).pow(2).mean().sqrt()
+                     / max(float(w.pow(2).mean().sqrt()), 1e-30))
+
+    def grads(model, rc, dev):
         model.requires_grad_(True)
-        ops.reset_launches()
+        model.zero_grad(set_to_none=True)
         loss = M.loss_fn(cfg, rc, model, {k: v.to(dev)
                                           for k, v in batch.items()})
         loss.backward()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        out[name] = (float(loss.detach()), dict(ops.LAUNCHES),
-                     {k: p.grad.cpu() for k, p in model.named_parameters()})
-    (lg, launches, gg), (lc, _, gc_) = out["card"], out["cpu"]
-    rel = {k: float((gg[k] - w).abs().max()) / max(float(w.abs().max()),
-                                                    1e-30)
-           for k, w in gc_.items()}
-    worst = max(rel, key=rel.get)
-    ssm = _ssm_layers(cfg)
-    info = {"phase": "consistency_train", "pattern": spec["pattern"],
-            "d_model": cfg.d_model, "batch": B, "seq": S,
-            "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
-            "loss_card": lg, "loss_cpu": lc,
-            "loss_rel_err": abs(lg - lc) / abs(lc), "launches": launches,
-            "leaves": len(rel), "max_rel_err": rel[worst], "worst_leaf": worst,
-            "tolerance_rel": GRAD_REL}
-    emit(info)
-    want = {"modmatmul": 0, "coded_grad": 0, "selective_scan": 2 * ssm,
-            "selective_scan_bwd": ssm}
-    if launches != want:
-        raise AssertionError(f"consistency_train launches {launches}, "
-                             f"expected {want}")
-    bad = {k: v for k, v in rel.items() if not v <= GRAD_REL}
-    if bad or not info["loss_rel_err"] <= GRAD_REL:
-        raise AssertionError(f"consistency_train beyond {GRAD_REL}: loss "
-                             f"{info['loss_rel_err']}, leaves {bad}")
-    return info
+        return float(loss.detach()), {k: p.grad.cpu() for k, p in
+                                      model.named_parameters()}
+
+    cpu_grads = {}
+    for mode in CONSISTENCY_MODES:
+        rc = dataclasses.replace(train.run_config(S, B), ssm_dtype=mode)
+        ops.reset_launches()
+        lg, gg = grads(gpu, rc, "cuda")
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        lc, gc_ = grads(cpu, rc, "cpu")
+        cpu_grads[mode] = gc_
+        rel = {k: float((gg[k] - w).abs().max()) / max(float(w.abs().max()),
+                                                        1e-30)
+               for k, w in gc_.items()}
+        worst = max(rel, key=rel.get)
+        tol = GRAD_REL if mode == "f32" else AB16_GRAD_REL
+        info = {"ssm_dtype": mode, "scan_chunk": rc.scan_chunk,
+                "loss_card": lg, "loss_cpu": lc,
+                "loss_rel_err": abs(lg - lc) / abs(lc), "launches": launches,
+                "leaves": len(rel), "max_rel_err": rel[worst],
+                "worst_leaf": worst, "tolerance_rel": tol}
+        if mode == "bf16":
+            # the mode's own spread: the CPU again from parameters moved by
+            # one float32 ulp (a finding, not a check)
+            state = {k: v.clone() for k, v in cpu.state_dict().items()}
+            noise = torch.Generator().manual_seed(12)
+            with torch.no_grad():
+                for p in cpu.parameters():
+                    p.mul_(1 + 2.0 ** -23 * torch.randn(p.shape,
+                                                        generator=noise))
+            _, gn = grads(cpu, rc, "cpu")
+            cpu.load_state_dict(state)
+            ratio = {k: rms_rel(gg[k], w) / max(rms_rel(cpu_grads["f32"][k],
+                                                        w), 1e-30)
+                     for k, w in gc_.items()}
+            info.update(
+                rms_rel_card_vs_cpu_max=max(rms_rel(gg[k], w)
+                                            for k, w in gc_.items()),
+                rms_rel_f32_mode_vs_cpu_min=min(
+                    rms_rel(cpu_grads["f32"][k], w) for k, w in gc_.items()),
+                rms_share_max=max(ratio.values()),
+                rms_share_worst_leaf=max(ratio, key=ratio.get),
+                rms_share_tolerance=AB16_GRAD_RMS_SHARE,
+                cpu_ulp_noise_max_rel=max(
+                    float((gn[k] - w).abs().max()) / max(float(w.abs().max()),
+                                                         1e-30)
+                    for k, w in gc_.items()),
+                cpu_ulp_noise_rms_rel_max=max(rms_rel(gn[k], w)
+                                              for k, w in gc_.items()))
+        res["modes"][mode] = info
+        emit({"phase": "consistency_train", **info})
+        if launches != want:
+            raise AssertionError(f"consistency_train {mode} launches "
+                                 f"{launches}, expected {want}")
+        bad = {k: v for k, v in rel.items() if not v <= tol}
+        if bad or not info["loss_rel_err"] <= GRAD_REL:
+            raise AssertionError(f"consistency_train {mode} beyond {tol}: "
+                                 f"loss {info['loss_rel_err']}, leaves {bad}")
+        if mode == "bf16" and not info["rms_share_max"] <= AB16_GRAD_RMS_SHARE:
+            raise AssertionError(f"consistency_train bf16: leaf "
+                                 f"{info['rms_share_worst_leaf']} lies "
+                                 f"{info['rms_share_max']} of the float32 "
+                                 f"mode's distance from the CPU's")
+    # the float32 run's launches, as before; the mode's beside them
+    res["launches"] = res["modes"]["f32"]["launches"]
+    res["launches_ab16"] = res["modes"]["bf16"]["launches"]
+    return res
 
 
 def _mem_available_gb() -> float:
@@ -3383,6 +3678,8 @@ def main(argv: list[str] | None = None) -> int:
         timings += run_phase("kernels_scan", phase_kernels_scan, torch, checks)
         timings += run_phase("kernels_scan_bwd", phase_kernels_scan_bwd, torch,
                              checks)
+        timings += run_phase("kernels_scan_bwd_ab16",
+                             phase_kernels_scan_bwd_ab16, torch, checks)
         ran["ab16_mix"] = run_phase("kernels_ab16_mix", phase_ab16_mix, torch)
         timings += run_phase("kernels_predict", phase_kernels_predict, torch,
                              checks)
@@ -3411,6 +3708,7 @@ def main(argv: list[str] | None = None) -> int:
             ("serve_whisper", phase_serve_whisper, (torch,)),
             ("consistency_whisper", phase_consistency_whisper, (torch,)),
             ("train_lm", phase_train_lm, (torch, out_dir)),
+            ("train_lm_ab16", phase_train_lm_ab16, (torch,)),
             ("consistency_train", phase_consistency_train, (torch,)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
@@ -3487,8 +3785,12 @@ def main(argv: list[str] | None = None) -> int:
                                  ("alcc_inprocess", "alcc"),
                                  ("alcc_socket", "alcc_socket"),
                                  ("alcc_mlp", "alcc_mlp"),
-                                 ("consistency_train", "consistency_train"))
+                                 ("consistency_train", "consistency_train"),
+                                 ("train_lm_ab16", "train_lm_ab16"))
                     if v in ran}})
+            if "consistency_train" in ran:
+                kernels[-1]["launches_by_path"]["consistency_train_ab16"] = (
+                    ran["consistency_train"]["launches_ab16"][name])
             if "train_lm" in ran:
                 kernels[-1]["launches_by_path"].update({
                     f"train_lm_{arch}": run["launches"][name]

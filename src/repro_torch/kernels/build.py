@@ -68,9 +68,9 @@ _ARGTYPES = {
     "mamba_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P],
     # x, dt, bc, a_log, d, h0, dy, dh_last, hcar, gcar, dsum, dx, ddt,
-    # dbc_part, da_part, dd_part, dh0, B, S, di, n, bf16, vec, channels,
-    # chunk, smem, stream
-    "mamba_scan_bwd_launch": [_P] * 17 + [_I] * 9 + [_P],
+    # dbc_part, da_part, dd_part, dh0, acar, abseg, pseg, gseg, B, S, di, n,
+    # bf16, vec, channels, chunk, smem, ab_chunk, stream
+    "mamba_scan_bwd_launch": [_P] * 21 + [_I] * 10 + [_P],
 }
 
 

@@ -5,9 +5,10 @@ the autograd function that joins them.
 ``selective_scan`` replaces ``repro/kernels/mamba_scan.py::selective_scan``:
 the fused Mamba-1 selective scan, h in registers across the whole
 sequence; with ``ssm_dtype="bf16"`` the reference model's bf16 a/b chunked
-scan (``RunConfig.ssm_dtype``).  ``selective_scan_bwd`` is the port's own:
-the reference trains through its plain jnp scan.  Both take CUDA tensors
-only; ``kernels/ops.py`` sends CPU tensors to the plain versions.
+scan (``RunConfig.ssm_dtype``).  ``selective_scan_bwd`` is the port's own,
+in both modes: the reference trains through its plain jnp scan.  Both take
+CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
+versions.
 """
 from __future__ import annotations
 
@@ -143,14 +144,16 @@ BWD_REG_BLOCKS = 5
 SM_SMEM = 233_472         # shared memory an SM gives its blocks (228 KB)
 BLOCK_SMEM_RESERVED = 1024  # the system's share of it, per block
 MAX_GRID_YZ = 65535
+MAX_GRID_X = 2 ** 31 - 1
 
 
 def bwd_smem(chunk: int, xbytes: int) -> int:
     """The chunk kernel's dynamic shared memory for ``chunk`` steps and x,
     dt of ``xbytes`` bytes (2 bf16, 4 float32): a ring of BWD_STAGES tiles
     (BWD_SUB steps of B_t/C_t, x, dt and dy), the history of a sub-chunk,
-    the warps' dB/dC sums and one checkpoint a sub-chunk (16 bytes a
-    thread each)."""
+    the warps' dB/dC sums and one checkpoint a sub-chunk but the last (16
+    bytes a thread each: 4 states of h, or in the bf16 a/b mode 4 pairs of
+    the running products A_c, B_c in bf16)."""
     tile = BWD_SUB * (2 * MAX_STATE * 4 + BWD_CHANNELS * (2 * xbytes + 4))
     hist = BWD_SUB * BWD_THREADS * 16
     red = BWD_THREADS // 32 * BWD_SUB * 2 * MAX_STATE * 4
@@ -164,15 +167,33 @@ class BwdPlan:
     summary and chunk kernels (the carry kernel: one thread per (b, i, j)),
     ``smem`` bytes of dynamic shared memory for the chunk kernel and
     ``per_sm`` of its blocks on an SM, as its shared memory and registers
-    allow."""
+    allow.
+
+    ``ab_chunk`` > 0: the bf16 a/b mode, whose own chunks of ``ab_chunk``
+    (at most S) steps the plan's chunks never span: each of the mode's
+    chunks is ``per_ab`` plan chunks of ``chunk`` steps (its last one
+    shorter), and the grid is (blocks * chunks, 1, B), channel blocks
+    fastest, so that any number of chunks fits; the summary kernel runs
+    one block per (channel block, mode chunk)."""
     B: int
     S: int
     di: int
     xbytes: int
     chunk: int
+    ab_chunk: int = 0
+
+    @property
+    def per_ab(self) -> int:
+        return -(-self.ab_chunk // self.chunk) if self.ab_chunk else 1
+
+    @property
+    def ab_chunks(self) -> int:
+        return -(-self.S // self.ab_chunk) if self.ab_chunk else 0
 
     @property
     def chunks(self) -> int:
+        if self.ab_chunk:
+            return self.ab_chunks * self.per_ab
         return -(-self.S // self.chunk)
 
     @property
@@ -181,6 +202,8 @@ class BwdPlan:
 
     @property
     def grid(self) -> tuple[int, int, int]:
+        if self.ab_chunk:
+            return (self.blocks * self.chunks, 1, self.B)
         return (self.blocks, self.chunks, self.B)
 
     @property
@@ -198,22 +221,59 @@ class BwdPlan:
 
     @property
     def scratch(self) -> dict[str, tuple[int, ...]]:
-        """float32 buffers: the summaries, then the carries (hcar, gcar),
-        each chunk's dt sum, and the partials ``torch.sum`` folds."""
+        """float32 buffers.  The float32 mode: the summaries, then the
+        carries (hcar, gcar), each chunk's dt sum, and the partials
+        ``torch.sum`` folds.  The bf16 a/b mode, per mode chunk: B_c and
+        A_c at its last step, then the state entering it (hcar; acar), its
+        adjoint sum, then the carry into its last step (gcar); where a mode
+        chunk is split (``per_ab`` > 1), per plan chunk: A_c, B_c entering
+        it as bf16 pairs (abseg), its product of a_t (pseg), its adjoint
+        sum, then the carry into its last step (gseg); the partials."""
         B, S, di, nck = self.B, self.S, self.di, self.chunks
-        return {"hcar": (B, nck, di, MAX_STATE),
-                "gcar": (B, nck, di, MAX_STATE), "dsum": (B, nck, di),
-                "dbc_part": (self.blocks, B, S, 2, MAX_STATE),
+        part = {"dbc_part": (self.blocks, B, S, 2, MAX_STATE),
                 "da_part": (B, nck, di, MAX_STATE), "dd_part": (B, nck, di)}
+        if not self.ab_chunk:
+            return {"hcar": (B, nck, di, MAX_STATE),
+                    "gcar": (B, nck, di, MAX_STATE), "dsum": (B, nck, di),
+                    **part}
+        car = (B, self.ab_chunks, di, MAX_STATE)
+        out = {"hcar": car, "acar": car, "gcar": car}
+        if self.per_ab > 1:
+            seg = (B, nck, di, MAX_STATE)
+            out.update(abseg=seg, pseg=seg, gseg=seg)
+        return {**out, **part}
 
 
 @functools.lru_cache(maxsize=256)
 def plan_bwd(B: int, S: int, di: int, xbytes: int, sms: int = SMS,
-             chunk: int | None = None) -> BwdPlan:
+             chunk: int | None = None, ab_chunk: int = 0) -> BwdPlan:
     """The backward's launch on a card of ``sms`` SMs: the largest of
     BWD_CHUNKS whose grid covers the SMs twice at the chunk kernel's
     occupancy (the smallest when none does), or ``chunk`` itself, a
-    multiple of BWD_SUB up to BWD_MAX_CHUNK, where a check forces it."""
+    multiple of BWD_SUB up to BWD_MAX_CHUNK, where a check forces it.
+
+    ``ab_chunk`` >= 1: the bf16 a/b mode in chunks of ``ab_chunk`` steps.
+    A plan chunk is then min(L, M) for the mode's chunk M = min(ab_chunk,
+    S), so that M <= L keeps one plan chunk a mode chunk, of any length;
+    a forced ``chunk`` may also be one of at least M steps."""
+    if ab_chunk:
+        M = min(ab_chunk, S)
+        if chunk is not None and not (
+                1 <= chunk <= BWD_MAX_CHUNK
+                and (chunk % BWD_SUB == 0 or chunk >= M)):
+            raise ValueError(f"selective_scan_bwd chunk must be a multiple of "
+                             f"{BWD_SUB} up to {BWD_MAX_CHUNK}, or at least "
+                             f"the mode's chunk {M} and at most "
+                             f"{BWD_MAX_CHUNK}, got {chunk}")
+        for L in ((chunk,) if chunk is not None else BWD_CHUNKS):
+            pl = BwdPlan(B, S, di, xbytes, min(L, M), M)
+            if pl.blocks * pl.chunks * B >= 2 * sms * pl.per_sm:
+                break
+        if pl.blocks * max(pl.chunks, pl.ab_chunks) > MAX_GRID_X:
+            raise ValueError(f"selective_scan_bwd: S={S} needs {pl.chunks} "
+                             f"chunks of {pl.chunk} on {pl.blocks} channel "
+                             f"blocks, more than {MAX_GRID_X} blocks")
+        return pl
     if chunk is not None:
         if chunk < 1 or chunk % BWD_SUB or chunk > BWD_MAX_CHUNK:
             raise ValueError(f"selective_scan_bwd chunk must be a multiple of "
@@ -239,11 +299,13 @@ def bwd_buffers(pl: BwdPlan, device) -> dict[str, torch.Tensor]:
 def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                        cm: torch.Tensor, a_log: torch.Tensor, d: torch.Tensor,
                        h0: torch.Tensor, dy: torch.Tensor,
-                       dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The float32 scan's gradient: the forward's inputs, dy (B, S, di) and
+                       dh_last: torch.Tensor, ssm_dtype: str = "f32",
+                       chunk: int = 0) -> tuple[torch.Tensor, ...]:
+    """The scan's gradient: the forward's inputs, dy (B, S, di) and
     dh_last (B, di, n), on one CUDA device -> (dx, ddt (B, S, di); dbm, dcm
     (B, S, n); da_log (di, n); dd (di,); dh0 (B, di, n)), as
-    ``ref.selective_scan_bwd_ref`` computes them.  Launches three kernels
+    ``ref.selective_scan_bwd_ref`` computes them, in the forward's mode
+    (``ssm_dtype``, ``chunk``: ``check_mode``).  Launches three kernels
     on the current stream (``csrc/mamba_scan_bwd.cu``: the chunks'
     summaries, the carries between chunks, each chunk's backward) with
     ``plan_bwd``'s chunks, then ``torch.sum`` folds the partials.
@@ -257,22 +319,27 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     folds do not depend on the order the blocks run in, so two calls give
     the same bits.  Scratch: ``BwdPlan.scratch``.
     """
-    return run_bwd(None, x, dt, bm, cm, a_log, d, h0, dy, dh_last)
+    return run_bwd(None, x, dt, bm, cm, a_log, d, h0, dy, dh_last, ssm_dtype,
+                   chunk)
 
 
-def run_bwd(chunk: int | None, x: torch.Tensor, dt: torch.Tensor,
+def run_bwd(plan_chunk: int | None, x: torch.Tensor, dt: torch.Tensor,
             bm: torch.Tensor, cm: torch.Tensor, a_log: torch.Tensor,
             d: torch.Tensor, h0: torch.Tensor, dy: torch.Tensor,
-            dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """``selective_scan_bwd`` with the plan's chunk forced to ``chunk``
-    (None: ``plan_bwd``'s own), as a check forces one."""
+            dh_last: torch.Tensor, ssm_dtype: str = "f32", chunk: int = 0
+            ) -> tuple[torch.Tensor, ...]:
+    """``selective_scan_bwd`` with the plan's chunk forced to
+    ``plan_chunk`` (None: ``plan_bwd``'s own), as a check forces one."""
     B, S, di, n = _check("selective_scan_bwd", (
         ("x", x), ("dt", dt), ("bm", bm), ("cm", cm), ("a_log", a_log),
         ("d", d), ("h0", h0), ("dy", dy), ("dh_last", dh_last)))
+    check_mode(ssm_dtype, chunk)
+    ab_chunk = min(chunk, S) if ssm_dtype == "bf16" else 0
     x, dt, bc = operands(x, dt, bm, cm)
     f32 = [t.float().contiguous() for t in (a_log, d, h0, dy, dh_last)]
     dev = x.device
-    pl = plan_bwd(B, S, di, x.element_size(), sm_count(dev), chunk)
+    pl = plan_bwd(B, S, di, x.element_size(), sm_count(dev), plan_chunk,
+                  ab_chunk)
     buf = bwd_buffers(pl, dev)
     dx = torch.empty((B, S, di), dtype=x.dtype, device=dev)
     ddt = torch.empty_like(dx)
@@ -281,14 +348,15 @@ def run_bwd(chunk: int | None, x: torch.Tensor, dt: torch.Tensor,
     vec = di % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, dt, f32[3]))
     lib = build.library("mamba_scan_bwd")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = [buf[k].data_ptr() if k in buf else None
+           for k in ("hcar", "gcar", "dsum", "acar", "abseg", "pseg", "gseg")]
     err = lib.mamba_scan_bwd_launch(
         x.data_ptr(), dt.data_ptr(), bc.data_ptr(),
-        *(t.data_ptr() for t in f32),
-        *(buf[k].data_ptr() for k in ("hcar", "gcar", "dsum")),
+        *(t.data_ptr() for t in f32), *ptr[:3],
         dx.data_ptr(), ddt.data_ptr(),
         *(buf[k].data_ptr() for k in ("dbc_part", "da_part", "dd_part")),
-        dh0.data_ptr(), B, S, di, n, int(x.dtype == torch.bfloat16), int(vec),
-        BWD_CHANNELS, pl.chunk, pl.smem, stream)
+        dh0.data_ptr(), *ptr[3:], B, S, di, n, int(x.dtype == torch.bfloat16),
+        int(vec), BWD_CHANNELS, pl.chunk, pl.smem, ab_chunk, stream)
     build.check(err, "selective_scan_bwd")
     kernels.LAUNCHES["selective_scan_bwd"] += 1
     dbc = buf["dbc_part"].sum(0)
@@ -298,31 +366,26 @@ def run_bwd(chunk: int | None, x: torch.Tensor, dt: torch.Tensor,
 
 class SelectiveScanFn(torch.autograd.Function):
     """``selective_scan`` with its gradient, ``selective_scan_bwd``, on CUDA
-    tensors (``kernels/ops.py`` lets autograd differentiate the plain
-    version on the CPU).  The gradients come back in their inputs' dtypes:
+    tensors, in either mode (``kernels/ops.py`` sends CPU tensors to the
+    plain versions).  The gradients come back in their inputs' dtypes:
     the kernel writes bfloat16 dx and ddt when x and dt are both bfloat16
     (the model's path), and the rest are cast from float32.  Under
     ``torch.utils.checkpoint`` the forward runs twice a step and its saved
     inputs go with each run's context.
 
     ``apply(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)`` ->
-    (y, h_last).  The bf16 a/b mode's backward is not written: it raises.
+    (y, h_last).
     """
 
     @staticmethod
     def forward(ctx, x, dt, bm, cm, a_log, d, h0, ssm_dtype="f32", chunk=0):
         check_mode(ssm_dtype, chunk)
-        ctx.ssm_dtype = ssm_dtype
+        ctx.mode = (ssm_dtype, chunk)
         ctx.save_for_backward(x, dt, bm, cm, a_log, d, h0)
         return selective_scan(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        if ctx.ssm_dtype != "f32":
-            raise NotImplementedError(
-                "the selective scan's backward in the bf16 a/b mode "
-                "(ssm_dtype='bf16') is not ported: ROADMAP.md list 1b item 8; "
-                "train with RunConfig's default ssm_dtype='f32'")
         ins = ctx.saved_tensors
-        grads = selective_scan_bwd(*ins, dy, dh_last)
+        grads = selective_scan_bwd(*ins, dy, dh_last, *ctx.mode)
         return (*(g.to(t.dtype) for g, t in zip(grads, ins)), None, None)

@@ -13,8 +13,8 @@ from repro_torch.kernels import coded_grad as _cg
 from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import modmatmul as _mm
 
-__all__ = ["LAUNCHES", "coded_grad", "modmatmul", "reset_launches",
-           "selective_scan"]
+__all__ = ["LAUNCHES", "PlainAB16ScanFn", "coded_grad", "modmatmul",
+           "reset_launches", "selective_scan"]
 
 
 def reset_launches() -> None:
@@ -52,13 +52,38 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     bf16 and combined in chunks of ``chunk`` steps (``RunConfig``'s
     ``ssm_dtype`` and ``scan_chunk``).
 
-    On CPU tensors autograd differentiates the plain version; on CUDA
-    tensors that need a gradient ``SelectiveScanFn`` pairs the kernel with
-    its backward kernel."""
+    On CUDA tensors that need a gradient ``SelectiveScanFn`` pairs the
+    kernel with its backward kernel.  On CPU tensors autograd
+    differentiates the plain float32 scan; in the bf16 a/b mode
+    ``PlainAB16ScanFn`` pairs the plain forward with the plain backward,
+    the function the backward kernel computes (float32 cotangents)."""
     _ms.check_mode(ssm_dtype, chunk)
     ins = (x, dt, bm, cm, a_log, d, h0)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
     if _on_cpu(*ins):
+        if grad and ssm_dtype == "bf16":
+            return PlainAB16ScanFn.apply(*ins, chunk)
         return ref.selective_scan_ref(*ins, ssm_dtype, chunk)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+    if grad:
         return _ms.SelectiveScanFn.apply(*ins, ssm_dtype, chunk)
     return _ms.selective_scan(*ins, ssm_dtype, chunk)
+
+
+class PlainAB16ScanFn(torch.autograd.Function):
+    """The bf16 a/b mode on CPU tensors: ``ref.selective_scan_ref`` with
+    ``ref.selective_scan_bwd_ref`` as its gradient, each gradient in its
+    input's dtype.  ``apply(x, dt, bm, cm, a_log, d, h0, chunk)``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bm, cm, a_log, d, h0, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, bm, cm, a_log, d, h0)
+        return ref.selective_scan_ref(x, dt, bm, cm, a_log, d, h0, "bf16",
+                                      chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        ins = ctx.saved_tensors
+        grads = ref.selective_scan_bwd_ref(*ins, dy, dh_last, "bf16",
+                                           ctx.chunk)
+        return (*(g.to(t.dtype) for g, t in zip(grads, ins)), None)

@@ -141,9 +141,10 @@ def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
                            bm: torch.Tensor, cm: torch.Tensor,
                            a_log: torch.Tensor, d: torch.Tensor,
                            h0: torch.Tensor, dy: torch.Tensor,
-                           dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The gradient of the float32 ``selective_scan_ref`` by its explicit
-    reverse recurrence (what ``csrc/mamba_scan_bwd.cu`` computes).
+                           dh_last: torch.Tensor, ssm_dtype: str = "f32",
+                           chunk: int = 0) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``selective_scan_ref`` by its explicit reverse
+    recurrence (what ``csrc/mamba_scan_bwd.cu`` computes).
 
     With a_t = exp(dt_t A), A = -exp(a_log), and g_t = dL/dh_t:
     g_t = dy_t C_t + a_{t+1} g_{t+1}, started at dh_last; then
@@ -153,29 +154,74 @@ def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
     dh0 = a_0 g_0.  The forward's states are kept, all S + 1 of them.
     Returns (dx, ddt, dbm, dcm, da_log, dd, dh0) in float32 (float64 for
     float64 inputs).
+
+    ``ssm_dtype="bf16"``: the gradient of the bf16 a/b mode's forward in
+    chunks of ``chunk`` steps, with every bf16 rounding straight-through
+    (its derivative taken as 1, as the transpose of ``astype`` takes it):
+    that of a_t = bf16(e_t), e_t = exp(dt_t A), of b_t = bf16(dt_t B_t x_t)
+    and of the running products A_c <- bf16(a_t A_c),
+    B_c <- bf16(bf16(a_t B_c) + b_t).  The forward's values are the mode's
+    own: a_t, A_c, B_c rounded, h_t = A_c h_c0 + B_c.  Within a chunk the
+    adjoint of (A_c, B_c) is (h_c0 g, g) with g carried by the rounded
+    a_t, so the recurrence above holds with a_t rounded where it carries g
+    and e_t where exp is differentiated (g_t h_{t-1} e_t), and h_{t-1} the
+    mode's.  Across a chunk's start the state h_c0 enters every h_t of the
+    chunk through its own A_c,t: the carry into the step before is
+    Σ_{t in c} A_c,t dy_t C_t + A_c,last Γ_c, where Γ_c is the carry into
+    the chunk's last step (dh_last for the last chunk), and dh0 that of
+    chunk 0.  The cotangents are float32 (float64 for float64 inputs),
+    never rounded to bf16.
     """
     wide = _wide(x)
     A = -torch.exp(a_log.to(wide))
     x, dt, bm, cm, dy = (t.to(wide) for t in (x, dt, bm, cm, dy))
+    S = x.shape[1]
+    ab16 = ssm_dtype == "bf16"
     hs = [h0.to(wide)]
-    for t in range(x.shape[1]):
-        a_t = torch.exp(dt[:, t, :, None] * A)
-        hs.append(a_t * hs[-1]
-                  + (dt[:, t] * x[:, t])[:, :, None] * bm[:, t, None, :])
+    if ab16:
+        if chunk < 1:
+            raise ValueError(f"ssm_dtype='bf16' needs chunk >= 1, got {chunk}")
+        bf16 = torch.bfloat16
+        acs = []   # A_c,t of each step, for the carry across a chunk's start
+        for t in range(S):
+            if t % chunk == 0:
+                h_c0 = hs[-1]
+                a_c = torch.ones(h_c0.shape, dtype=bf16, device=x.device)
+                b_c = torch.zeros(h_c0.shape, dtype=bf16, device=x.device)
+            a_t = torch.exp(dt[:, t, :, None] * A).to(bf16)
+            b_t = (dt[:, t, :, None] * bm[:, t, None, :]
+                   * x[:, t, :, None]).to(bf16)
+            a_c = a_t * a_c
+            b_c = a_t * b_c + b_t
+            acs.append(a_c.to(wide))
+            hs.append(a_c.to(wide) * h_c0 + b_c.to(wide))
+    else:
+        for t in range(S):
+            a_t = torch.exp(dt[:, t, :, None] * A)
+            hs.append(a_t * hs[-1]
+                      + (dt[:, t] * x[:, t])[:, :, None] * bm[:, t, None, :])
     g = dh_last.to(wide)
     dA = torch.zeros_like(g)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
-    for t in reversed(range(x.shape[1])):
+    for t in reversed(range(S)):
         x_t, dt_t, dy_t = x[:, t], dt[:, t], dy[:, t]
-        a_t = torch.exp(dt_t[:, :, None] * A)
-        g = g + dy_t[:, :, None] * cm[:, t, None, :]
+        e_t = torch.exp(dt_t[:, :, None] * A)
+        a_t = e_t.to(bf16).to(wide) if ab16 else e_t
+        if ab16 and (t == S - 1 or t % chunk == chunk - 1):
+            g_last, gam, a_last = g, torch.zeros_like(g), acs[t]
+        dyc = dy_t[:, :, None] * cm[:, t, None, :]
+        g = g + dyc
         dcm[:, t] = (dy_t[:, :, None] * hs[t + 1]).sum(1)
         dbm[:, t] = (g * (dt_t * x_t)[:, :, None]).sum(1)
         gb = (g * bm[:, t, None, :]).sum(-1)
-        gha = g * hs[t] * a_t
+        gha = g * hs[t] * e_t
         dx[:, t] = gb * dt_t + d.to(wide) * dy_t
         ddt[:, t] = gb * x_t + (gha * A).sum(-1)
         dA = dA + gha * dt_t[:, :, None]
         g = a_t * g
+        if ab16:
+            gam = gam + acs[t] * dyc
+            if t % chunk == 0:
+                g = gam + a_last * g_last
     return (dx, ddt, dbm, dcm, dA.sum(0) * A, (dy * x).sum((0, 1)), g)

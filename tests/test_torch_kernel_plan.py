@@ -490,6 +490,136 @@ def test_chunked_backward_model_catches_a_wrong_carry():
     assert max(bwd_rel_errs(got, want)) > 100 * GRAD_REL
 
 
+# -- the bf16 a/b mode's backward: csrc/mamba_scan_bwd.cu's kAB16 path.
+#    Its chunks are the mode's (RunConfig.scan_chunk), each split into plan
+#    chunks of L steps where it is longer (summaries walk a mode chunk in
+#    order; the carries chain mode chunks, and plan chunks inside one).
+#    Tolerance: each gradient within 1e-5 of its largest magnitude, as above
+#    (float32 sums in another order; the roundings to bf16 are the same
+#    operations on the same values).
+
+def _bf(t):
+    """t rounded to bf16 (to nearest even), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def chunked_bwd_ab16_model(x, dt, bm, cm, a_log, d, h0, dy, dh_last, M, L,
+                           wrong_carry=False):
+    """The kernel's three steps in the bf16 a/b mode, float32: mode chunks
+    of M steps (at most S), each cut into plan chunks of L steps (L = M
+    where M <= L).
+
+    1. Each mode chunk's forward from A_c = 1, B_c = 0, in order: A_c and
+       B_c at its last step, gamma_c = sum_t A_c,t dy_t C_t; per plan chunk
+       s, (A_c, B_c) entering it, P_s (its product of the rounded a_t) and
+       gamma'_s = sum_t P_s,t dy_t C_t.
+    2. The carries: H_0 = h0, H_{c+1} = A_c,last H_c + B_c,last; Gamma_last
+       = dh_last, Gamma_{c-1} = gamma_c + A_c,last Gamma_c (``wrong_carry``:
+       P_c, the product of the rounded a_t, in place of A_c,last: what the
+       float32 mode's carry would take), dh0 = Gamma_{-1}; inside a mode
+       chunk from its last plan chunk, G = Gamma_c, G <- gamma'_s + P_s G.
+    3. Each plan chunk's reverse walk from (H_c, its (A_c, B_c), its G).
+    """
+    B, S, di = x.shape
+    M = min(M, S)
+    L = min(L, M)
+    A = -torch.exp(a_log)
+    dyc = dy[..., None] * cm[:, :, None, :]                   # (B, S, di, n)
+
+    def step(t, Ac, Bc):
+        e = torch.exp(dt[:, t, :, None] * A)
+        a = _bf(e)
+        b = _bf(dt[:, t, :, None] * bm[:, t, None, :] * x[:, t, :, None])
+        return e, a, _bf(a * Ac), _bf(_bf(a * Bc) + b)
+
+    mode_chunks = [range(f, min(f + M, S)) for f in range(0, S, M)]
+    segs = [[span[k:k + L] for k in range(0, len(span), L)]
+            for span in mode_chunks]
+    one, zero = torch.ones_like(h0), torch.zeros_like(h0)
+    acar, bcar, gam, seg_ab, seg_p, seg_g = [], [], [], {}, {}, {}
+    for c, span in enumerate(mode_chunks):
+        Ac, Bc, gm = one, zero, zero
+        for p, seg in enumerate(segs[c]):
+            seg_ab[c, p] = (Ac, Bc)
+            P, gs = one, zero
+            for t in seg:
+                _, a, Ac, Bc = step(t, Ac, Bc)
+                P = P * a
+                gs = gs + P * dyc[:, t]
+                gm = gm + Ac * dyc[:, t]
+            seg_p[c, p], seg_g[c, p] = P, gs
+        acar.append(Ac)
+        bcar.append(Bc)
+        gam.append(gm)
+    H = [h0]
+    for c in range(len(mode_chunks) - 1):
+        H.append(acar[c] * H[c] + bcar[c])
+    G, gseg = dh_last, {}
+    for c in reversed(range(len(mode_chunks))):
+        Gs, Pc = G, one
+        for p in reversed(range(len(segs[c]))):
+            gseg[c, p] = Gs
+            Gs = seg_g[c, p] + seg_p[c, p] * Gs
+            Pc = Pc * seg_p[c, p]
+        G = gam[c] + (Pc if wrong_carry else acar[c]) * G
+    dh0 = G
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
+    dA = torch.zeros_like(h0)
+    u = dt * x
+    for c in range(len(mode_chunks)):
+        for p, seg in enumerate(segs[c]):
+            Ac, Bc = seg_ab[c, p]
+            hs = [Ac * H[c] + Bc]
+            for t in seg:
+                _, _, Ac, Bc = step(t, Ac, Bc)
+                hs.append(Ac * H[c] + Bc)
+            g = gseg[c, p]
+            for k in reversed(range(len(seg))):
+                t = seg[k]
+                e, a, _, _ = step(t, one, zero)
+                g = g + dyc[:, t]
+                dcm[:, t] = (dy[:, t, :, None] * hs[k + 1]).sum(1)
+                dbm[:, t] = (g * u[:, t, :, None]).sum(1)
+                gb = (g * bm[:, t, None, :]).sum(-1)
+                gha = g * hs[k] * e
+                dx[:, t] = gb * dt[:, t] + d * dy[:, t]
+                ddt[:, t] = gb * x[:, t] + (gha * A).sum(-1)
+                dA = dA + gha * dt[:, t, :, None]
+                g = a * g
+    return dx, ddt, dbm, dcm, dA.sum(0) * A, (dy * x).sum((0, 1)), dh0
+
+
+def run_ab16_model(S, n, M, L, wrong_carry=False):
+    ins = [torch.as_tensor(a) for a in bwd_case(S, n)]
+    got = chunked_bwd_ab16_model(*ins, M, L, wrong_carry)
+    return got, ref.selective_scan_bwd_ref(*ins, "bf16", M)
+
+
+AB16_BWD_CASES = [(M, L, S) for M, L in ((1, 8), (3, 8), (8, 8), (8, 64),
+                                         (7, 7), (20, 8), (37, 16))
+                  for S in (1, M, M + 1, 3 * M + 5)]
+
+
+@pytest.mark.parametrize("M,L,S", AB16_BWD_CASES)
+def test_ab16_chunked_backward_model_matches_the_plain_backward(M, L, S):
+    """One plan chunk a mode chunk (M <= L: chunks of 1, 3, 7, 8 steps),
+    mode chunks cut into plan chunks of L (M = 20 and 37: 8- and 16-step
+    plan chunks with a ragged last), one mode chunk (S <= M), a ragged last
+    mode chunk of one step, several; h0 and dh_last non-zero."""
+    for n in (1, 16):
+        got, want = run_ab16_model(S, n, M, L)
+        assert max(bwd_rel_errs(got, want)) <= GRAD_REL, (M, L, S, n)
+
+
+def test_ab16_chunked_backward_model_catches_a_wrong_carry():
+    """The carry across a mode chunk's start through P_c (the product of
+    the rounded a_t, which the float32 mode's carry would take) in place
+    of the chunk's own rounded A_c,last: beyond the tolerance."""
+    got, want = run_ab16_model(40, 16, 9, 8, wrong_carry=True)
+    assert max(bwd_rel_errs(got, want)) > 10 * GRAD_REL
+
+
 BWD_PLAN_SHAPES = {
     "hymba_train": (4, 2048, 3200, 16),
     "falcon_train": (4, 2048, 8192, 16),
@@ -548,6 +678,81 @@ def test_backward_plan_forced_chunks_and_refusals():
             tms.plan_bwd(4, 65, 3200, 2, chunk=bad)
     with pytest.raises(ValueError, match="chunks"):
         tms.plan_bwd(1, 65536 * 64 + 1, 32, 2)
+
+
+AB16_PLAN_CASES = {
+    # (B, S, di, mode chunk): the training shapes at run_config's 128, the
+    # chunks the card's checks take, a chunk of at least S, S = 1
+    "hymba_train_128": (4, 2048, 3200, 128),
+    "falcon_train_128": (4, 2048, 8192, 128),
+    "hymba_100": (4, 2048, 3200, 100),
+    "hymba_300": (4, 2048, 3200, 300),
+    "chunk1": (2, 512, 3200, 1),
+    "chunk7": (2, 45, 1000, 7),
+    "chunk_ge_S": (2, 300, 3200, 4096),
+    "S1": (4, 1, 8192, 128),
+    "chunk1_long": (1, 70_000, 32, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AB16_PLAN_CASES))
+@pytest.mark.parametrize("xbytes", [2, 4])
+def test_ab16_backward_plan_grid_and_scratch(name, xbytes):
+    """The bf16 a/b mode's plan: a plan chunk never spans two of the mode's
+    chunks (M = min(chunk, S)): one plan chunk a mode chunk where M is at
+    most the plan's L (of any length, 1 included), else ceil(M / L) of them
+    with L a multiple of BWD_SUB; the grid (blocks * chunks, 1, B) within
+    the card's limits whatever S (more than 65535 chunks included); the
+    scratch as the kernel's source lays it out; the C entry's refusals
+    mirrored (chunk at most BWD_MAX_CHUNK)."""
+    B, S, di, chunk = AB16_PLAN_CASES[name]
+    M = min(chunk, S)
+    pl = tms.plan_bwd(B, S, di, xbytes, ab_chunk=M)
+    assert pl.ab_chunk == M and 1 <= pl.chunk <= tms.BWD_MAX_CHUNK
+    if M <= pl.chunk or pl.per_ab == 1:
+        assert pl.chunk == M and pl.per_ab == 1
+    else:
+        assert pl.chunk in tms.BWD_CHUNKS and pl.per_ab == -(-M // pl.chunk)
+    nab = -(-S // M)
+    assert pl.ab_chunks == nab and pl.chunks == nab * pl.per_ab
+    gx, gy, gz = pl.grid
+    assert (gx, gy, gz) == (pl.blocks * pl.chunks, 1, B) and gx < 2 ** 31
+    # every step lies in exactly one plan chunk, inside one mode chunk
+    starts = sorted(c * M + p * pl.chunk for c in range(nab)
+                    for p in range(pl.per_ab) if c * M + p * pl.chunk < S)
+    cover = [t for f in starts
+             for t in range(f, min(f + pl.chunk, (f // M + 1) * M, S))]
+    assert cover == list(range(S))
+    car = (B, nab, di, 16)
+    seg = (B, pl.chunks, di, 16)
+    want = {"hcar": car, "acar": car, "gcar": car,
+            "dbc_part": (pl.blocks, B, S, 2, 16), "da_part": seg,
+            "dd_part": (B, pl.chunks, di)}
+    if pl.per_ab > 1:
+        want.update(abseg=seg, pseg=seg, gseg=seg)
+    bufs = tms.bwd_buffers(pl, "meta")
+    assert {k: tuple(v.shape) for k, v in bufs.items()} == want
+    assert pl.smem == tms.bwd_smem(pl.chunk, xbytes) <= 232_448
+
+
+def test_ab16_backward_plan_at_the_training_shape():
+    """hymba's training shape in chunks of 128: plan chunks of 64 (five
+    blocks an SM, as the float32 mode's), two a mode chunk; forced to 128,
+    one plan chunk a mode chunk."""
+    pl = tms.plan_bwd(4, 2048, 3200, 2, ab_chunk=128)
+    assert (pl.chunk, pl.per_ab, pl.chunks, pl.per_sm) == (64, 2, 32, 5)
+    pl = tms.plan_bwd(4, 2048, 3200, 2, chunk=128, ab_chunk=128)
+    assert (pl.chunk, pl.per_ab, pl.chunks) == (128, 1, 16)
+
+
+def test_ab16_backward_plan_forced_chunks_and_refusals():
+    """A forced plan chunk: a multiple of BWD_SUB up to BWD_MAX_CHUNK, or one
+    of at least the mode's chunk (then the mode's chunk itself)."""
+    assert tms.plan_bwd(2, 45, 1000, 2, chunk=12, ab_chunk=7).chunk == 7
+    assert tms.plan_bwd(2, 300, 32, 2, chunk=8, ab_chunk=300).per_ab == 38
+    for bad in (0, 4, 12, tms.BWD_MAX_CHUNK + tms.BWD_SUB):
+        with pytest.raises(ValueError, match="multiple of"):
+            tms.plan_bwd(2, 300, 32, 2, chunk=bad, ab_chunk=20)
 
 
 # -- coded_grad -----------------------------------------------------------

@@ -3,6 +3,7 @@ Pallas kernel (interpret mode), plus the CPU-side behaviour of the CUDA
 wrapper.  The CUDA kernel itself is held against the plain version on the
 GPU by chip_smoke.py.  Tolerance 1e-4, the reference kernel test's own:
 the same float32 recurrence summed in another order."""
+import dataclasses
 import types
 
 import numpy as np
@@ -14,9 +15,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import mamba_scan as jms  # noqa: E402
+from repro.models import mamba as jmamba  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import mamba_scan as tms  # noqa: E402
+from repro_torch.models import mamba as tmamba  # noqa: E402
+from test_torch_models import JRC, RC, carried  # noqa: E402
 
 ATOL = 1e-4
 
@@ -223,17 +227,6 @@ def test_ops_differentiates_the_plain_version_on_the_cpu():
     assert kernels.LAUNCHES["selective_scan_bwd"] == 0
 
 
-def test_bf16_ab_mode_backward_raises_naming_its_item():
-    """``SelectiveScanFn`` runs on the card only; its backward refuses the
-    bf16 a/b mode before it reads a saved tensor."""
-    ctx = types.SimpleNamespace(ssm_dtype="bf16", saved_tensors=())
-    dy, dh = (torch.as_tensor(t) for t in cotangents(10, 1, 6, 4, 2))
-    ops.reset_launches()
-    with pytest.raises(NotImplementedError, match="list 1b item 8"):
-        tms.SelectiveScanFn.backward(ctx, dy, dh)
-    assert kernels.LAUNCHES["selective_scan_bwd"] == 0
-
-
 def test_backward_wrapper_refuses_cpu_tensors():
     args = [torch.as_tensor(a) for a in make_inputs(2, 1, 3, 4, 2)]
     dy, dh = (torch.as_tensor(t) for t in cotangents(2, 1, 3, 4, 2))
@@ -241,3 +234,203 @@ def test_backward_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tms.selective_scan_bwd(*args, dy, dh)
     assert kernels.LAUNCHES["selective_scan_bwd"] == 0
+
+
+# -- the gradient in the bf16 a/b mode.  The plain backward
+#    (``selective_scan_bwd_ref(..., "bf16", chunk)``, what the backward
+#    kernel computes in that mode) is the exact gradient of the mode's
+#    forward with its bf16 roundings straight-through: held to autograd of
+#    such a model in float64 within GRAD_REL (1e-5) of each gradient's
+#    largest magnitude.  Against ``jax.grad`` of the reference (a tree
+#    of bf16 combines, and cotangents rounded to bf16 wherever the
+#    reference casts) only an RMS bound holds: AB16_GRAD_RMS of the
+#    reference gradient's RMS, each gradient.  The float32 mode's gradient
+#    lies about as far from it (the reference's own roundings set that
+#    floor), so the float64 check is the one that tells the modes apart.
+AB16_GRAD_RMS = 1e-2
+
+
+def _st(v):
+    """v rounded to bf16 with a straight-through derivative."""
+    return v + (v.to(torch.bfloat16).to(v.dtype) - v).detach()
+
+
+def st_ab16_scan(x, dt, bm, cm, a_log, d, h0, chunk):
+    """The bf16 a/b mode's forward with every rounding straight-through."""
+    A = -torch.exp(a_log)
+    h, ys = h0, []
+    for t in range(x.shape[1]):
+        if t % chunk == 0:
+            H, Ac, Bc = h, torch.ones_like(h), torch.zeros_like(h)
+        a = _st(torch.exp(dt[:, t, :, None] * A))
+        b = _st(dt[:, t, :, None] * bm[:, t, None, :] * x[:, t, :, None])
+        Ac, Bc = _st(a * Ac), _st(_st(a * Bc) + b)
+        h = Ac * H + Bc
+        ys.append((h * cm[:, t, None, :]).sum(-1) + d * x[:, t])
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8, 40])
+@pytest.mark.parametrize("n", [1, 16])
+def test_ab16_plain_backward_is_the_straight_through_gradient(chunk, n):
+    """Chunks of 1, 3 and 8 steps and one longer than S = 21, float64."""
+    B, S, di = 2, 21, 6
+    args = [torch.as_tensor(a, dtype=torch.float64)
+            for a in make_inputs(100 * chunk + n, B, S, di, n, 0.7)]
+    dy, dh = (torch.as_tensor(t, dtype=torch.float64)
+              for t in cotangents(chunk + n, B, S, di, n))
+    got = ref.selective_scan_bwd_ref(*args, dy, dh, "bf16", chunk)
+    targs = [a.clone().requires_grad_(True) for a in args]
+    y, h = st_ab16_scan(*targs, chunk)
+    want_y, want_h = ref.selective_scan_ref(*args, "bf16", chunk)
+    assert torch.equal(y.detach(), want_y) and torch.equal(h.detach(), want_h)
+    auto = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), targs)
+    for name, g, a in zip(GRAD_NAMES, got, auto):
+        assert g.dtype == torch.float64
+        close_rel(g, a, name)
+
+
+def test_ab16_plain_backward_differs_from_the_float32_modes():
+    """The mode's gradient is not the float32 recurrence's: at chunk 8 they
+    differ by far more than GRAD_REL (the check above tells them apart)."""
+    args = [torch.as_tensor(a, dtype=torch.float64)
+            for a in make_inputs(7, 2, 21, 6, 16, 0.7)]
+    dy, dh = (torch.as_tensor(t, dtype=torch.float64)
+              for t in cotangents(7, 2, 21, 6, 16))
+    ab = ref.selective_scan_bwd_ref(*args, dy, dh, "bf16", 8)
+    f32 = ref.selective_scan_bwd_ref(*args, dy, dh)
+    worst = max(float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(ab, f32))
+    assert worst > 100 * GRAD_REL, worst
+
+
+def jax_ab16_core(x, dt, bm, cm, a_log, d, h0, chunk):
+    """The reference's bf16 a/b scan core: ``mamba_mix``'s chunk loop
+    (``repro/models/mamba.py``) over its ``_discretize`` and
+    ``_chunk_scan``, from the activations after the conv and projections."""
+    B, S, di = x.shape
+    p = {"A_log": a_log, "D": d}
+    chunk = min(chunk, S)
+    nch = -(-S // chunk)
+    pad = ((0, 0), (0, nch * chunk - S), (0, 0))
+    x, dt, bm, cm = (jnp.pad(t, pad) for t in (x, dt, bm, cm))
+    a, b = jmamba._discretize(p, dt, bm, x, jnp.bfloat16)
+
+    def to_chunks(t):
+        return t.reshape(B, nch, chunk, *t.shape[2:]).swapaxes(0, 1)
+
+    def chunk_step(h, inputs):
+        a_c, b_c, c_c, x_c = inputs
+        h_all, h_last = jmamba._chunk_scan(a_c, b_c, h)
+        y = jnp.einsum("blin,bln->bli", h_all, c_c) + d * x_c
+        return h_last, y
+
+    h_last, ys = jax.lax.scan(chunk_step, h0, tuple(
+        to_chunks(t) for t in (a, b, cm, x)))
+    return ys.swapaxes(0, 1).reshape(B, -1, di)[:, :S], h_last
+
+
+def jax_grad(fn, args, cots):
+    """``jax.vjp`` of ``fn`` at ``args`` applied to ``cots``, jitted."""
+    def vjp(args, cots):
+        return jax.vjp(fn, *args)[1](cots)
+    return jax.jit(vjp)(jax.tree.map(jnp.asarray, tuple(args)),
+                        jax.tree.map(jnp.asarray, tuple(cots)))
+
+
+def rel_rms(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    return float(np.sqrt(((got - want) ** 2).mean())
+                 / max(np.sqrt((want ** 2).mean()), 1e-30))
+
+
+def test_ab16_plain_backward_against_jax_grad_of_the_reference_core():
+    """Chunk 8, S = 21 (a ragged last chunk), a non-zero h0."""
+    B, S, di, n, chunk = 2, 21, 16, 16, 8
+    args = make_inputs(21, B, S, di, n, 0.5)
+    dy, dh = cotangents(22, B, S, di, n)
+    got = ref.selective_scan_bwd_ref(*(torch.as_tensor(a) for a in args),
+                                     torch.as_tensor(dy), torch.as_tensor(dh),
+                                     "bf16", chunk)
+    want = jax_grad(lambda *a: jax_ab16_core(*a, chunk), args, (dy, dh))
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert rel_rms(g, w) <= AB16_GRAD_RMS, (name, rel_rms(g, w))
+
+
+def test_ab16_mamba_mix_gradient_against_jax_grad_of_the_reference():
+    """falcon-mamba's reduced ``mamba_mix`` (its first layer's parameters,
+    carried across) in the mode at scan_chunk 8, S = 21, a non-zero h0:
+    the gradient of <y, dy> + <h_last, dh> in x_in, h0 and every parameter
+    the mix reads, against ``jax.vjp`` of the reference's ``mamba_mix``."""
+    jcfg, tcfg, params, model = carried("f32", "falcon-mamba-7b")
+    rng = np.random.default_rng(15)
+    B, S, di, n = 2, 21, tcfg.d_inner, tcfg.ssm_state
+    x = (rng.standard_normal((B, S, di)) * 0.5).astype(np.float32)
+    h0 = (rng.standard_normal((B, di, n)) * 0.5).astype(np.float32)
+    dy, dh = cotangents(16, B, S, di, n)
+    assert S % JRC.scan_chunk != 0
+    jrc = dataclasses.replace(JRC, ssm_dtype="bf16")
+    p = jax.tree.map(lambda t: t[0], params["seg0"]["params"]["mamba"])
+    jp, jx, jh = jax_grad(lambda p_, x_, h_: jmamba.mamba_mix(
+        jcfg, jrc, p_, x_, h_), (p, x, h0), (dy, dh))
+    mod = model.segments[0][0].mamba
+    mod.requires_grad_(True)
+    tx, th = (torch.as_tensor(t).requires_grad_(True) for t in (x, h0))
+    y, h = tmamba.mamba_mix(tcfg, dataclasses.replace(RC, ssm_dtype="bf16"),
+                            mod, tx, th)
+    ((y * torch.as_tensor(dy)).sum()
+     + (h * torch.as_tensor(dh)).sum()).backward()
+    got = {"x_in": tx.grad, "h0": th.grad,
+           **{k: v.grad for k, v in mod.named_parameters()
+              if v.grad is not None}}
+    want = {"x_in": jx, "h0": jh, **{k: jp[k] for k in got
+                                      if k not in ("x_in", "h0")}}
+    assert set(got) >= {"x_in", "h0", "A_log", "D", "conv_w", "conv_b",
+                        "x_proj", "dt_proj", "dt_bias"}
+    for k, g in got.items():
+        assert rel_rms(g, want[k]) <= AB16_GRAD_RMS, (k, rel_rms(g, want[k]))
+
+
+def test_ops_ab16_mode_gradient_is_the_plain_backward():
+    """On CPU tensors that need a gradient the mode runs
+    ``ops.PlainAB16ScanFn``: the plain forward's values and the plain
+    backward's gradients, in the inputs' dtypes (x and dt bfloat16 here);
+    no kernel launched.  The float32 mode stays autograd of the plain
+    forward."""
+    args = [torch.as_tensor(a) for a in make_inputs(12, 2, 13, 5, 4, 0.5)]
+    args[0], args[1] = args[0].bfloat16(), args[1].bfloat16()
+    dy, dh = (torch.as_tensor(t) for t in cotangents(12, 2, 13, 5, 4))
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    ops.reset_launches()
+    y, h = ops.selective_scan(*leaves, "bf16", 4)
+    assert type(y.grad_fn).__name__ == "PlainAB16ScanFnBackward"
+    want_y, want_h = ref.selective_scan_ref(*args, "bf16", 4)
+    assert torch.equal(y.detach(), want_y) and torch.equal(h.detach(), want_h)
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    want = ref.selective_scan_bwd_ref(*args, dy, dh, "bf16", 4)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype
+        assert torch.equal(leaf.grad, w.to(leaf.dtype))
+    y32, _ = ops.selective_scan(*leaves)
+    assert "PlainAB16" not in type(y32.grad_fn).__name__
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_scan_fn_backward_hands_the_kernel_its_mode(monkeypatch):
+    """``SelectiveScanFn`` keeps the forward's mode and chunk and passes
+    them to the backward kernel's wrapper (which runs on the card)."""
+    seen = []
+
+    def fake_bwd(*a):
+        seen.append(a[9:])
+        return tuple(torch.zeros_like(t) for t in a[:7])
+
+    monkeypatch.setattr(tms, "selective_scan_bwd", fake_bwd)
+    ins = tuple(torch.as_tensor(a) for a in make_inputs(3, 1, 5, 4, 2))
+    dy, dh = (torch.as_tensor(t) for t in cotangents(3, 1, 5, 4, 2))
+    for mode in (("bf16", 7), ("f32", 0)):
+        ctx = types.SimpleNamespace(mode=mode, saved_tensors=ins)
+        grads = tms.SelectiveScanFn.backward(ctx, dy, dh)
+        assert grads[7:] == (None, None) and len(grads) == 9
+    assert seen == [("bf16", 7), ("f32", 0)]

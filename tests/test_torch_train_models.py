@@ -106,6 +106,41 @@ def test_loss_and_every_gradient_match_reference(arch):
     check_grads(tg, jg)
 
 
+# The scan's bf16 a/b mode (RunConfig(ssm_dtype="bf16")): the port's CPU
+# gradient is the plain backward of that mode (what the backward kernel
+# computes), the reference's jax.grad through its bf16 tree combines with
+# its cotangents rounded to bf16.  The two round a_t, b_t, A_c and B_c in
+# other places, so each leaf is held by its RMS: within AB16_GRAD_RMS of
+# the reference leaf's RMS (falcon-mamba's first layer comes nearest), and
+# the loss within AB16_LOSS_RTOL.
+AB16_GRAD_RMS = 3e-2
+AB16_LOSS_RTOL = 2e-3
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b"])
+def test_ab16_loss_and_every_gradient_track_the_reference(arch):
+    """scan_chunk 8 at S = 24: three chunks a sequence; float32 parameters,
+    so the a/b mode is the only rounding to bf16."""
+    jcfg, tcfg, params, model = carried("f32", arch)
+    batch = batch_for(tcfg)
+    jrc = dataclasses.replace(JRC, ssm_dtype="bf16")
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, jrc, p, {k: jnp.asarray(v)
+                                            for k, v in batch.items()})))(
+        params)
+    want = dict(convert.params_from_reference(
+        tcfg, jax.tree.map(np.asarray, jgrads)).named_parameters())
+    tloss, got = port_grads(tcfg, dataclasses.replace(RC, ssm_dtype="bf16"),
+                            model, batch)
+    assert abs(tloss - float(jloss)) <= AB16_LOSS_RTOL * abs(float(jloss))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k].detach().double()
+        w = w.detach().double()
+        rms = float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+        assert rms <= AB16_GRAD_RMS, (k, rms)
+
+
 def test_remat_and_loss_chunk_change_nothing():
     """Block remat recomputes the same forward, and the chunked loss is the
     full softmax cross-entropy: the port's gradients with remat="none" and
