@@ -64,6 +64,22 @@ iterating on a kernel); such a partial run prints no ok line.
             cleartext baseline
   train_c33 ``cpml_train --classes 33 --iters 2`` on the card (33 heads,
             N=8, K=2, T=1): exit 0 and ``coded_grad`` launched twice
+  shard     ``cpml_train --backend shard``: N=8, K=2, T=1 at Case 1's m
+            and d for 25 rounds, 8 ranks on the one card over gloo, one
+            coded share a rank: every rank's weights bit-identical to the
+            one-process vmap run's, the same accuracy, and on every rank
+            exactly 25 ``coded_grad`` launches and the vmap run's
+            ``modmatmul`` launches; from the same runs' JSON the median
+            round ms (shard's on every rank against vmap's), each rank's
+            ``coded_grad`` ms and the all_gather's ms a round (CUDA
+            events); round 0's worker step at the path's inputs, each
+            rank's share (N=1) and all 8 at once, bit-equal to the plain
+            version; then ``coded_head_apply_sharded`` over 6 ranks at tinyllama's
+            head width (d 2048, vocab 32000, N=6, K=4, T=1, batch 4, shard 2
+            killed): field values bit-equal to the one-process head and to
+            (h_q @ w_q) mod p from the plain version, one ``modmatmul`` a
+            rank for its product; then ``compat.all_gather`` through a
+            one-rank NCCL group.  The backend printed is the launcher's rule
   teacher   3 rounds on the card and again on the CPU (plain versions)
             from the card's weights: shares and decoded parts bit-equal,
             weights within 1e-5; then the round's stages timed on the card
@@ -256,6 +272,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -397,7 +414,13 @@ AB16_GRAD_REL = 2.0 ** -7
 AB16_GRAD_RMS_SHARE = 0.25
 # More heads than the first coded_grad kernel took (c*r <= 32).
 TRAIN_HEADS = dict(classes=33, iters=2)
-PHASES = ("kernels", "train", "train_c33", "teacher", "serve", "profile",
+# The shard backend (PERF.md section 4): the slack fleet at Case 1's m and d,
+# one rank a share on the one card (Case 1's N = 40 over 40 ranks is cut:
+# 40 CUDA contexts take ~50 s to start)
+SHARD = dict(N=8, K=2, T=1, m=CASE1["m"], d=CASE1["d"], iters=25)
+# the sharded coded head at tinyllama-1.1b's head width, shard 2 killed
+SHARD_HEAD = dict(d=2048, vocab=32000, N=6, K=4, T=1, batch=4, kill=2)
+PHASES = ("kernels", "train", "train_c33", "shard", "teacher", "serve", "profile",
           "consistency", "coded_head", "serve_dense", "serve_hybrid",
           "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
           "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
@@ -510,6 +533,7 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(0)
     N, K, T, d = CASE1["N"], CASE1["K"], CASE1["T"], CASE1["d"]
     mk = -(-CASE1["m"] // K)
+    smk = -(-SHARD["m"] // SHARD["K"])
 
     def rand(shape, p):
         return torch.randint(0, p, shape, generator=gen, dtype=torch.int32,
@@ -588,6 +612,12 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
         # one socket worker's round: N = 1 at Case 1's share
         cg_cases.append(("worker_N1_c1_r1", p, rand((1, mk, d), p),
                          rand((1, d, 1, 1), p), coeffs(1, p), None))
+        # the shard phase's shapes: one rank's share (N = 1) and the
+        # one-process vmap run's 8, at the slack fleet's mk
+        cg_cases.append(("worker_N1_mk6198", p, rand((1, smk, d), p),
+                         rand((1, d, 1, 1), p), coeffs(1, p), None))
+        cg_cases.append(("workers_N8_mk6198", p, rand((SHARD["N"], smk, d), p),
+                         rand((SHARD["N"], d, 1, 1), p), coeffs(1, p), None))
         # more heads than the old kernel's 32 registers held (c*r > 32)
         cg_cases.append(("case1_c33_r1", p, rand((N, mk, d), p),
                          rand((N, d, 33, 1), p), coeffs(1, p), None))
@@ -645,17 +675,20 @@ def phase_kernels(torch, checks: Checks) -> list[dict]:
             "graph_ms": graph_ms(torch, lambda: mm.modmatmul(a, b, p), 20),
             "plain_ms": time_ms(torch, lambda: ref.modmatmul_ref(a, b, p), 3),
             "bound_ms": b_ms, "bound_by": b_by})
-    for n, c, r, case in ((N, 1, 1, "case1_c1_r1"), (N, 10, 2, "case1_c10_r2"),
-                          (1, 1, 1, "worker_N1_c1_r1")):
-        x, w = rand((n, mk, d), p), rand((n, d, c, r), p)
+    for n, rows, c, r, case in (
+            (N, mk, 1, 1, "case1_c1_r1"), (N, mk, 10, 2, "case1_c10_r2"),
+            (1, mk, 1, 1, "worker_N1_c1_r1"),
+            (1, smk, 1, 1, "worker_N1_mk6198"),
+            (SHARD["N"], smk, 1, 1, "workers_N8_mk6198")):
+        x, w = rand((n, rows, d), p), rand((n, d, c, r), p)
         cbar = coeffs(r, p)
-        nbytes = 4 * (n * mk * d + n * d * c * r + (r + 1) + n * d * c)
+        nbytes = 4 * (n * rows * d + n * d * c * r + (r + 1) + n * d * c)
         # n mk d (c r + c) multiply-adds of 32x32 -> 64 bits, two IMADs each
-        b_ms, b_by = bound(nbytes, 0, imad=2 * n * mk * d * (c * r + c))
-        pl = cg.plan(n, mk, d, c, r, sms=mm.sm_count(x.device))
+        b_ms, b_by = bound(nbytes, 0, imad=2 * n * rows * d * (c * r + c))
+        pl = cg.plan(n, rows, d, c, r, sms=mm.sm_count(x.device))
         timings.append({
             "kernel": "coded_grad", "case": case,
-            "shape": [n, mk, d, c, r],
+            "shape": [n, rows, d, c, r],
             "launches_per_call": 1 + (pl.splits > 1),
             "ms": time_ms(torch, lambda: cg.coded_grad(x, w, cbar, p), 20),
             "graph_ms": graph_ms(torch, lambda: cg.coded_grad(x, w, cbar, p),
@@ -1326,6 +1359,198 @@ def phase_train_heads(torch, out_dir: Path) -> dict:
     emit(info)
     if launches["coded_grad"] != iters:
         raise AssertionError(f"coded_grad launches at 33 heads: {launches}")
+    return info
+
+
+def shard_share_check(torch) -> dict:
+    """Round 0's worker step of SHARD on the card at the path's own
+    inputs (the CLI's data, draws and zero weights): each rank's share
+    through ``ops.coded_grad`` with a worker axis of 1, as the shard body
+    calls it, and all N shares in one call, as the vmap run does, each bit
+    for bit against ``ref.coded_grad_workers_ref``.  Not counted in the
+    main path's launches."""
+    from repro_torch.core import protocol
+    from repro_torch.core.protocol import engine
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    cfg = protocol.CPMLConfig(N=SHARD["N"], K=SHARD["K"], T=SHARD["T"])
+    x, y = synthetic.mnist_like(1, m=SHARD["m"], d=SHARD["d"], margin=12.0)
+    draws = protocol.TorchDraws(TRAIN_SEED, dev)
+    state = engine.setup(cfg, torch.as_tensor(x, device=dev),
+                         torch.as_tensor(y, device=dev), draws=draws)
+    ws = engine.encode_round_shares(cfg, draws, 0, state.w[:, None])
+    xs, cbar = state.x_shares, torch.as_tensor(engine.poly_coeffs(cfg),
+                                              device=dev)
+    ranks = [torch.equal(ops.coded_grad(xs[i:i + 1], ws[i:i + 1], cbar, cfg.p),
+                         ref.coded_grad_workers_ref(xs[i:i + 1], ws[i:i + 1],
+                                                    cbar, cfg.p))
+             for i in range(cfg.N)]
+    every = torch.equal(ops.coded_grad(xs, ws, cbar, cfg.p),
+                        ref.coded_grad_workers_ref(xs, ws, cbar, cfg.p))
+    return {"shape": list(xs[:1].shape) + list(ws.shape[2:]),
+            "ranks_bit_equal": ranks, "all_shares_bit_equal": every}
+
+
+def shard_head_rank(rank: int, world: int) -> dict:
+    """One rank of the sharded coded head at SHARD_HEAD: the head's weights
+    and h from a seed, encoded on this rank's card, then
+    ``coded_head_apply_sharded`` with shard ``kill`` killed against the
+    one-process ``coded_head_apply`` and the plain direct product."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import coded_linear as cl
+    from repro_torch.core import lagrange, quantize
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh
+
+    s = SHARD_HEAD
+    dev = torch.device("cuda")
+    cfg = cl.CodedLinearConfig(N=s["N"], K=s["K"], T=s["T"])
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    w = (torch.randn((s["d"], s["vocab"]), generator=gen) * 0.02).to(dev)
+    h = torch.randn((s["batch"], s["d"]), generator=gen).to(dev)
+    masks = lagrange.draw_masks(gen, cfg.T, (s["d"], s["vocab"] // cfg.K),
+                                cfg.p).to(dev)
+    shares = cl.encode_weights(cfg, w, masks=masks)
+    surv = tuple(i for i in range(cfg.N) if i != s["kill"])
+    m = mesh.compat_make_mesh((world,), ("shards",))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    results, used = cl.gathered_results(cfg, m, "shards", h, shares, surv)
+    torch.cuda.synchronize()
+    product = dict(ops.LAUNCHES)
+    field = cl.decode_field(cfg, results, used)
+    logits = cl.coded_head_apply_sharded(cfg, m, "shards", h, shares, surv)
+    one_results, one_used = cl.shard_results(cfg, h, shares, np.array(surv))
+    one_field = cl.decode_field(cfg, one_results, one_used)
+    one_logits = cl.decode_output(cfg, one_results, one_used)
+    direct = ref.modmatmul_ref(quantize.quantize_data(h, cfg.lh, cfg.p),
+                               quantize.quantize_data(w, cfg.lw, cfg.p), cfg.p)
+    torch.cuda.synchronize()
+    return {"rank": rank, "product_launches": product,
+            "field_equal_one_process": bool(torch.equal(field, one_field)),
+            "field_equal_direct": bool(torch.equal(field, direct)),
+            "logits_equal_one_process": bool(torch.equal(logits, one_logits)),
+            "used": [int(i) for i in used], "logits_shape": list(logits.shape),
+            "finite": bool(torch.isfinite(logits).all())}
+
+
+def nccl_rank(rank: int, world: int) -> dict:
+    """``compat.all_gather`` of a CUDA tensor through an NCCL group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+    from repro_torch.parallel import compat
+
+    m = mesh.compat_make_mesh((world,), ("workers",))
+    x = torch.arange(6, device="cuda", dtype=torch.int32).reshape(1, 6) + rank
+    g = compat.all_gather(x, "workers", 0, tiled=True, mesh=m)
+    return {"backend": dist.get_backend(), "device": str(g.device),
+            "equal": bool(torch.equal(g, torch.cat([x + r - rank
+                                                    for r in range(world)])))}
+
+
+def phase_shard(torch, out_dir: Path) -> dict:
+    """The shard backend through ``cpml_train --backend shard`` against the
+    one-process vmap run, with the runs' own per-round timings; the
+    worker step at the path's shapes against its plain version; the
+    sharded coded head and a one-rank NCCL group (see the module
+    docstring)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cpml_train, mesh
+
+    s = SHARD
+    argv = ["-N", str(s["N"]), "-K", str(s["K"]), "-T", str(s["T"]),
+            "--m", str(s["m"]), "--d", str(s["d"]), "--iters", str(s["iters"]),
+            "--seed", str(TRAIN_SEED), "--device", "cuda"]
+    res, launches = {}, {}
+    for backend in ("vmap", "shard"):
+        out = out_dir / f"cpml_train_{backend}.json"
+        ops.reset_launches()
+        rc = cpml_train.main([*argv, "--backend", backend, "--json-out",
+                              str(out)])
+        torch.cuda.synchronize()
+        launches[backend] = dict(ops.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cpml_train --backend {backend} exited {rc}")
+        res[backend] = json.loads(out.read_text())
+    vmap, shard = res["vmap"], res["shard"]
+    want = mesh.backend_for(s["N"], "cuda")
+
+
+    def after_first(ms: list) -> float:
+        return statistics.median(ms[1:])
+
+    per_rank = [r["launches"] for r in shard["ranks"]]
+    failures = []
+    if launches["vmap"]["coded_grad"] != s["iters"]:
+        failures.append(f"vmap launches {launches['vmap']}")
+    if shard["rank_backend"] != want:
+        failures.append(f"backend {shard['rank_backend']}, rule says {want}")
+    for r in shard["ranks"]:
+        if r["w_sha256"] != vmap["w_sha256"]:
+            failures.append(f"rank {r['rank']}: weights differ from vmap's")
+        if not r["device"].startswith("cuda"):
+            failures.append(f"rank {r['rank']} on {r['device']}")
+        if (r["launches"]["coded_grad"] != s["iters"]
+                or r["launches"]["modmatmul"]
+                != launches["vmap"]["modmatmul"]):
+            failures.append(f"rank {r['rank']} launches {r['launches']}")
+    if shard["acc_coded"] != vmap["acc_coded"]:
+        failures.append(f"accuracy {shard['acc_coded']} against vmap's "
+                        f"{vmap['acc_coded']}")
+    share = shard_share_check(torch)
+    if not (all(share["ranks_bit_equal"]) and share["all_shares_bit_equal"]):
+        failures.append(f"coded_grad against its plain version: {share}")
+    head = mesh.run_ranks(shard_head_rank, SHARD_HEAD["N"], device="cuda",
+                          timeout=300)
+    for r in head.results:
+        if not (r["field_equal_one_process"] and r["field_equal_direct"]
+                and r["logits_equal_one_process"] and r["finite"]
+                and r["product_launches"]["modmatmul"] == 1):
+            failures.append(f"sharded head rank {r['rank']}: {r}")
+    nccl = mesh.run_ranks(nccl_rank, 1, device="cuda", timeout=120)
+    if nccl.backend != "nccl" or not nccl.results[0]["equal"]:
+        failures.append(f"one-rank NCCL group: {nccl.backend} "
+                        f"{nccl.results[0]}")
+    # every rank the launcher started has ended
+    left = [p.pid for p in torch.multiprocessing.active_children()]
+    if left:
+        failures.append(f"rank processes still alive: {left}")
+    info = {"phase": "shard", "device": nvidia_smi(), "argv": argv,
+            "backend": shard["rank_backend"], "backend_rule": want,
+            "startup_s": shard["startup_s"],
+            "seconds": {"vmap": vmap["seconds"], "shard": shard["seconds"]},
+            "acc_coded": shard["acc_coded"],
+            "acc_cleartext": shard["acc_cleartext"],
+            "launches_vmap": launches["vmap"],
+            "launches_parent_during_shard": launches["shard"],
+            "launches": per_rank[0], "launches_per_rank": per_rank,
+            "coded_grad_check": share,
+            # medians of rounds 2.. of the runs above (round 1 warms up)
+            "round_ms": {"vmap": after_first(vmap["round_ms"]),
+                         "shard_by_rank": [after_first(r["round_ms"])
+                                           for r in shard["ranks"]]},
+            "coded_grad_ms": {"vmap_all_8": after_first(vmap["coded_grad_ms"]),
+                              "shard_by_rank": [after_first(r["coded_grad_ms"])
+                                                for r in shard["ranks"]]},
+            "all_gather_ms_by_rank": [after_first(r["all_gather_ms"])
+                                      for r in shard["ranks"]],
+            "head": {"spec": SHARD_HEAD, "backend": head.backend,
+                     "startup_s": head.startup_s,
+                     "used": head.results[0]["used"],
+                     "product_launches": head.results[0]["product_launches"],
+                     "logits_shape": head.results[0]["logits_shape"]},
+            "nccl": {"backend": nccl.backend, "startup_s": nccl.startup_s,
+                     **nccl.results[0]},
+            "children_left": left, "host_load_avg": os.getloadavg()}
+    emit(info)
+    if failures:
+        raise AssertionError("shard: " + "; ".join(failures))
     return info
 
 
@@ -3229,6 +3454,8 @@ PREDICT_RUNS = (
     ("case1_closed", PREDICT, ["--latency", "lognormal", "--mode", "closed",
                                "--queries", "32"]),
 )
+# Over sockets the slack fleet only: the Case 1 fleet's 40 processes (~50 s
+# to start) are cut for the script's time limit; in process it still runs
 PREDICT_SOCKET_RUNS = (
     ("case1_straggle", PREDICT, [*PREDICT_OPEN, "--straggle-worker", "7",
                                  "--straggle-sleep", "0.25"]),
@@ -3687,6 +3914,7 @@ def main(argv: list[str] | None = None) -> int:
     for name, fn, args_ in (
             ("train", phase_train, (torch, out_dir)),
             ("train_c33", phase_train_heads, (torch, out_dir)),
+            ("shard", phase_shard, (torch, out_dir)),
             ("teacher", phase_teacher, (torch,)),
             ("serve", phase_serve, (torch, out_dir)),
             ("profile", phase_profile, (torch,)),
@@ -3765,6 +3993,7 @@ def main(argv: list[str] | None = None) -> int:
                 "launches_by_path": {
                     k: ran[v]["launches"][name]
                     for k, v in (("train", "train"), ("train_c33", "train_c33"),
+                                 ("shard_per_rank", "shard"),
                                  ("serve", "serve"),
                                  ("serve_coded_head", "coded_head"),
                                  ("serve_dense", "serve_dense"),

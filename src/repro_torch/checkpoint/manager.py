@@ -13,7 +13,8 @@ mutating its tensors.  ``wait()`` joins before the next save.
 
 ``restore`` returns torch tensors on ``device`` (the CPU by default).  The
 reference's ``shardings`` (a restore onto a mesh) has no counterpart until
-the port has a mesh (ROADMAP.md list 1b item 7), and is refused.
+the port places tensors on a mesh (``DTensor``, ROADMAP.md list 1b item 7),
+and is refused.
 """
 from __future__ import annotations
 
@@ -131,7 +132,7 @@ class CheckpointManager:
         if shardings:
             raise NotImplementedError(
                 "restore(shardings=...) places leaves on a device mesh, which "
-                "the port does not have yet: ROADMAP.md list 1b item 7")
+                "the port does not do yet: ROADMAP.md list 1b item 7")
         if step is None:
             step = self.latest_step()
         assert step is not None, f"no checkpoints in {self.directory}"

@@ -17,9 +17,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.protocol.config import CPMLConfig
 from repro_torch.core.protocol.engine import CPMLState
 
-# Reference fields with no counterpart: the device picks the kernel path,
-# and the mesh axis belongs to the unported "shard" backend.
-_DROPPED = ("use_kernel", "mesh_axis")
+# The reference field with no counterpart: the device picks the kernel path.
+_DROPPED = ("use_kernel",)
 
 
 def config_from_reference(d: dict) -> CPMLConfig:

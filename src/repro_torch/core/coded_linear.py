@@ -10,7 +10,10 @@ on the card, one ``modmatmul`` launch per surviving shard.
 
 ``encode_weights`` takes its masks as an argument or draws them from a
 ``torch.Generator`` (the randomness seam).  ``coded_head_apply_sharded``
-(one share per device) waits for the multi-GPU runtime (ROADMAP.md).
+places one share a rank along a mesh axis (``parallel/compat.py``): each
+rank computes its own share's product (one ``modmatmul`` launch on the
+card), one ``all_gather`` brings every rank all N results, and each
+decodes the static survivors, replicated.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import field, lagrange, quantize
+from repro_torch.parallel import compat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,3 +111,41 @@ def coded_head_apply(cfg: CodedLinearConfig, h: torch.Tensor,
     """
     results, used = shard_results(cfg, h, w_shares, survivors)
     return decode_output(cfg, results, used)
+
+
+def gathered_results(cfg: CodedLinearConfig, mesh, axis: str,
+                     h: torch.Tensor, w_shares: torch.Tensor,
+                     survivors: tuple[int, ...] | None = None
+                     ) -> tuple[torch.Tensor, np.ndarray]:
+    """``shard_results`` with one share a rank along ``axis`` (size N):
+    every rank's H̄ @ W̃_i, gathered on every rank.
+
+    Returns (results (K+T, m, v/K) of the first K+T survivors, their
+    indices)."""
+    if compat.axis_size(axis, mesh) != cfg.N:
+        raise ValueError(f"mesh axis {axis!r} must hold the N={cfg.N} shares")
+    surv = np.arange(cfg.N) if survivors is None else np.asarray(survivors)
+    used = surv[: cfg.threshold]
+    h_q = quantize.quantize_data(h, cfg.lh, cfg.p)
+
+    def body(ws: torch.Tensor) -> torch.Tensor:
+        res = worker_matmul(cfg, h_q, ws[0])[None]                # (1, m, v/K)
+        return compat.all_gather(res, axis, 0, tiled=True)       # (N, m, v/K)
+
+    results = compat.shard_map(body, mesh, ((axis,),), ())(w_shares)
+    return results[torch.as_tensor(used, device=results.device)], used
+
+
+def coded_head_apply_sharded(cfg: CodedLinearConfig, mesh, axis: str,
+                             h: torch.Tensor, w_shares: torch.Tensor,
+                             survivors: tuple[int, ...] | None = None
+                             ) -> torch.Tensor:
+    """``coded_head_apply`` with one share a rank along ``axis`` (size N).
+
+    ``survivors`` is a static index tuple (the runtime's heartbeat monitor
+    picks it).  No collective in a share's product; one ``all_gather``
+    plays "send to master"; the decode is a replicated (threshold x K)
+    field product on every rank.
+    """
+    return decode_output(cfg, *gathered_results(cfg, mesh, axis, h, w_shares,
+                                                survivors))

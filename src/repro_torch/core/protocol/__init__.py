@@ -3,7 +3,8 @@
 Mirrors ``repro/core/protocol``: one module per stage.
 
   encode.py   quantize -> Lagrange-encode (dataset once, weights per round)
-  compute.py  worker polynomial f (Eq. 20), all N workers in one kernel
+  compute.py  worker polynomial f (Eq. 20): all N workers in one kernel,
+              or one share a rank (backend="shard")
   decode.py   survivor pattern -> cached decode matrix -> dequantize;
               the host streaming decoder of the cluster runtime
   engine.py   training drivers: train(), train_reference(), metrics

@@ -2,8 +2,9 @@
 
 Mirrors ``repro/core/protocol/config.py``.  The reference's ``use_kernel``
 flag has no counterpart: in the port the device decides (a CUDA tensor
-runs the kernels, a CPU tensor their plain versions), and ``mesh_axis``
-belongs to the ``"shard"`` backend, which is not ported yet.
+runs the kernels, a CPU tensor their plain versions).  ``backend="shard"``
+runs one share a rank along the mesh axis ``mesh_axis`` of the ambient
+mesh (``core/protocol/compute.py``).
 """
 from __future__ import annotations
 
@@ -24,15 +25,12 @@ class CPMLConfig:
     lw: int = 4             # weight quantization scale (paper §5)
     lc: int = 6             # sigmoid-coefficient scale (see sigmoid_poly.py)
     p: int = field.P
-    backend: str = "vmap"   # all N workers on one device
+    backend: str = "vmap"   # "vmap" (all N workers here) | "shard"
+    mesh_axis: str = "workers"
     batch_rows: int | None = None   # rows per part per round (None = full)
 
     def __post_init__(self):
-        if self.backend == "shard":
-            raise NotImplementedError(
-                "backend='shard' (one share per GPU) is not ported yet: "
-                "ROADMAP.md queue 1 item 4")
-        if self.backend != "vmap":
+        if self.backend not in ("vmap", "shard"):
             raise ValueError(f"unknown backend {self.backend!r}")
         need = lagrange.recovery_threshold(self.K, self.T, self.r)
         if self.N < need:

@@ -11,12 +11,18 @@ one-vs-all heads and optional coded mini-batch SGD).  Differences:
     construction.
 
 Every tensor of a ``CPMLState`` lives on one device: the GPU runs the
-kernels, the CPU their plain versions.
+kernels, the CPU their plain versions.  With ``backend="shard"`` every
+rank runs these same functions on the same draws (``TorchDraws`` seeds
+each draw by its tag), so each decodes the same parts and steps to the
+same weights; a rank keeps the whole coded dataset (N, mk, d), 311 MB at
+N = 8 and Case 1's m and d, and computes only its own share of it
+(``compute.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable
 
 import numpy as np
@@ -327,21 +333,35 @@ def _record(cfg, state, w2, t, eval_every, history):
                         "acc": float(acc)})
 
 
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
 def train(cfg: CPMLConfig, x, y, iters: int, eta: float | None = None,
           survivor_fn: Callable[[int], np.ndarray] | None = None,
           eval_every: int = 0, *, draws=None,
-          device: str | torch.device | None = None
+          device: str | torch.device | None = None,
+          round_ms: list[float] | None = None
           ) -> tuple[torch.Tensor, list[dict[str, float]]]:
     """Full Algorithm 1: a loop of ``_round`` over the static schedule.
-    Returns (w, history).  Runs on CUDA unless ``device="cpu"``."""
+    Returns (w, history).  Runs on CUDA unless ``device="cpu"``.  Given a
+    ``round_ms`` list, each round is synchronised and its host-clock ms
+    appended (the evaluation between rounds is not counted)."""
     state, eta, sched, draws = _prepare(cfg, x, y, iters, eta, survivor_fn,
                                         draws, device)
     w2 = _w_internal(cfg, state.w)
     history: list[dict[str, float]] = []
     for t in range(iters):
         bidx = None if sched.batch_idx is None else sched.batch_idx[t]
+        if round_ms is not None:
+            _sync(w2)
+            t0 = time.perf_counter()
         w2 = _round(cfg, draws, t, w2, state, sched.decode_mats[t],
                     sched.orders[t], bidx, eta)
+        if round_ms is not None:
+            _sync(w2)
+            round_ms.append((time.perf_counter() - t0) * 1e3)
         _record(cfg, state, w2, t, eval_every, history)
     return _w_public(cfg, w2), history
 

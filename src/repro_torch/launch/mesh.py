@@ -1,20 +1,35 @@
-"""Meshes for the port's placement policy.
+"""Meshes of the port, and the launcher of its SPMD ranks.
 
-Mirrors ``repro/launch/mesh.py``'s ``make_local_mesh`` and ``mesh_chips``:
-a small (data, model) mesh over the devices torch sees,
-``torch.cuda.device_count()`` cards on the GPU and one device on the CPU
-(as the reference's tests see one CPU device).  A ``LocalMesh`` carries
-what the placement rules read (``axis_names`` and ``shape``,
-``parallel/rules.py``) and its devices; nothing is placed on it.
-``compat_make_mesh`` and ``make_production_mesh`` (the reference's
-256- and 512-chip XLA meshes) need more than one card and refuse:
-ROADMAP.md list 1b item 7 and queue 1 item 12.
+Mirrors ``repro/launch/mesh.py``.  ``make_local_mesh`` and ``mesh_chips``
+describe the devices one process sees, ``torch.cuda.device_count()``
+cards on the GPU and one device on the CPU (as the reference's tests see
+one CPU device): a ``LocalMesh`` carries what the placement rules read
+(``axis_names`` and ``shape``, ``parallel/rules.py``) and its devices;
+nothing is placed on it.
+
+``compat_make_mesh`` builds the reference's named mesh over the ranks of
+an initialised ``torch.distributed`` world, as a ``DeviceMesh`` whose
+dims ``parallel/compat.py`` names.  The reference forces N host devices
+in one process; the port starts N processes instead, with ``run_ranks``.
+``make_production_mesh`` (the reference's 256- and 512-chip meshes)
+refuses: ROADMAP.md list 1b item 7 and queue 1 item 12.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import math
+import os
+import queue as queue_mod
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +62,154 @@ def mesh_chips(mesh: LocalMesh) -> int:
 
 
 def compat_make_mesh(shape, axes):
-    raise NotImplementedError(
-        "compat_make_mesh builds an XLA device mesh; the port's multi-card "
-        "mesh is not ported yet: ROADMAP.md list 1b item 7")
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the ranks
+    of the initialised world, in rank order (``run_ranks`` starts one).
+
+    Its device type is where its collectives move data: the card under
+    NCCL, host memory under gloo (``parallel/compat.py``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    if not dist.is_initialized():
+        raise RuntimeError("compat_make_mesh needs an initialised "
+                           "torch.distributed world (launch.mesh.run_ranks)")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} ranks;"
+                         f" the world has {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
-        "the 256- and 512-chip production meshes are not ported yet: "
-        "ROADMAP.md list 1b item 7 and queue 1 item 12")
+        "the 256- and 512-chip production meshes carry the LM's DTensor "
+        "placement (ROADMAP.md list 1b item 7) and the dry run (queue 1 item "
+        "12), neither ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Rank launcher
+# ---------------------------------------------------------------------------
+
+def backend_for(world: int, device: str | torch.device) -> str:
+    """The process group's backend for ``world`` ranks on ``device``.
+
+    ``nccl`` where every rank has its own card; ``gloo`` where ranks share
+    a card (NCCL refuses two ranks on one device) and on the CPU.  The
+    rule decides; a backend that fails is an error, not a cue to try the
+    other."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+@dataclasses.dataclass
+class RankRun:
+    results: list[Any]       # what the rank function returned, by rank
+    backend: str
+    startup_s: float         # start of the first rank to the last one's group
+
+
+class RankFailure(RuntimeError):
+    """A rank raised, died or did not finish: the whole run failed."""
+
+
+def _rank_main(rank: int, world: int, backend: str, device_type: str,
+               init_file: str, timeout: float, fn: Callable, args: tuple,
+               results) -> None:
+    """One rank: join the group, run ``fn(rank, world, *args)``, report."""
+    try:
+        # the ranks share the host's cores
+        torch.set_num_threads(1)
+        if device_type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout))
+        ready = time.time()
+        out = fn(rank, world, *args)
+        results.put((rank, None, out, ready))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None, None))
+        sys.exit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable[..., Any], world: int, args: tuple = (), *,
+              device: str | torch.device = "cpu", timeout: float = 600.0
+              ) -> RankRun:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined
+    in one ``torch.distributed`` group, and return what each returned.
+
+    ``fn`` and ``args`` are pickled (``fn`` by its import path); ``fn``
+    returns host values (numbers, numpy arrays).  The group rendezvous
+    through a ``FileStore`` in a fresh temporary directory, so concurrent
+    runs never share a port.  Every rank sets one intra-op thread and, on
+    the GPU, the card ``rank % device_count``.  The CUDA kernels are built
+    here, before any rank starts, so that no two ranks run ``nvcc`` into
+    one build directory.  A rank that raises or dies, or a run past
+    ``timeout`` seconds, raises ``RankFailure``; every rank still alive is
+    then killed.
+    """
+    dev = torch.device(device)
+    backend = backend_for(world, dev)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")
+    procs = [ctx.Process(target=_rank_main, args=(
+        rank, world, backend, dev.type, os.path.join(tmp, "store"), timeout,
+        fn, args, results)) for rank in range(world)]
+    t0 = time.time()
+    got: dict[int, tuple[Any, float]] = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while len(got) < world:
+            try:
+                item = results.get(timeout=1.0)
+            except queue_mod.Empty:
+                item = None
+            if item is None:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead:
+                    # a rank flushes its result before it exits: read it
+                    try:
+                        item = results.get(timeout=2.0)
+                    except queue_mod.Empty:
+                        raise RankFailure(
+                            f"rank {dead[0]} exited with code "
+                            f"{procs[dead[0]].exitcode} and no result"
+                        ) from None
+                elif time.monotonic() > deadline:
+                    missing = sorted(set(range(world)) - set(got))
+                    raise RankFailure(f"ranks {missing} did not finish within "
+                                      f"{timeout} s")
+                else:
+                    continue
+            rank, err, out, ready = item
+            if err is not None:
+                raise RankFailure(f"rank {rank} of {world} failed:\n{err}")
+            got[rank] = (out, ready)
+        for p in procs:
+            p.join(timeout=30)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(timeout=30)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return RankRun(results=[got[r][0] for r in range(world)], backend=backend,
+                   startup_s=max(got[r][1] for r in range(world)) - t0)

@@ -110,7 +110,7 @@ def main(argv: list[str] | None = None, config_override=None) -> int:
         cfg = registry.reduced_config(cfg)
     if args.production_mesh:
         print("error: --production-mesh shards the model over a device mesh,"
-              " which the port does not have yet: ROADMAP.md list 1b item 7",
+              " which the port does not do yet: ROADMAP.md list 1b item 7",
               file=sys.stderr)
         return 2
     if cfg.is_encoder_decoder:

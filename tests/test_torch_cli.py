@@ -38,10 +38,28 @@ def test_cpml_train_needs_cuda_unless_cpu_is_asked_for():
     assert "CUDA is not available" in res.stderr
 
 
-def test_cpml_train_refuses_shard_backend():
-    res = run(["-m", "repro_torch.launch.cpml_train", "--device", "cpu",
-               "--backend", "shard"])
-    assert res.returncode != 0 and "not ported" in res.stderr
+def test_cpml_train_refuses_shard_backend(tmp_path):
+    """``--backend shard`` runs N = 8 gloo ranks on the CPU, one share
+    each: every rank's weights are the vmap run's, and so is the coded
+    accuracy; every rank reports each round's timings.  (The test keeps
+    the name it had while the CLI refused the backend.)"""
+    args = ["-m", "repro_torch.launch.cpml_train", "--device", "cpu",
+            "--m", "200", "--d", "16", "--iters", "4", "--eval-every", "2",
+            "--drop-workers", "1"]
+    out = {b: tmp_path / f"{b}.json" for b in ("vmap", "shard")}
+    for b in out:
+        res = run([*args, "--backend", b, "--json-out", str(out[b])])
+        assert res.returncode == 0, res.stderr
+    vmap, shard = (json.loads(out[b].read_text()) for b in out)
+    assert "8 ranks over gloo" in res.stdout
+    assert shard["rank_backend"] == "gloo" and len(shard["ranks"]) == 8
+    assert {r["w_sha256"] for r in shard["ranks"]} == {vmap["w_sha256"]}
+    assert shard["acc_coded"] == vmap["acc_coded"]
+    assert shard["history"] == vmap["history"]
+    for r in (vmap, *shard["ranks"]):
+        assert len(r["round_ms"]) == len(r["coded_grad_ms"]) == 4
+    assert all(len(r["all_gather_ms"]) == 4 for r in shard["ranks"])
+    assert "all_gather_ms" not in vmap
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():

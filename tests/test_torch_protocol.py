@@ -96,8 +96,11 @@ def test_config_conversion_and_refusals():
     cj, ct = configs(N=8, K=2, T=1, c=3, batch_rows=5)
     assert (ct.threshold, ct.grad_scale) == (cj.threshold, cj.grad_scale)
     assert ct.headroom_bits(1.0, 100) == cj.headroom_bits(1.0, 100)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tp.CPMLConfig(N=8, K=2, T=1, backend="shard")
+    # the shard backend and its mesh axis carry across one-to-one
+    sj, st = configs(N=8, K=2, T=1, backend="shard", mesh_axis="shares")
+    assert (st.backend, st.mesh_axis) == (sj.backend, sj.mesh_axis)
+    with pytest.raises(ValueError, match="backend"):
+        tp.CPMLConfig(N=8, K=2, T=1, backend="pmap")
     with pytest.raises(ValueError):
         tp.CPMLConfig(N=6, K=2, T=1)                 # below threshold
     with pytest.raises(ValueError):
@@ -211,3 +214,25 @@ def test_train_defaults_to_cuda():
     x, y = dataset(1, 20, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         tp.train(ct, x, y, 1)
+
+
+def test_train_times_rounds_without_changing_them():
+    """``train(round_ms=...)`` and the compute stage's marks time each
+    round and its worker step (``cpml_train``'s per-round timings); the
+    weights are those of an untimed run."""
+    cj, ct = configs(N=8, K=2, T=1)
+    x, y = dataset(1, 60, 6)
+    kw = dict(eta=1.5, device="cpu")
+    w_plain, _ = tp.train(ct, x, y, 3, draws=tp.TorchDraws(3, "cpu"), **kw)
+    round_ms: list = []
+    tcompute.TIMES = marks = []
+    try:
+        w_timed, _ = tp.train(ct, x, y, 3, draws=tp.TorchDraws(3, "cpu"),
+                              round_ms=round_ms, **kw)
+    finally:
+        tcompute.TIMES = None
+    assert torch.equal(w_timed, w_plain)
+    assert len(round_ms) == 3 and min(round_ms) > 0
+    steps = [tcompute.marks_ms(m) for m in marks]
+    assert len(steps) == 3 and all(len(s) == 1 and s[0] >= 0 for s in steps)
+    assert all(s[0] <= r for s, r in zip(steps, round_ms))

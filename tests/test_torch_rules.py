@@ -103,10 +103,15 @@ def test_local_mesh_over_the_devices_torch_sees():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: tmesh.compat_make_mesh((16, 16), ("data", "model")),
-     "list 1b item 7"),
+    (lambda: tmesh.make_production_mesh(), "list 1b item 7"),
     (lambda: tmesh.make_production_mesh(multi_pod=True), "queue 1 item 12"),
 ])
 def test_multi_card_meshes_refuse_naming_their_items(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+def test_compat_make_mesh_needs_a_world():
+    """Outside the ranks of ``run_ranks`` there is no world to mesh."""
+    with pytest.raises(RuntimeError, match="run_ranks"):
+        tmesh.compat_make_mesh((16, 16), ("data", "model"))
