@@ -9,6 +9,10 @@ phase fails.  ``--phases`` runs the build and the named phases only (for
 iterating on a kernel); such a partial run prints no ok line.
 
   build     builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+            and, beside them while the kernels phases run, the host-staged
+            collective backend of ranks that share the card
+            (``src/repro_torch/parallel/csrc/staged_backend.cpp``, with the
+            host's C++ compiler; ``build_staged``)
   kernels   holds each field kernel bit for bit against its plain PyTorch
             version on the card: the main path's shapes at the paper's
             Case 1 (N=40, K=13, T=1, m=12396, d=1568), both primes,
@@ -65,7 +69,8 @@ iterating on a kernel); such a partial run prints no ok line.
   train_c33 ``cpml_train --classes 33 --iters 2`` on the card (33 heads,
             N=8, K=2, T=1): exit 0 and ``coded_grad`` launched twice
   shard     ``cpml_train --backend shard``: N=8, K=2, T=1 at Case 1's m
-            and d for 25 rounds, 8 ranks on the one card over gloo, one
+            and d for 25 rounds, 8 ranks on the one card over the staged
+            backend (gloo on the host), one
             coded share a rank: every rank's weights bit-identical to the
             one-process vmap run's, the same accuracy, and on every rank
             exactly 25 ``coded_grad`` launches and the vmap run's
@@ -89,8 +94,8 @@ iterating on a kernel); such a partial run prints no ok line.
             tokens in range, logits finite; prefill seconds, decode
             tokens/s, peak device memory
   profile   one prefill at the serve shape and 8 decode steps under
-            torch.profiler: device time by kernel group, the scan's share
-            of it, busy share
+            torch.profiler, falcon-mamba cut to 16 of 64 layers: device
+            time by kernel group, the scan's share of it, busy share
   consistency  falcon-mamba-7b at full width, 2 layers, float32: prefill
             on the card (kernel) against the CPU (plain version), and
             prefill + 3 decode steps against ``backbone`` over S+3 on the
@@ -117,8 +122,8 @@ iterating on a kernel); such a partial run prints no ok line.
             ``backbone`` over S+3; h2o-danube at S = 4100 past its window
             on the card; all within 1e-3
   profile_dense  the profile phase for tinyllama, hymba and h2o-danube
-            at their serve shapes, with attention's device ms a prefill
-            and its share
+            at their serve shapes, each cut to 4 layers, with attention's
+            device ms a prefill and its share
   serve_moe phi3.5-moe-42b-a6.6b at full width (16 experts of 6400, top-2)
             cut to 16 of 32 layers, batch 4, prompt 2048, 32 tokens,
             through ``serve.greedy_decode``: no kernel launched; then its
@@ -134,8 +139,9 @@ iterating on a kernel); such a partial run prints no ok line.
             decode steps against the full forward, and the sort dispatch
             against the einsum one on the card, within 1e-3; how many
             tokens' top-2 expert sets agree between card and CPU
-  profile_moe  the profile phase for phi3.5-moe and arctic at their
-            serve_moe and serve_arctic shapes, with the prefill's device ms
+  profile_moe  the profile phase for phi3.5-moe (cut to 8 of 32 layers)
+            and arctic (2 of 35) at their serve_moe and serve_arctic
+            batch and prompt, with the prefill's device ms
             by group: attention, the expert products, dispatch and combine,
             the rest
   serve_whisper  whisper-tiny at its published config (4 encoder and 4
@@ -153,23 +159,44 @@ iterating on a kernel); such a partial run prints no ok line.
             output, prefill logits and caches) and 3 decode steps against
             the full forward, within 1e-3; the share of 2^20 bf16 ``gelu``
             outputs that differ between card and CPU (a finding)
-  train_lm  ``repro_torch.launch.train`` at full width and depth, bf16
+  train_lm  ``repro_torch.launch.train`` at full width, bf16
             parameters, float32 AdamW state, block remat, batch 4 x 2048
-            tokens, 10 steps: hymba-1.5b (32 layers; exactly 64
-            ``selective_scan`` and 32 ``selective_scan_bwd`` launches a
-            step) and tinyllama-1.1b (22 layers, no kernel launched);
+            tokens, 5 steps: hymba-1.5b (cut to 4 of 32 layers; exactly 8
+            ``selective_scan`` and 4 ``selective_scan_bwd`` launches a
+            step) and tinyllama-1.1b (4 of 22 layers, no kernel launched);
             finite losses, the last below 1.05 x the first; step ms (the
             first apart), tokens/s, peak device memory; one warm step of
             each under torch.profiler (device ms by kernel group, the
             optimizer's, launches, busy share, the scan's share) and
             attention alone at the step's shapes
-  train_lm_ab16  hymba-1.5b at full width and depth trained in the scan's
-            bf16 a/b mode (chunks of 128) through ``train.train_step_fn``,
-            bf16 parameters, float32 AdamW, block remat, batch 4 x 2048, 4
-            steps: exactly 64 ``selective_scan`` and 32
-            ``selective_scan_bwd`` launches a step, finite losses, the last
-            below 1.05 x the first; step ms, peak device memory, and one
-            more step profiled (the scan backward's device ms a step)
+  train_lm_ab16  hymba-1.5b at full width, cut to 4 layers, trained in
+            the scan's bf16 a/b mode (chunks of 128) through
+            ``train.train_step_fn``, bf16 parameters, float32 AdamW, block
+            remat, batch 4 x 2048, 4 steps: exactly 8 ``selective_scan``
+            and 4 ``selective_scan_bwd`` launches a step, finite losses,
+            the last below 1.05 x the first; step ms, peak device memory,
+            and one more step profiled (the scan backward's device ms a
+            step)
+  train_sharded  the LM over a mesh of 4 ranks sharing the card
+            (``run_ranks`` over ``backend_for``'s route: gloo for host
+            tensors, the staged backend for CUDA ones), a (data 2, model
+            2) mesh of DTensors placed by the logical-axis rules:
+            hymba-1.5b (25 heads over model 2: the context-parallel branch)
+            and tinyllama-1.1b (heads and vocab over model, embed over
+            data) at full width cut to 2 blocks, bf16 parameters, float32
+            AdamW, block remat, batch 4 x 2048, 3 steps through
+            ``train.train_step_fn``: the loss the same on every rank,
+            every parameter's full tensor the same bits on every rank, the
+            branch counted (2 calls a hymba layer a step, none for
+            tinyllama), on each rank exactly 2 ``selective_scan`` launches
+            and 1 ``selective_scan_bwd`` a hybrid layer a step, on its own
+            channels; step ms, the collectives' share of a profiled step
+            and the peak memory by rank; the 2 layers in float32 at batch
+            2 x 256, sharded gradients within 1e-3 of each leaf's largest
+            of a one-process run on the card; hymba's checkpoint saved by
+            the ranks at (2, 2) and restored here with no mesh, bit-equal;
+            ``train.main`` over the 4 ranks (mesh data 4) for 3 steps of
+            tinyllama at 2 layers; no rank process left alive
   consistency_train  hymba at full width, 2 layers (one global, one
             windowed), float32, batch 2 x 256: the loss and every gradient
             leaf on the card against the CPU within 1e-3 of each leaf's
@@ -276,6 +303,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -335,6 +363,9 @@ SERVE_WIDE = dict(arch="qwen2-72b", layers=2, batch=1, prompt_len=512, gen=4)
 # card (phi3.5-moe 16 of 32 layers, 42.1 GB of bf16; arctic 2 of 35, 55.4 GB)
 SERVE_MOE = dict(arch="phi3.5-moe-42b-a6.6b", layers=16, batch=4,
                  prompt_len=2048, gen=32)
+# phi3.5-moe's profile at 8 of its 32 layers (its layers are alike), cut
+# to leave the time limit room for train_sharded
+PROFILE_MOE = dict(SERVE_MOE, layers=8)
 SERVE_ARCTIC = dict(arch="arctic-480b", layers=2, batch=4, prompt_len=2048,
                     gen=8)
 # the CLI's --reduced runs of the MoE archs on the card
@@ -378,15 +409,20 @@ BWD_RTOL = 1e-4
 # check prints the element that sets each gradient's error to show it.
 AB16_BWD_RTOL = BWD_RTOL
 # LM training in the bf16 a/b mode (RunConfig(ssm_dtype="bf16"), chunks of
-# run_config's scan_chunk, 128): hymba at full width and depth, bf16
+# run_config's scan_chunk, 128): hymba at full width cut to 4 layers, bf16
 # parameters, float32 AdamW, block remat, through train.train_step_fn
-TRAIN_AB16 = dict(arch="hymba-1.5b", batch=4, seq=2048, steps=4)
-# LM training at full width and depth on one card (PERF.md section 4):
-# bf16 parameters, float32 AdamW state, block remat, 10 steps through
+TRAIN_AB16 = dict(arch="hymba-1.5b", batch=4, seq=2048, steps=4,
+                  pattern=(("hybrid_global", 1), ("hybrid", 3)))
+# LM training at full width on one card (PERF.md section 4): bf16
+# parameters, float32 AdamW state, block remat, 5 steps through
 # repro_torch.launch.train; hymba's batch and sequence are the serve
-# phases' (its 1024-token window passed)
-TRAIN_LM = (dict(arch="hymba-1.5b", batch=4, seq=2048, steps=10),
-            dict(arch="tinyllama-1.1b", batch=4, seq=2048, steps=10))
+# phases' (its 1024-token window passed).  Depth cut to 4 layers (hymba's
+# first 4 blocks, one global; tinyllama's 4 of 22) to leave the time
+# limit room for train_sharded
+TRAIN_LM = (dict(arch="hymba-1.5b", batch=4, seq=2048, steps=5,
+                 pattern=(("hybrid_global", 1), ("hybrid", 3))),
+            dict(arch="tinyllama-1.1b", batch=4, seq=2048, steps=5,
+                 pattern=(("dense", 4),)))
 # hymba at full width cut to 2 layers (one global, one windowed), float32:
 # the loss and every gradient leaf on the card (kernels) against the CPU
 # (plain versions), each leaf within 1e-3 of its largest |g| (float32 sums
@@ -420,17 +456,47 @@ TRAIN_HEADS = dict(classes=33, iters=2)
 SHARD = dict(N=8, K=2, T=1, m=CASE1["m"], d=CASE1["d"], iters=25)
 # the sharded coded head at tinyllama-1.1b's head width, shard 2 killed
 SHARD_HEAD = dict(d=2048, vocab=32000, N=6, K=4, T=1, batch=4, kill=2)
+# the LM over a mesh of 4 ranks sharing the card (mesh data 2 x model 2):
+# each model at full width cut to its first 2 blocks, bf16 parameters,
+# float32 AdamW, block remat; then the same 2 layers in float32 at batch
+# 2 x 256, the sharded gradients against a one-process run on the card
+# (GRAD_REL of each leaf's largest |g|), and the train driver over the 4
+# ranks (mesh data 4)
+TRAIN_SHARDED = dict(
+    world=4, mesh=(2, 2), batch=4, seq=2048, steps=3, check_batch=2,
+    check_seq=256,
+    models=(dict(arch="hymba-1.5b", pattern=(("hybrid_global", 1),
+                                             ("hybrid", 1)), cp=True),
+            dict(arch="tinyllama-1.1b", pattern=(("dense", 2),), cp=False)),
+    driver=dict(arch="tinyllama-1.1b", pattern=(("dense", 2),), batch=4,
+                seq=2048, steps=3))
+# the scan's (B, S, d_inner, n) on one rank of train_sharded: batch over
+# data, hymba's d_inner 3200 over model; at its steps and its float32 check
+SHARDED_RANK_SCAN = (TRAIN_SHARDED["batch"] // TRAIN_SHARDED["mesh"][0],
+                     TRAIN_SHARDED["seq"], 3200 // TRAIN_SHARDED["mesh"][1],
+                     16)
+SHARDED_RANK_CHECK_SCAN = (
+    TRAIN_SHARDED["check_batch"] // TRAIN_SHARDED["mesh"][0],
+    TRAIN_SHARDED["check_seq"], 3200 // TRAIN_SHARDED["mesh"][1], 16)
 PHASES = ("kernels", "train", "train_c33", "shard", "teacher", "serve", "profile",
           "consistency", "coded_head", "serve_dense", "serve_hybrid",
           "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
           "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
           "serve_whisper", "consistency_whisper", "train_lm",
-          "train_lm_ab16", "consistency_train", "cluster", "socket", "mpc",
+          "train_lm_ab16", "train_sharded", "consistency_train", "cluster",
+          "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started, so that a run's log is its own timeline."""
+    if "phase" in obj and "t_s" not in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -808,9 +874,11 @@ def scan_inputs(torch, gen, B, S, di, n, x_dtype, h0_scale,
 
 
 def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
-    """The selective-scan kernel against its plain version on the card,
-    then timed at the serve shape as the serve path calls it (x and dt
-    bf16, h0 = 0), and with dt float32 as the first kernel was timed; then
+    """The selective-scan kernel against its plain version on the card
+    (among the cases, one rank's block of train_sharded at its steps' and
+    its gradient check's shapes), then timed at the serve shape as the
+    serve path calls it (x and dt bf16, h0 = 0), and with dt float32 as
+    the first kernel was timed; then
     the bf16 a/b mode (``ssm_dtype="bf16"``, chunks of 128) at falcon's and
     hymba's serve shapes and odd shapes, timed at the serve shapes."""
     from repro_torch.kernels import ref
@@ -839,6 +907,10 @@ def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
         ("long_S8192", (1, 8192, di, n), bf16, 0.5, f32),
         # hymba's hybrid layers at its serve shape (d_inner 3200)
         ("hymba_serve_x_dt_bf16", (B, S, 3200, n), bf16, 0.0, bf16),
+        # one rank's block in train_sharded (batch over data 2, inner over
+        # model 2), at its training and its float32 check shapes
+        ("hymba_rank_train_x_dt_bf16", SHARDED_RANK_SCAN, bf16, 0.0, bf16),
+        ("hymba_rank_check_f32", SHARDED_RANK_CHECK_SCAN, f32, 0.0, f32),
     ]
     for case, shape, x_dtype, h0_scale, dt_dtype in cases:
         args = scan_inputs(torch, gen, *shape, x_dtype, h0_scale, dt_dtype)
@@ -1223,7 +1295,10 @@ def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
     33 and 8192, n in {1, 3, 16} with di not a multiple of the block's 32
     channels, one chunk and one chunk and a step (S = L and L + 1 at
     hymba's width, L the plan's chunk at hymba's training shape, forced),
-    h0 and dh_last non-zero throughout, and through ``SelectiveScanFn``
+    one rank's block of train_sharded at its steps' and its gradient
+    check's shapes (``SHARDED_RANK_SCAN``, ``SHARDED_RANK_CHECK_SCAN``) with
+    the plan's own chunk there, h0 and dh_last non-zero throughout, and
+    through ``SelectiveScanFn``
     (``scan_fn_views``); two calls on the same inputs give the same bits.
     Then timed at the two training shapes (``bwd_timing``)."""
     from repro_torch.kernels import mamba_scan as ms
@@ -1244,6 +1319,9 @@ def phase_kernels_scan_bwd(torch, checks: Checks) -> list[dict]:
         ("di1001_n16_x_bf16", (3, 40, 1001, 16), bf16, f32, None),
         ("hymba_S_eq_L", (4, L, 3200, 16), bf16, bf16, L),
         ("hymba_S_eq_L_plus_1", (4, L + 1, 3200, 16), bf16, bf16, L),
+        # one rank's block in train_sharded, with the plan's own chunk there
+        ("hymba_rank_train_bf16", SHARDED_RANK_SCAN, bf16, bf16, None),
+        ("hymba_rank_check_f32", SHARDED_RANK_CHECK_SCAN, f32, f32, None),
     ]
     for case, shape, x_dtype, dt_dtype, chunk in cases:
         bwd_check(torch, checks, gen, case, shape, x_dtype, dt_dtype, chunk,
@@ -1261,9 +1339,10 @@ def phase_kernels_scan_bwd_ab16(torch, checks: Checks) -> list[dict]:
     within ``AB16_BWD_RTOL`` of its largest magnitude (``bwd_check``, the
     element that sets each error printed): hymba's and falcon-mamba's
     training shapes with x and dt bf16 and float32 at chunks of 128,
-    hymba's with chunks of 100 (split into plan chunks of 64 and 36) and
-    300 (more than the plan's 256 steps), and with the plan's chunk forced
-    to the mode's 128 (one plan chunk a mode chunk); chunks of 1 and 7,
+    hymba's width at S = 1024 with chunks of 100 (split into plan chunks
+    of 64 and 36) and 300 (more than the plan's 256 steps), and with the
+    plan's chunk forced to the mode's 128 (one plan chunk a mode chunk);
+    chunks of 1 and 7,
     S = 1, S not a multiple of the chunk, a chunk of at least S, n in
     {1, 3} with di not a multiple of the block's channels, mixed x/dt
     dtypes; h0 and dh_last non-zero throughout; two calls on the same
@@ -1273,15 +1352,20 @@ def phase_kernels_scan_bwd_ab16(torch, checks: Checks) -> list[dict]:
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(11)
     hymba, falcon = (4, 2048, 3200, 16), (4, 2048, 8192, 16)
+    # the chunking variants at hymba's width and half its sequence (the
+    # same plan chunks and splits, half the plain version's serial steps;
+    # cut for the time limit)
+    hymba_half = (4, 1024, 3200, 16)
     # (case, shape, x dtype, dt dtype, mode chunk, forced plan chunk)
     cases = [
         ("ab16_hymba_train_bf16", hymba, bf16, bf16, AB16_CHUNK, None),
         ("ab16_hymba_train_f32", hymba, f32, f32, AB16_CHUNK, None),
         ("ab16_falcon_train_bf16", falcon, bf16, bf16, AB16_CHUNK, None),
         ("ab16_falcon_train_f32", falcon, f32, f32, AB16_CHUNK, None),
-        ("ab16_hymba_chunk100", hymba, bf16, bf16, 100, None),
-        ("ab16_hymba_chunk300", hymba, bf16, bf16, 300, None),
-        ("ab16_hymba_plan128", hymba, bf16, bf16, AB16_CHUNK, AB16_CHUNK),
+        ("ab16_hymba_chunk100", hymba_half, bf16, bf16, 100, None),
+        ("ab16_hymba_chunk300", hymba_half, bf16, bf16, 300, None),
+        ("ab16_hymba_plan128", hymba_half, bf16, bf16, AB16_CHUNK,
+         AB16_CHUNK),
         ("ab16_chunk1", (2, 512, 3200, 16), bf16, bf16, 1, None),
         ("ab16_S1", (4, 1, 8192, 16), bf16, bf16, AB16_CHUNK, None),
         ("ab16_chunk_ge_S", (2, 300, 3200, 16), f32, f32, 4096, None),
@@ -1734,10 +1818,17 @@ def cut_config(spec: dict):
     ``spec["layers"]`` layers: (the full config, the cut one)."""
     from repro_torch.configs import registry
 
-    full = registry.get_config(spec["arch"])
-    (kind, _), = full.block_pattern
-    return full, dataclasses.replace(full, num_layers=spec["layers"],
-                                     block_pattern=((kind, spec["layers"]),))
+    (kind, _), = registry.get_config(spec["arch"]).block_pattern
+    return _cut(spec["arch"], ((kind, spec["layers"]),))
+
+
+def _cut(arch: str, pattern: tuple):
+    """``arch`` at full width with ``pattern`` as its blocks."""
+    from repro_torch.configs import registry
+
+    full = registry.get_config(arch)
+    return full, dataclasses.replace(
+        full, num_layers=sum(c for _, c in pattern), block_pattern=pattern)
 
 
 def _serve_rc(S: int):
@@ -2009,24 +2100,49 @@ def attention_share(torch, cfg, rc, B: int, S: int, prefill_ms: float
             "share_of_prefill_device_ms": total / prefill_ms}
 
 
+# the profile phases' depth (every layer of a model is alike, so a profile
+# of the first PROFILE_LAYERS reads the same per layer; cut to leave the
+# time limit room for train_sharded): falcon-mamba's 8 of 64, the dense
+# and hybrid models' 4, phi3.5-moe's 8 of 32 (PROFILE_MOE)
+PROFILE_LAYERS = {"falcon-mamba-7b": 8, "tinyllama-1.1b": 4,
+                  "hymba-1.5b": 4, "h2o-danube-3-4b": 4}
+
+
+def _profile_cut(arch: str):
+    """``arch`` at full width, its first PROFILE_LAYERS blocks."""
+    from repro_torch.configs import registry
+
+    full = registry.get_config(arch)
+    left, pattern = PROFILE_LAYERS[arch], []
+    for kind, count in full.block_pattern:
+        if left:
+            pattern.append((kind, min(count, left)))
+            left -= pattern[-1][1]
+    return _cut(arch, tuple(pattern))[1]
+
+
 def phase_profile(torch) -> dict:
     """Where the serve path's time goes: falcon-mamba's prefill at the serve
-    shape and 8 decode steps under ``torch.profiler``."""
+    shape and 8 decode steps under ``torch.profiler``, at PROFILE_LAYERS'
+    depth."""
+    cfg = _profile_cut(SERVE["arch"])
     info = {"phase": "profile",
             **serve_profile(torch, SERVE["arch"], SERVE["batch"],
-                            SERVE["prompt_len"])}
+                            SERVE["prompt_len"], cfg=cfg)}
     del info["arch"]
     emit(info)
     return info
 
 
 def phase_profile_dense(torch) -> dict:
-    """The same for tinyllama, hymba and h2o-danube at their serve shapes,
-    with attention's share of the prefill's device time."""
+    """The same for tinyllama, hymba and h2o-danube at their serve shapes
+    and PROFILE_LAYERS' depth, with attention's share of the prefill's
+    device time."""
     info: dict = {"phase": "profile_dense"}
     for spec in (SERVE_DENSE, SERVE_HYBRID, SERVE_SWA):
-        info[spec["arch"]] = serve_profile(torch, spec["arch"], spec["batch"],
-                                           spec["prompt_len"])
+        info[spec["arch"]] = serve_profile(
+            torch, spec["arch"], spec["batch"], spec["prompt_len"],
+            cfg=_profile_cut(spec["arch"]))
         gc.collect()
         torch.cuda.empty_cache()
     emit(info)
@@ -2160,11 +2276,12 @@ def _coded_survivors():
 
 def phase_profile_moe(torch) -> dict:
     """phi3.5-moe's and arctic's prefill at their serve_moe and serve_arctic
-    shapes (16 and 2 layers) and 8 decode steps under ``torch.profiler``,
+    batch and prompt (8 layers, PROFILE_MOE, and 2) and 8 decode steps
+    under ``torch.profiler``,
     with the prefill's device ms by group: attention, the expert products,
     dispatch and combine, the rest."""
     info: dict = {"phase": "profile_moe"}
-    for spec in (SERVE_MOE, SERVE_ARCTIC):
+    for spec in (PROFILE_MOE, SERVE_ARCTIC):
         info[spec["arch"]] = serve_profile(
             torch, spec["arch"], spec["batch"], spec["prompt_len"],
             cfg=cut_config(spec)[1])
@@ -2439,28 +2556,28 @@ def train_profile(torch, cfg, spec: dict) -> dict:
 
 
 def phase_train_lm(torch, out_dir: Path) -> dict:
-    """``repro_torch.launch.train`` at full width and depth on the card for
-    each of ``TRAIN_LM`` (hymba-1.5b, then tinyllama-1.1b): exit 0, launch
+    """``repro_torch.launch.train`` at full width on the card for each of
+    ``TRAIN_LM`` (hymba-1.5b, then tinyllama-1.1b, each cut to 4 layers
+    and run through ``config_override``): exit 0, launch
     counts reset just before each run and read just after (per step and
     mamba-bearing layer, ``selective_scan`` twice, the first forward and
     remat's recompute, and ``selective_scan_bwd`` once; nothing else),
     finite losses, the last below 1.05 x the first; step ms (the first step
     apart), tokens/s, peak device memory; then ``train_profile``."""
-    from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     info: dict = {"phase": "train_lm", "runs": {}}
     for spec in TRAIN_LM:
         arch, steps = spec["arch"], spec["steps"]
-        cfg = registry.get_config(arch)
+        full, cfg = _cut(arch, spec["pattern"])
         out = out_dir / f"train_lm_{arch}.json"
         argv = ["--arch", arch, "--batch", str(spec["batch"]), "--seq",
                 str(spec["seq"]), "--steps", str(steps), "--log-every", "1",
                 "--device", "cuda", "--checkpoint-dir",
                 str(out_dir / "train_lm_ckpt"), "--json-out", str(out)]
         ops.reset_launches()
-        rc = train.main(argv)
+        rc = train.main(argv, config_override=cfg)
         torch.cuda.synchronize()
         launches = dict(ops.LAUNCHES)
         if rc != 0:
@@ -2473,6 +2590,7 @@ def phase_train_lm(torch, out_dir: Path) -> dict:
         losses = res["losses"]
         later = res["step_s"][1:]
         run = {"argv": argv, "launches": launches, "layers": cfg.num_layers,
+               "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
                "d_model": cfg.d_model, "params": cfg.param_count(),
                "steps": res["steps"], "first_loss": res["first_loss"],
                "last_loss": res["last_loss"], "losses": losses,
@@ -2499,18 +2617,18 @@ def phase_train_lm(torch, out_dir: Path) -> dict:
 
 
 def phase_train_lm_ab16(torch) -> dict:
-    """hymba-1.5b at full width and depth trained in the scan's bf16 a/b
-    mode (``TRAIN_AB16``) through ``train.train_step_fn``, the entry point
+    """hymba-1.5b at full width, cut to 4 layers, trained in the scan's
+    bf16 a/b mode (``TRAIN_AB16``) through ``train.train_step_fn``, the
+    entry point
     the train driver runs, with ``dataclasses.replace(train.run_config(seq,
     batch), ssm_dtype="bf16")``: bf16 parameters (seed 0), the driver's
     AdamW and block remat, the reference loader's batches.  Launch counts
     reset just before the steps and read just after (``selective_scan``
-    2 x 32 a step, ``selective_scan_bwd`` 32 a step, nothing else);
+    2 a hybrid layer a step, ``selective_scan_bwd`` 1, nothing else);
     finite losses, the last below 1.05 x the first; step ms (the first
     apart; the host clock around a step and its loss's read) and peak
     device memory; then one more step under torch.profiler: the scan
     backward's device ms a step (``selective_scan_bwd`` group)."""
-    from repro_torch.configs import registry
     from repro_torch.data.loader import LMBatchLoader
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -2519,7 +2637,7 @@ def phase_train_lm_ab16(torch) -> dict:
 
     spec = TRAIN_AB16
     arch, B, S, steps = spec["arch"], spec["batch"], spec["seq"], spec["steps"]
-    cfg = registry.get_config(arch)
+    _, cfg = _cut(arch, spec["pattern"])
     rc = dataclasses.replace(train.run_config(S, B), ssm_dtype="bf16")
     ocfg = opt.OptimizerConfig(warmup_steps=max(2, steps // 10),
                                total_steps=max(steps, 10))
@@ -2575,6 +2693,307 @@ def phase_train_lm_ab16(torch) -> dict:
     if not (all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0] * 1.05):
         raise AssertionError(f"train_lm_ab16: losses {losses}")
+    return info
+
+
+def _tensor_sha(torch, t) -> str:
+    """sha256 of a tensor's bytes (bf16 as its bits), on the host."""
+    import hashlib
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
+
+
+def _collective_share(torch, fn) -> dict:
+    """``fn()`` once under torch.profiler (host activity): the host ms of
+    the step and the ms inside the process group's collectives (the
+    ``c10d::`` ops, each a host-staged collective on this route: its
+    copies, gloo's ring and the wait for the other ranks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    coll, calls, by_op = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.key.startswith("c10d::"):
+            coll += e.cpu_time_total / 1e3
+            calls += e.count
+            by_op[e.key] = [e.count, e.cpu_time_total / 1e3]
+    return {"step_ms": wall, "collective_ms": coll, "collective_calls": calls,
+            "collective_share": coll / wall, "by_op_calls_ms": by_op}
+
+
+def sharded_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of the train_sharded phase (see ``phase_train_sharded``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.loader import LMBatchLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.parallel import rules
+
+    spec = TRAIN_SHARDED
+    mesh = mesh_lib.compat_make_mesh(spec["mesh"], ("data", "model"))
+    cp_calls = [0]
+    real_cp = layers.context_parallel_attention
+
+    def counted_cp(*a, **kw):
+        cp_calls[0] += 1
+        return real_cp(*a, **kw)
+
+    layers.context_parallel_attention = counted_cp
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(torch.cuda.current_device()),
+           "mesh_device_type": mesh.device_type, "models": {}}
+    B, S, steps = spec["batch"], spec["seq"], spec["steps"]
+    for m in spec["models"]:
+        t_part = time.perf_counter()
+        _, cfg = _cut(m["arch"], m["pattern"])
+        rc = train.run_config(S, B)
+        ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=10)
+        torch.cuda.reset_peak_memory_stats()
+        model = M.Model(cfg, dtype=getattr(torch, rc.param_dtype),
+                        device="cuda", seed=0)
+        model.requires_grad_(True)
+        params, state, _ = train.build_sharded_state(cfg, rc, ocfg, mesh,
+                                                     model)
+        step = train.train_step_fn(cfg, rc, ocfg, model)
+        with LMBatchLoader("cuda", B, S, cfg.vocab_size, mesh=mesh) as ld:
+            batches = [next(ld) for _ in range(steps)]
+        box = {"opt": state}
+        part_s = {"state": time.perf_counter() - t_part}
+        t_part = time.perf_counter()
+
+        def run(batch):
+            with rules.use_rules_mesh(mesh):
+                _, box["opt"], metrics = step(params, box["opt"], batch)
+            return float(metrics["loss"])
+
+        losses, step_ms, prof = [], [], {}
+        ops.reset_launches()
+        cp_calls[0] = 0
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            if i < steps - 1:
+                losses.append(run(batch))
+            else:           # the last step under the profiler
+                prof = _collective_share(
+                    torch, lambda: losses.append(run(batch)))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        part_s["steps"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        launches, cps = dict(ops.LAUNCHES), cp_calls[0]
+        info = {"losses": losses, "step_ms": step_ms, "launches": launches,
+                "cp_calls": cps, "profiled_step": prof,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "local_batch": list(batches[0]["tokens"].to_local().shape),
+                "placements": {k: [repr(x) for x in p.placements]
+                               for k, p in list(params.items())[:6]},
+                "param_sha": {k: _tensor_sha(torch, p.full_tensor())
+                              for k, p in params.items()}}
+        if m["cp"]:
+            ckpt = CheckpointManager(job["ckpt_dir"])
+            ckpt.save(steps, {"params": params})
+            info["checkpoint_step"] = steps
+        del model, params, box, state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        part_s["hash_and_checkpoint"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        info["grads"] = _sharded_grads(torch, cfg, mesh, rank)
+        part_s["grads"] = time.perf_counter() - t_part
+        info["part_s"] = part_s
+        out["models"][m["arch"]] = info
+    layers.context_parallel_attention = real_cp
+    # the train driver over the same ranks: its own mesh, data = world
+    d = spec["driver"]
+    _, cfg = _cut(d["arch"], d["pattern"])
+    argv = ["--arch", d["arch"], "--batch", str(d["batch"]), "--seq",
+            str(d["seq"]), "--steps", str(d["steps"]), "--log-every", "1",
+            "--device", "cuda", "--checkpoint-dir", job["driver_ckpt"]]
+    if rank == 0:
+        argv += ["--json-out", job["driver_json"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    out["driver_rc"] = train.main(argv, config_override=cfg)
+    out["driver_s"] = time.perf_counter() - t_part
+    return out
+
+
+def _sharded_grads(torch, cfg, mesh, rank: int) -> dict:
+    """``cfg`` in float32 at TRAIN_SHARDED's check batch: the loss's
+    gradients on the mesh against a one-process, unsharded run on the card
+    (rank 0 computes it), each leaf's largest error over its largest |g|."""
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+
+    spec = TRAIN_SHARDED
+    B, S = spec["check_batch"], spec["check_seq"]
+    rc = train.run_config(S, B)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    want = loss1 = None
+    if rank == 0:
+        one = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
+        one.requires_grad_(True)
+        loss = M.loss_fn(cfg, rc, one, batch)
+        loss.backward()
+        loss1 = float(loss)
+        want = {k: p.grad for k, p in one.named_parameters()}
+        del one
+    model = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
+    model.requires_grad_(True)
+    M.place_on_mesh(cfg, model, mesh)
+    bpl = rules.placements(mesh, rules.spec_for(mesh, (B, S), ("batch",)))
+    dbatch = {k: rules.distribute(v, mesh, bpl) for k, v in batch.items()}
+    with rules.use_rules_mesh(mesh):
+        loss = M.loss_fn(cfg, rc, model, dbatch)
+        loss.backward()
+    lossm = float(loss.full_tensor())
+    got = {k: p.grad.redistribute(mesh, p.placements).full_tensor()
+           for k, p in model.named_parameters()}
+    if rank != 0:
+        return {"loss": lossm}
+    rel = {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()),
+                                                      1e-30)
+           for k, w in want.items()}
+    worst = max(rel, key=rel.get)
+    return {"loss": lossm, "loss_one_process": loss1,
+            "loss_rel_err": abs(lossm - loss1) / abs(loss1),
+            "leaves": len(rel), "max_rel_err": rel[worst],
+            "worst_leaf": worst, "tolerance_rel": GRAD_REL}
+
+
+def phase_train_sharded(torch, out_dir: Path) -> dict:
+    """The LM over a mesh of 4 ranks sharing the card (TRAIN_SHARDED):
+    ``launch/mesh.py: run_ranks`` over ``backend_for``'s route, a (2, 2)
+    mesh of DTensors.  For hymba-1.5b (the context-parallel branch: 25
+    heads over model 2) and tinyllama-1.1b at full width, 2 blocks: 3 steps
+    of ``train.train_step_fn`` on the loader's mesh batches, the loss the
+    same on every rank and every parameter's full tensor the same bits on
+    every rank; the branch counted (hymba's 2 layers a step, none for
+    tinyllama); on each rank exactly 2 ``selective_scan`` launches (the
+    forward and block remat's recompute) and 1 ``selective_scan_bwd`` a
+    hybrid layer a step, on its own channels; step ms, the collectives'
+    share of one profiled step and the peak memory, by rank.  Then the 2
+    layers in float32: the sharded gradients within GRAD_REL of each leaf's
+    largest of one unsharded process on the card.  hymba's checkpoint,
+    saved by the ranks at (2, 2), restored here with no mesh on the card
+    bit-equal.  ``train.main`` over the 4 ranks (mesh data 4) for 3 steps
+    of tinyllama at 2 layers.  No rank process is left alive."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import mesh as mesh_lib
+
+    spec = TRAIN_SHARDED
+    job = {"ckpt_dir": str(out_dir / "train_sharded_ckpt"),
+           "driver_ckpt": str(out_dir / "train_sharded_driver_ckpt"),
+           "driver_json": str(out_dir / "train_sharded_driver.json")}
+    for d in (job["ckpt_dir"], job["driver_ckpt"]):
+        if os.path.isdir(d):
+            import shutil
+            shutil.rmtree(d)
+    rule = mesh_lib.backend_for(spec["world"], "cuda")
+    run = mesh_lib.run_ranks(sharded_rank, spec["world"], (job,),
+                             device="cuda", timeout=900)
+    failures = []
+    left = [p.pid for p in torch.multiprocessing.active_children()]
+    if left:
+        failures.append(f"rank processes still alive: {left}")
+    if run.backend != rule:
+        failures.append(f"backend {run.backend}, rule says {rule}")
+    info: dict = {"phase": "train_sharded", "device": nvidia_smi(),
+                  "backend": run.backend, "backend_rule": rule,
+                  "startup_s": run.startup_s, "mesh": spec["mesh"],
+                  "mesh_device_type": run.results[0]["mesh_device_type"],
+                  "models": {}, "children_left": left}
+    for m in spec["models"]:
+        arch = m["arch"]
+        full, cfg = _cut(arch, m["pattern"])
+        per = [r["models"][arch] for r in run.results]
+        ssm = _ssm_layers(cfg)
+        want = {"modmatmul": 0, "coded_grad": 0,
+                "selective_scan": 2 * ssm * spec["steps"],
+                "selective_scan_bwd": ssm * spec["steps"]}
+        attn_layers = cfg.num_layers if m["cp"] else 0
+        g = per[0]["grads"]
+        model_info = {
+            "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+            "losses": per[0]["losses"],
+            "step_ms_by_rank": [r["step_ms"] for r in per],
+            "collective_share_by_rank": [r["profiled_step"]["collective_share"]
+                                         for r in per],
+            "profiled_step_by_rank": [r["profiled_step"] for r in per],
+            "peak_gb_by_rank": [r["peak_gb"] for r in per],
+            "launches_by_rank": [r["launches"] for r in per],
+            "cp_calls_by_rank": [r["cp_calls"] for r in per],
+            "local_batch": per[0]["local_batch"],
+            "part_s_rank0": per[0]["part_s"],
+            "placements_sample": per[0]["placements"], "grads": g}
+        info["models"][arch] = model_info
+        if any(r["losses"] != per[0]["losses"] for r in per):
+            failures.append(f"{arch}: losses differ between ranks")
+        if not all(math.isfinite(x) for x in per[0]["losses"]):
+            failures.append(f"{arch}: losses {per[0]['losses']}")
+        if any(r["param_sha"] != per[0]["param_sha"] for r in per):
+            failures.append(f"{arch}: full parameters differ between ranks")
+        for r in per:
+            if r["launches"] != want:
+                failures.append(f"{arch}: launches {r['launches']}, "
+                                f"expected {want}")
+            if r["cp_calls"] != attn_layers * spec["steps"] * 2:
+                failures.append(f"{arch}: context-parallel calls "
+                                f"{r['cp_calls']}, expected "
+                                f"{attn_layers * spec['steps'] * 2}")
+        if not (g["max_rel_err"] <= GRAD_REL
+                and g["loss_rel_err"] <= GRAD_REL):
+            failures.append(f"{arch}: sharded gradients {g}")
+        if m["cp"]:
+            restored = CheckpointManager(job["ckpt_dir"]).restore(
+                device="cuda")
+            got = {k: _tensor_sha(torch, t)
+                   for k, t in restored["params"].items()}
+            model_info["checkpoint_restored_bit_equal"] = (
+                got == per[0]["param_sha"] and restored["step"]
+                == per[0]["checkpoint_step"]
+                and all(t.is_cuda for t in restored["params"].values()))
+            if not model_info["checkpoint_restored_bit_equal"]:
+                failures.append(f"{arch}: checkpoint restored differs")
+            del restored
+        emit({"phase": "train_sharded", "arch": arch, "device": info["device"],
+              **{k: v for k, v in model_info.items()
+                 if k != "profiled_step_by_rank"},
+              "profiled_step_rank0": per[0]["profiled_step"]})
+    drv = json.loads(Path(job["driver_json"]).read_text())
+    info["driver"] = {"rc": [r["driver_rc"] for r in run.results],
+                      "seconds_rank0": run.results[0]["driver_s"],
+                      "mesh": drv["mesh"], "losses": drv["losses"],
+                      "step_s": drv["step_s"], "peak_gb_rank0": drv["peak_gb"]}
+    if info["driver"]["rc"] != [0] * spec["world"] or drv["mesh"] != {
+            "data": spec["world"], "model": 1}:
+        failures.append(f"train driver over the ranks: {info['driver']}")
+    emit({k: v for k, v in info.items() if k != "models"})
+    if failures:
+        raise AssertionError("train_sharded: " + "; ".join(failures))
+    # hymba's run, the slice's main path on each rank
+    info["launches"] = info["models"][spec["models"][0]["arch"]][
+        "launches_by_rank"][0]
     return info
 
 
@@ -3454,8 +3873,8 @@ PREDICT_RUNS = (
     ("case1_closed", PREDICT, ["--latency", "lognormal", "--mode", "closed",
                                "--queries", "32"]),
 )
-# Over sockets the slack fleet only: the Case 1 fleet's 40 processes (~50 s
-# to start) are cut for the script's time limit; in process it still runs
+# Over sockets the Case 1 fleet's 40 processes with a straggler (~50 s to
+# start), then the slack fleet with a kill and with --collect-all
 PREDICT_SOCKET_RUNS = (
     ("case1_straggle", PREDICT, [*PREDICT_OPEN, "--straggle-worker", "7",
                                  "--straggle-sleep", "0.25"]),
@@ -3833,12 +4252,54 @@ def phase_alcc_mlp(torch, out_dir: Path) -> dict:
                          for k in runs["inprocess"]["launches_run"]}}
 
 
+def _build_staged(out: dict) -> None:
+    from repro_torch.parallel import staged
+
+    t0 = time.perf_counter()
+    try:
+        out["library"] = str(staged.build().relative_to(ROOT))
+    except BaseException as e:      # reported where the phases wait for it
+        out["error"] = e
+    out["seconds"] = time.perf_counter() - t0
+
+
+def _join_staged(thread, out: dict) -> None:
+    """Wait for ``_build_staged`` (once) and report it."""
+    if "reported" in out:
+        return
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    out["reported"] = True
+    emit({"phase": "build_staged", "seconds": out["seconds"],
+          "library": out["library"]})
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase; print its seconds.  A failure propagates."""
     t0 = time.perf_counter()
     out = fn(*args)
     emit({"phase": name, "seconds": time.perf_counter() - t0})
     return out
+
+
+def bytecode_cache() -> dict:
+    """Give this process and every process it starts (ranks, socket
+    workers) one bytecode cache, under the checkout's ``build/pycache``.
+
+    Where the environment sets PYTHONDONTWRITEBYTECODE and the installed
+    torch carries no compiled bytecode, every process compiles torch's
+    Python sources as it imports them: 8.7 s a process on the H100
+    machine, 52 s for a fleet of 40 on its 8 cores.  With the cache, the
+    first import compiles and writes it and the others read it.  Nothing
+    is written outside the checkout (PYTHONPYCACHEPREFIX); a prefix the
+    caller set is kept."""
+    was = os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    prefix = os.environ.setdefault("PYTHONPYCACHEPREFIX",
+                                   str(ROOT / "build" / "pycache"))
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+    return {"prefix": prefix, "env_dont_write_bytecode": was}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3854,14 +4315,15 @@ def main(argv: list[str] | None = None) -> int:
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}; choose from {PHASES}")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
+              file=sys.stderr)
+        return 2
+    cache = bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it runs on a GPU only",
-              file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import build
@@ -3870,10 +4332,15 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "bytecode_cache": cache})
 
     t_start = time.perf_counter()
     t0 = time.perf_counter()
+    staged_s: dict = {}
+    staged_build = threading.Thread(target=_build_staged,
+                                    args=(staged_s,), daemon=True)
+    staged_build.start()
     libs = build.build_all()
     for name in build.SOURCES:
         build.library(name)
@@ -3896,6 +4363,9 @@ def main(argv: list[str] | None = None) -> int:
 
     ran: dict[str, dict] = {}
     timings: list[dict] = []
+    # the staged collective backend (the ranks of shard and train_sharded)
+    # compiles while the kernels phases run
+    wait_staged = (lambda: _join_staged(staged_build, staged_s))
     if "kernels" in phases:
         timings += run_phase("kernels", phase_kernels, torch, checks)
         free()
@@ -3937,6 +4407,7 @@ def main(argv: list[str] | None = None) -> int:
             ("consistency_whisper", phase_consistency_whisper, (torch,)),
             ("train_lm", phase_train_lm, (torch, out_dir)),
             ("train_lm_ab16", phase_train_lm_ab16, (torch,)),
+            ("train_sharded", phase_train_sharded, (torch, out_dir)),
             ("consistency_train", phase_consistency_train, (torch,)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
@@ -3949,6 +4420,8 @@ def main(argv: list[str] | None = None) -> int:
             ("alcc_socket", phase_alcc_socket, (torch, out_dir)),
             ("alcc_mlp", phase_alcc_mlp, (torch, out_dir))):
         if name in phases:
+            if name in ("shard", "train_sharded"):
+                wait_staged()
             if name == "mpc_socket":
                 args_ = (*args_, ran.get("socket"))
             if name == "alcc":
@@ -4015,7 +4488,8 @@ def main(argv: list[str] | None = None) -> int:
                                  ("alcc_socket", "alcc_socket"),
                                  ("alcc_mlp", "alcc_mlp"),
                                  ("consistency_train", "consistency_train"),
-                                 ("train_lm_ab16", "train_lm_ab16"))
+                                 ("train_lm_ab16", "train_lm_ab16"),
+                                 ("train_sharded_per_rank", "train_sharded"))
                     if v in ran}})
             if "consistency_train" in ran:
                 kernels[-1]["launches_by_path"]["consistency_train_ab16"] = (

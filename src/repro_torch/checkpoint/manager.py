@@ -11,10 +11,14 @@ The async writer moves the write off the training thread; the snapshot to
 host memory is taken on the caller's thread, so training may go on
 mutating its tensors.  ``wait()`` joins before the next save.
 
-``restore`` returns torch tensors on ``device`` (the CPU by default).  The
-reference's ``shardings`` (a restore onto a mesh) has no counterpart until
-the port places tensors on a mesh (``DTensor``, ROADMAP.md list 1b item 7),
-and is refused.
+``restore`` returns torch tensors on ``device`` (the CPU by default) or,
+for the leaves ``shardings`` names, ``DTensor``s on a mesh: an elastic
+restore onto any mesh, whatever mesh saved them.
+
+On a mesh (a ``DTensor`` leaf in the state) every rank calls ``save``:
+each leaf's full tensor is gathered (a collective), rank 0 alone writes,
+synchronously, and the ranks meet at a barrier before ``save`` returns,
+so no rank restores a checkpoint that is still being written.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.parallel import rules
+
 _BF16_TAG = "::bf16"   # numpy can't store bfloat16; persist as uint16 views
 
 
@@ -39,7 +45,7 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
         return out
     key = prefix.rstrip("/")
     if isinstance(tree, torch.Tensor):
-        t = tree.detach().cpu()
+        t = rules.full(tree.detach()).cpu()
         if t.dtype == torch.bfloat16:
             out[key + _BF16_TAG] = t.view(torch.int16).numpy().view(np.uint16)
         else:
@@ -47,6 +53,12 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     else:
         out[key] = np.array(tree)
     return out
+
+
+def _sharded(tree: Any) -> bool:
+    if isinstance(tree, dict):
+        return any(_sharded(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and rules.is_dtensor(tree)
 
 
 def _unflatten(flat: dict[str, np.ndarray], device) -> Any:
@@ -77,8 +89,10 @@ class CheckpointManager:
 
     def save(self, step: int, state: dict[str, Any],
              extra: dict | None = None) -> None:
-        """state: {'params': tree, 'opt_state': tree, ...}."""
+        """state: {'params': tree, 'opt_state': tree, ...}.  With
+        ``DTensor`` leaves every rank calls it (see the module docstring)."""
         self.wait()
+        sharded = _sharded(state)
         flat = {name: _flatten(tree, f"{name}/")
                 for name, tree in state.items()}
 
@@ -95,7 +109,13 @@ class CheckpointManager:
             os.replace(tmp, path)      # atomic publish
             self._gc()
 
-        if self.async_write:
+        if sharded:
+            import torch.distributed as dist
+
+            if dist.get_rank() == 0:
+                write()
+            dist.barrier()
+        elif self.async_write:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
         else:
@@ -128,11 +148,12 @@ class CheckpointManager:
     def restore(self, step: int | None = None,
                 shardings: dict[str, Any] | None = None,
                 device: str | torch.device = "cpu") -> dict[str, Any]:
-        """Returns {'step': int, group_name: tree of tensors on device}."""
-        if shardings:
-            raise NotImplementedError(
-                "restore(shardings=...) places leaves on a device mesh, which "
-                "the port does not do yet: ROADMAP.md list 1b item 7")
+        """Returns {'step': int, group_name: tree of tensors on device}.
+
+        ``shardings``: {group: {leaf: (mesh, placements)}} (nested as the
+        group's tree): those leaves come back as ``DTensor``s on their mesh,
+        each rank keeping its own block of the saved full tensor, on the
+        mesh's device; the others on ``device``."""
         if step is None:
             step = self.latest_step()
         assert step is not None, f"no checkpoints in {self.directory}"
@@ -143,5 +164,25 @@ class CheckpointManager:
         for name in manifest["groups"]:
             with np.load(os.path.join(path, f"{name}.npz")) as z:
                 flat = {k: z[k] for k in z.files}
-            out[name] = _unflatten(flat, device)[name]
+            tree = _unflatten(flat, "cpu")[name]
+            out[name] = _place(tree, (shardings or {}).get(name), device)
         return out
+
+
+def _place(tree: Any, shardings: Any, device) -> Any:
+    """The restored tree with the leaves ``shardings`` names on their
+    meshes and the rest on ``device``."""
+    if isinstance(tree, dict):
+        sub = shardings if isinstance(shardings, dict) else {}
+        return {k: _place(v, sub.get(k), device) for k, v in tree.items()}
+    if shardings is None:
+        return tree.to(device)
+    mesh, placements = shardings
+    return rules.distribute(tree.to(_mesh_device(mesh)), mesh,
+                            tuple(placements))
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Callable
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -110,13 +111,48 @@ def nvcc_path() -> str:
                        " the CUDA kernels are built on the machine with the GPU")
 
 
+def digest(*parts: bytes) -> str:
+    """The 16 hex digits of sha256 over ``parts``: a build directory's name,
+    so that a change to any source or flag builds anew beside the old."""
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part)
+    return h.hexdigest()[:16]
+
+
 def source_hash() -> str:
-    h = hashlib.sha256(repr(FLAGS).encode())
+    parts = [repr(FLAGS).encode()]
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
-            h.update(f.name.encode())
-            h.update(f.read_bytes())
-    return h.hexdigest()[:16]
+            parts += [f.name.encode(), f.read_bytes()]
+    return digest(*parts)
+
+
+def compile_into(out_dir: Path, jobs: dict[str, tuple[Path, Callable[
+        [Path], list[str]]]], what: str) -> None:
+    """Run each job's compiler command, all started together.  A job is
+    ``name: (target, command)``: ``command(tmp)`` writes a file of this
+    process's own beside ``target``, which replaces ``target`` atomically
+    when the command succeeds, so that concurrent builds never see half
+    a library.  Each command's output is kept as ``<name>.log`` in
+    ``out_dir``.  Raises with the output of every command that failed."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (target, command) in jobs.items():
+        tmp = target.with_name(f"{name}.{os.getpid()}.tmp{target.suffix}")
+        procs[name] = (target, tmp, subprocess.Popen(
+            command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (target, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError(f"{what} failed:\n" + "\n".join(failed))
 
 
 def build_all() -> dict[str, Path]:
@@ -126,28 +162,14 @@ def build_all() -> dict[str, Path]:
     build fails.
     """
     out_dir = BUILD_ROOT / source_hash()
-    out_dir.mkdir(parents=True, exist_ok=True)
     libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
     todo = [name for name in SOURCES if not libs[name].exists()]
-    if not todo:
-        return libs
-    nvcc = nvcc_path()
-    procs = {}
-    for name in todo:
-        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        (out_dir / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
-        else:
-            os.replace(tmp, libs[name])
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    if todo:
+        nvcc = nvcc_path()
+        compile_into(out_dir, {
+            name: (libs[name], lambda tmp, name=name: [
+                nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")])
+            for name in todo}, "nvcc")
     return libs
 
 

@@ -9,10 +9,13 @@ nothing is placed on it.
 
 ``compat_make_mesh`` builds the reference's named mesh over the ranks of
 an initialised ``torch.distributed`` world, as a ``DeviceMesh`` whose
-dims ``parallel/compat.py`` names.  The reference forces N host devices
-in one process; the port starts N processes instead, with ``run_ranks``.
-``make_production_mesh`` (the reference's 256- and 512-chip meshes)
-refuses: ROADMAP.md list 1b item 7 and queue 1 item 12.
+dims ``parallel/compat.py`` names and on which the model's ``DTensor``s
+live (``parallel/rules.py``).  The reference forces N host devices in one
+process; the port starts N processes instead, with ``run_ranks``.
+``backend_for`` is the collectives' route: NCCL where every rank has its
+own card, the host-staged backend (``parallel/staged.py``) where ranks
+share one, gloo on the CPU.  ``make_production_mesh`` (the reference's
+256- and 512-chip meshes) refuses: ROADMAP.md queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -65,8 +68,8 @@ def compat_make_mesh(shape, axes):
     """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the ranks
     of the initialised world, in rank order (``run_ranks`` starts one).
 
-    Its device type is where its collectives move data: the card under
-    NCCL, host memory under gloo (``parallel/compat.py``)."""
+    Its device type is where its tensors live: the card under NCCL and
+    the staged route, the host under gloo."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
@@ -79,15 +82,14 @@ def compat_make_mesh(shape, axes):
     if math.prod(shape) != world:
         raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} ranks;"
                          f" the world has {world}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = "cpu" if dist.get_backend() == "gloo" else "cuda"
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
-        "the 256- and 512-chip production meshes carry the LM's DTensor "
-        "placement (ROADMAP.md list 1b item 7) and the dry run (queue 1 item "
-        "12), neither ported yet")
+        "the 256- and 512-chip production meshes exist only in the dry run's "
+        "simulated world (ROADMAP.md queue 1 item 12), not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -97,14 +99,29 @@ def make_production_mesh(*, multi_pod: bool = False):
 def backend_for(world: int, device: str | torch.device) -> str:
     """The process group's backend for ``world`` ranks on ``device``.
 
-    ``nccl`` where every rank has its own card; ``gloo`` where ranks share
-    a card (NCCL refuses two ranks on one device) and on the CPU.  The
-    rule decides; a backend that fails is an error, not a cue to try the
-    other."""
+    ``nccl`` where every rank has its own card; where ranks share a card
+    (NCCL refuses two ranks on one device, and gloo's CUDA path hangs in
+    DTensor's functional collectives) ``staged.ROUTE``: gloo for host
+    tensors, the host-staged backend for CUDA ones; ``gloo`` on the CPU.
+    The rule decides; a backend that fails is an error, not a cue to try
+    another."""
+    from repro_torch.parallel import staged
+
     dev = torch.device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() >= world:
+    if dev.type != "cuda":
+        return "gloo"
+    if torch.cuda.device_count() >= world:
         return "nccl"
-    return "gloo"
+    return staged.ROUTE
+
+
+def init_backend(backend: str) -> None:
+    """What a process does before it joins a group over ``backend``: the
+    staged route's backend registered (its build is the launcher's)."""
+    from repro_torch.parallel import staged
+
+    if staged.NAME in backend:
+        staged.register()
 
 
 @dataclasses.dataclass
@@ -127,6 +144,7 @@ def _rank_main(rank: int, world: int, backend: str, device_type: str,
         torch.set_num_threads(1)
         if device_type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
+        init_backend(backend)
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout))
@@ -151,9 +169,10 @@ def run_ranks(fn: Callable[..., Any], world: int, args: tuple = (), *,
     returns host values (numbers, numpy arrays).  The group rendezvous
     through a ``FileStore`` in a fresh temporary directory, so concurrent
     runs never share a port.  Every rank sets one intra-op thread and, on
-    the GPU, the card ``rank % device_count``.  The CUDA kernels are built
-    here, before any rank starts, so that no two ranks run ``nvcc`` into
-    one build directory.  A rank that raises or dies, or a run past
+    the GPU, the card ``rank % device_count``.  The CUDA kernels and, on
+    the staged route, its backend are built here, before any rank starts,
+    so that no two ranks build into one directory.  A rank that raises or
+    dies, or a run past
     ``timeout`` seconds, raises ``RankFailure``; every rank still alive is
     then killed.
     """
@@ -161,7 +180,10 @@ def run_ranks(fn: Callable[..., Any], world: int, args: tuple = (), *,
     backend = backend_for(world, dev)
     if dev.type == "cuda":
         from repro_torch.kernels import build
+        from repro_torch.parallel import staged
         build.build_all()
+        if staged.NAME in backend:
+            staged.build()
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="repro_torch_ranks_")

@@ -13,9 +13,14 @@ It is not routed through a fused library attention: their summation order
 and bf16 handling differ from the reference's, and ``RunConfig.attn_dtype``
 would stop meaning what it means there.
 
-``context_parallel_attention`` (sequence-sharded attention over a device
-mesh) is not ported: it waits for the sharding item (ROADMAP.md list 1b
-item 7).
+On a device mesh (``DTensor`` inputs, ``parallel/rules.py``) ``rope``
+and ``blockwise_attention`` run each rank's block under ``local_map``:
+batch over the data axes and heads over ``model`` where they divide, as
+the rules place them; a rank whose query heads are sharded while the kv
+heads replicate takes the kv heads of its own query heads.
+``context_parallel_attention`` is the reference's sequence-sharded
+attention for head counts that do not divide the model axis: each
+``model`` rank owns S/tp query rows and gathers k and v once.
 """
 from __future__ import annotations
 
@@ -27,13 +32,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.parallel import rules
 
 
 class ParamSpec(NamedTuple):
     """Template leaf: shape + logical axis names + dtype + init.
 
-    The logical axis names are the reference's sharding hints, kept as
-    documentation (the port runs on one device).  Leaves left at the
+    The logical axis names are the reference's sharding hints: on a
+    device mesh they place the leaf (``parallel/rules.py``:
+    ``sharding_for``).  Leaves left at the
     default bf16 take the model's parameter dtype (``models/model.py``);
     leaves that name float32 stay float32.
     """
@@ -104,7 +111,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """Rotary embedding, rotate-half.  x: (B, S, H, D), positions: (B, S).
 
     The angles are float32; x times cos/sin promotes to float32 and the
-    result is cast back to x's dtype, as in the reference."""
+    result is cast back to x's dtype, as in the reference.  On ``DTensor``
+    inputs each rank rotates its own block (``positions`` laid out as x's
+    batch and seq dims)."""
+    if rules.is_dtensor(x):
+        return _rope_on_mesh(x, positions, theta)
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
@@ -114,6 +125,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def grad_placements(param_pl: tuple, act_pl: tuple) -> tuple:
+    """The placements of the gradient of an input that a ``local_map``
+    body uses beside an activation laid out as ``act_pl``: on a mesh dim
+    where the input replicates and the activation is split, each rank
+    holds its own block's contribution (``Partial``); elsewhere the
+    gradient is laid out as the input."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if p.is_replicate() and a.is_shard() else p
+                 for p, a in zip(param_pl, act_pl))
+
+
+def _rope_on_mesh(x, positions, theta: float):
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    heads = f"heads[{x.shape[2]}]"
+    xpl = rules.act_placements(mesh, x.shape, ("batch", "seq", heads, None))
+    ppl = rules.act_placements(mesh, positions.shape, ("batch", "seq"))
+    return local_map(lambda xl, pl: rope(xl, pl, theta),
+                     out_placements=list(xpl), in_placements=(xpl, ppl),
+                     in_grad_placements=(xpl, ppl), device_mesh=mesh,
+                     redistribute_inputs=True)(x, positions)
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +186,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (bf16 inputs, float32 accumulation, as the reference's
     ``preferred_element_type``).  A given ``row_offset`` (query i at
     absolute position row_offset + i) makes every tile live and masked;
-    without one the causal offset is Sk - S.
+    without one the causal offset is Sk - S.  On ``DTensor`` inputs each
+    rank attends with its own batch rows and heads (``_heads_on_mesh``).
     """
+    if rules.is_dtensor(q):
+        return _heads_on_mesh(q, k, v, causal=causal, window=window,
+                              q_block=q_block, kv_block=kv_block,
+                              softcap=softcap, compute_dtype=compute_dtype,
+                              row_offset=row_offset)
     in_dt = torch.bfloat16 if compute_dtype == "bf16" else torch.float32
     B, S, H, D = q.shape
     _, Sk, KH, _ = k.shape
@@ -223,6 +265,92 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def _on_heads(placement) -> bool:
+    return placement.is_shard() and placement.dim == 2
+
+
+def _heads_on_mesh(q, k, v, **kw):
+    """``blockwise_attention`` on ``DTensor``s under ``local_map``: batch
+    over the data axes and heads over ``model`` where they divide (the
+    rules' placements of ``heads[H]`` and ``heads[KH]``).  Where the query
+    heads shard and the kv heads do not, each rank takes the kv heads of
+    its own query heads, and its k and v gradients are its part of theirs
+    (``Partial``); where the query heads do not shard, neither do k and v,
+    and every model rank attends with all heads."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, KH = q.shape[2], k.shape[2]
+    qpl = rules.act_placements(mesh, q.shape,
+                               ("batch", None, f"heads[{H}]", None))
+    kvpl = rules.act_placements(mesh, k.shape,
+                                ("batch", None, f"heads[{KH}]", None))
+    kvpl = tuple(Replicate() if _on_heads(p) and not _on_heads(qp) else p
+                 for p, qp in zip(kvpl, qpl))
+    names = mesh.mesh_dim_names
+    mi = names.index("model") if "model" in names else None
+    pick = mi is not None and _on_heads(qpl[mi]) and kvpl[mi].is_replicate()
+    kvgrad = grad_placements(kvpl, qpl)
+
+    def body(ql, kl, vl):
+        if pick:
+            hl = ql.shape[2]
+            first = mesh.get_local_rank(mi) * hl
+            idx = (torch.arange(first, first + hl, device=ql.device)
+                   // (H // KH))
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return blockwise_attention(ql, kl, vl, **kw)
+
+    return local_map(body, out_placements=list(qpl),
+                     in_placements=(qpl, kvpl, kvpl),
+                     in_grad_placements=(qpl, kvgrad, kvgrad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def context_parallel_attention(mesh, q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               window: int | None = None, q_block: int = 512,
+                               kv_block: int = 1024,
+                               softcap: float | None = None,
+                               compute_dtype: str = "f32") -> torch.Tensor:
+    """Sequence-sharded self-attention (the reference's, for head counts
+    that do not divide the model axis: hymba's 25, arctic's 56).
+
+    q, k, v: ``DTensor``s (B, S, H|KH, D) on ``mesh``.  Each ``model``
+    rank owns S/tp query rows (seq over ``model``, batch over the data
+    axes where they divide), all-gathers k and v over ``model`` once
+    (``compat.all_gather_grad``, whose backward reduce-scatters their
+    gradients) and runs ``blockwise_attention`` with its rows' offset
+    ``axis_index("model") * S/tp``.  Differentiable; returns a ``DTensor``
+    laid out as q's spec."""
+    from repro_torch.parallel import compat
+
+    B, S, _, _ = q.shape
+    names = mesh.mesh_dim_names
+    tp = mesh.size(names.index("model"))
+    if S % tp:
+        raise ValueError(f"seq {S} does not split over model = {tp}")
+    batch_axes = tuple(a for a in ("pod", "data") if a in names)
+    b_ok = batch_axes and B % math.prod(
+        mesh.size(names.index(a)) for a in batch_axes) == 0
+    bspec = ((batch_axes if len(batch_axes) > 1 else batch_axes[0])
+             if b_ok else None)
+    spec = (bspec, "model", None, None)
+    qb = min(q_block, S // tp)
+
+    def body(q_l, k_l, v_l):
+        k_f = compat.all_gather_grad(k_l, "model", 1)
+        v_f = compat.all_gather_grad(v_l, "model", 1)
+        off = compat.axis_index("model") * (S // tp)
+        return blockwise_attention(
+            q_l, k_f, v_f, causal=causal, window=window, q_block=qb,
+            kv_block=kv_block, softcap=softcap, compute_dtype=compute_dtype,
+            row_offset=off)
+
+    return compat.shard_map(body, mesh, (spec, spec, spec), spec)(q, k, v)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int, *,
                      window: int | None = None) -> torch.Tensor:
@@ -271,12 +399,18 @@ def attn_template(cfg: ModelConfig) -> dict[str, ParamSpec]:
 def attn_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
              positions: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> roped q (B,S,H,hd), roped k and v (B,S,KH,hd)."""
+    """x: (B, S, d) -> roped q (B,S,H,hd), roped k and v (B,S,KH,hd).
+    Under a rules mesh the projections are placed as their weights' heads
+    are (``heads[H]``, ``heads[KH]``) before they are split into heads."""
     B, S, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    g = rules.gathered
+    q, k, v = x @ g(p["wq"]), x @ g(p["wk"]), x @ g(p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rules.constrain(q, ("batch", "seq", f"heads[{h}]"))
+    k = rules.constrain(k, ("batch", "seq", f"heads[{kh}]"))
+    v = rules.constrain(v, ("batch", "seq", f"heads[{kh}]"))
     q = rope(q.reshape(B, S, h, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(B, S, kh, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, kh, hd)
@@ -329,6 +463,7 @@ def mlp_template(cfg: ModelConfig, ff: int | None = None
 
 
 def mlp_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = rules.gathered
     if cfg.act == "silu":
-        return swiglu(x, p["w1"], p["w3"], p["w2"])
-    return gelu_mlp(x, p["w1"], p["w2"])
+        return swiglu(x, g(p["w1"]), g(p["w3"]), g(p["w2"]))
+    return gelu_mlp(x, g(p["w1"]), g(p["w2"]))

@@ -14,6 +14,12 @@ in bf16 within chunks of ``scan_chunk`` steps, h in float32 across
 chunks, as the reference does; it combines sequentially where the
 reference combines a chunk as a tree, so the two round in another order.
 
+On a device mesh (``DTensor`` inputs) the channel-local parts run on each
+rank's own ``inner`` block under ``local_map`` (batch over the data axes):
+the depthwise conv and silu, and the scan, so the forward kernel and its
+backward kernel run unchanged on the rank's channels; the projections
+between them are ``DTensor`` matmuls.
+
 Decode is the exact single-step recurrence with (conv window, ssm state)
 carried in the cache, in plain PyTorch as in the reference.
 """
@@ -28,6 +34,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import rules
 
 Params = Mapping[str, torch.Tensor]
 
@@ -62,8 +69,10 @@ def _ssm_params(p: Params, x: torch.Tensor
     """
     dtr = p["dt_proj"].shape[0]
     n = (p["x_proj"].shape[1] - dtr) // 2
-    proj = x @ p["x_proj"]                                   # (B, L, dtr+2n)
-    dt = layers.softplus(proj[..., :dtr] @ p["dt_proj"]
+    # on a mesh the product sums over the channels' ranks: placed whole
+    proj = rules.constrain(x @ rules.gathered(p["x_proj"]),
+                           ("batch", "seq", None))           # (B, L, dtr+2n)
+    dt = layers.softplus(proj[..., :dtr] @ rules.gathered(p["dt_proj"])
                          + p["dt_bias"].to(proj.dtype))      # (B, L, di)
     Bm = proj[..., dtr: dtr + n]                             # (B, L, n)
     Cm = proj[..., dtr + n:]                                 # (B, L, n)
@@ -84,20 +93,78 @@ def mamba_mix(cfg: ModelConfig, rc: RunConfig, p: Params, x_in: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective-scan core.  x_in: (B, S, di) pre-conv.  Returns
     (y (B, S, di) in x_in's dtype, h_last (B, di, n) float32).
-    ``rc.ssm_dtype`` and ``rc.scan_chunk`` choose the scan's a/b mode."""
-    B, S, di = x_in.shape
-    cw = cfg.conv_width
-    # depthwise causal conv: the cw shifted slices summed in the
-    # reference's order (F.conv1d rounds bf16 differently)
-    xp = F.pad(x_in, (0, 0, cw - 1, 0))
-    x = sum(xp[:, i: i + S] * p["conv_w"][i] for i in range(cw))
-    x = layers.silu(x + p["conv_b"].to(x.dtype))
+    ``rc.ssm_dtype`` and ``rc.scan_chunk`` choose the scan's a/b mode.
+    On ``DTensor``s the conv and the scan run on each rank's channels."""
+    if rules.is_dtensor(x_in):
+        return _mix_on_mesh(cfg, rc, p, x_in, h0)
+    x = _conv(x_in, p["conv_w"], p["conv_b"])
     dt, Bm, Cm = _ssm_params(p, x)
+    y, h_last = _scan(x, dt, Bm, Cm, p["A_log"], p["D"], h0, rc)
+    return y.to(x_in.dtype), h_last
+
+
+def _conv(x_in: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor
+          ) -> torch.Tensor:
+    """Depthwise causal conv then silu: the cw shifted slices summed in
+    the reference's order (F.conv1d rounds bf16 differently)."""
+    cw, S = conv_w.shape[0], x_in.shape[1]
+    xp = F.pad(x_in, (0, 0, cw - 1, 0))
+    x = sum(xp[:, i: i + S] * conv_w[i] for i in range(cw))
+    return layers.silu(x + conv_b.to(x.dtype))
+
+
+def _scan(x, dt, Bm, Cm, a_log, d, h0, rc: RunConfig):
+    """``ops.selective_scan`` in ``rc``'s a/b mode, from h0 or zeros."""
     if h0 is None:
-        h0 = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
-                         device=x_in.device)
-    y, h_last = ops.selective_scan(x, dt, Bm, Cm, p["A_log"], p["D"], h0,
-                                   rc.ssm_dtype, rc.scan_chunk)
+        h0 = torch.zeros((x.shape[0], x.shape[2], a_log.shape[1]),
+                         dtype=torch.float32, device=x.device)
+    return ops.selective_scan(x, dt, Bm, Cm, a_log, d, h0, rc.ssm_dtype,
+                              rc.scan_chunk)
+
+
+def _mix_on_mesh(cfg: ModelConfig, rc: RunConfig, p: Params, x_in, h0):
+    """``mamba_mix`` on ``DTensor``s: ``inner`` over ``model`` and batch
+    over the data axes, as the rules place them.  The conv and the scan
+    are ``local_map`` bodies on the rank's channels; the gradients of the
+    inputs a rank shares with the other ranks of an axis (B and C over
+    ``model``, the parameters over the data axes) are its part of theirs."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x_in.device_mesh
+    B, S, di = x_in.shape
+    n = cfg.ssm_state
+
+    def pl(shape, logical):
+        return rules.act_placements(mesh, shape, logical)
+
+    xpl = pl((B, S, di), ("batch", None, "inner"))
+    cwpl = pl((cfg.conv_width, di), (None, "inner"))
+    cbpl = pl((di,), ("inner",))
+    x = local_map(_conv, out_placements=list(xpl),
+                  in_placements=(xpl, cwpl, cbpl),
+                  in_grad_placements=(xpl,
+                                      layers.grad_placements(cwpl, xpl),
+                                      layers.grad_placements(cbpl, xpl)),
+                  device_mesh=mesh, redistribute_inputs=True)(
+        x_in, p["conv_w"], p["conv_b"])
+    dt, Bm, Cm = _ssm_params(p, x)
+    bcpl = pl((B, S, n), ("batch", None, None))
+    apl, dpl = pl((di, n), ("inner", None)), pl((di,), ("inner",))
+    hpl = pl((B, di, n), ("batch", "inner", None))
+    ins, in_pl = [x, dt, Bm, Cm, p["A_log"], p["D"]], [xpl, xpl, bcpl, bcpl,
+                                                        apl, dpl]
+    if h0 is not None:
+        ins.append(h0)
+        in_pl.append(hpl)
+    grads = [layers.grad_placements(q, xpl) for q in in_pl]
+
+    def body(x, dt, bm, cm, a_log, d, h0=None):
+        return _scan(x, dt, bm, cm, a_log, d, h0, rc)
+
+    y, h_last = local_map(body, out_placements=(xpl, hpl),
+                          in_placements=tuple(in_pl),
+                          in_grad_placements=tuple(grads), device_mesh=mesh,
+                          redistribute_inputs=True)(*ins)
     return y.to(x_in.dtype), h_last
 
 

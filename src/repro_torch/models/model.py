@@ -26,9 +26,17 @@ Parameters are created without gradients, so serving builds no graph; a
 trainer turns them on with ``model.requires_grad_(True)``.  With
 ``RunConfig.remat == "block"`` and gradients enabled each block runs
 under ``torch.utils.checkpoint`` (its activations recomputed in the
-backward), as the reference checkpoints each block.  The reference's
-sharding hints (``constrain``) and its context-parallel attention branch
-have no counterpart on one device.
+backward), as the reference checkpoints each block.
+
+On a device mesh (``place_on_mesh``: every parameter a ``DTensor`` laid
+out by the logical-axis rules, ``param_specs``) the same forwards run on
+``DTensor``s under ``parallel.rules.use_rules_mesh``: the activations are
+placed where the reference places them (``constrain``), attention whose
+head count does not divide the model axis takes the reference's
+context-parallel branch, and the embedding lookup and the loss's softmax
+over a vocab sharded over ``model`` are ``local_map`` bodies.  The
+dense, hybrid and mamba kinds are placed; a ``moe``, ``enc`` or ``dec``
+block under a rules mesh raises (ROADMAP.md list 1b item 7).
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers, mamba, moe
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import rules
 
 _ATTN = ("dense", "moe", "hybrid", "enc", "dec")  # kinds with self-attention
 _SSM = ("mamba", "hybrid")                        # kinds with a mamba mixer
@@ -150,6 +159,64 @@ class Model(nn.Module):
             self.enc_norm = init(_norm(cfg))
 
 
+def param_leaves(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    """Every parameter's template leaf, by the port's parameter name
+    (``Model.named_parameters``): one entry a layer, where the reference
+    stacks a segment's layers on a leading dim."""
+    out = {"embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed")),
+           "final_norm": _norm(cfg)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                   ("embed", "vocab"))
+    blocks = [(f"segments.{si}.{li}.", kind)
+              for si, (kind, count) in enumerate(cfg.block_pattern)
+              for li in range(count)]
+    if cfg.is_encoder_decoder:
+        blocks += [(f"enc.{li}.", "enc")
+                   for li in range(cfg.num_encoder_layers)]
+        out["enc_norm"] = _norm(cfg)
+    for prefix, kind in blocks:
+        for name, leaf in block_template(cfg, kind).items():
+            if isinstance(leaf, ParamSpec):
+                out[prefix + name] = leaf
+            else:
+                out.update({f"{prefix}{name}.{k}": v for k, v in leaf.items()})
+    return out
+
+
+def param_specs(cfg: ModelConfig, mesh, seq_parallel: bool = False
+                ) -> dict[str, tuple]:
+    """Each parameter's spec on ``mesh`` (the reference's ``param_specs``,
+    without its stacked layer dim)."""
+    return {k: rules.spec_for(mesh, leaf.shape, leaf.logical, seq_parallel)
+            for k, leaf in param_leaves(cfg).items()}
+
+
+def place_on_mesh(cfg: ModelConfig, model: Model, mesh,
+                  seq_parallel: bool = False) -> Model:
+    """Turn every parameter of ``model`` into a ``DTensor`` on ``mesh``
+    laid out by ``rules.sharding_for``, in place: each rank keeps its own
+    block of the full tensor it holds (every rank built the same seeded
+    parameters), so nothing is sent.  ``requires_grad`` is kept."""
+    from torch.distributed.tensor import DTensor
+
+    leaves = param_leaves(cfg)
+    for name, p in list(model.named_parameters()):
+        if isinstance(p, DTensor):
+            raise ValueError(f"{name} is already placed")
+        pl = rules.sharding_for(mesh, leaves[name], seq_parallel=seq_parallel)
+        module_name, _, attr = name.rpartition(".")
+        owner = model.get_submodule(module_name)
+        placed = nn.Parameter(rules.distribute(p.detach(), mesh, pl),
+                              requires_grad=p.requires_grad)
+        if isinstance(owner, nn.ParameterDict):
+            owner[attr] = placed
+        else:
+            setattr(owner, attr, placed)
+    return model
+
+
 # ---------------------------------------------------------------------------
 # forwards
 # ---------------------------------------------------------------------------
@@ -172,13 +239,18 @@ def _conv_tail(x_in: torch.Tensor, cw: int) -> torch.Tensor:
 def _mamba_branch(cfg: ModelConfig, rc: RunConfig, p, h: torch.Tensor,
                   cache: dict | None) -> torch.Tensor:
     """The mamba mixer on the normed input h: (ym * silu(z)) @ out_proj.
-    Puts the conv tail and the last state into ``cache`` when given."""
-    x_in, z = (h @ p["in_proj"]).chunk(2, dim=-1)
+    Puts the conv tail and the last state into ``cache`` when given.  On a
+    mesh the projection's columns, [x_in | z], shard over ``model`` as one
+    dim: they are gathered before the split, so that each half can be
+    laid out over its own ``inner`` dim."""
+    xz = rules.constrain(h @ rules.gathered(p["in_proj"]),
+                         ("batch", "seq", None))
+    x_in, z = xz.chunk(2, dim=-1)
     ym, h_last = mamba.mamba_mix(cfg, rc, p, x_in)
     if cache is not None:
         cache["conv"] = _conv_tail(x_in, cfg.conv_width)
         cache["ssm"] = h_last
-    return (ym * layers.silu(z)) @ p["out_proj"]
+    return (ym * layers.silu(z)) @ rules.gathered(p["out_proj"])
 
 
 def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
@@ -186,26 +258,46 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
                   enc_out: torch.Tensor | None = None,
                   collect_cache: bool = False):
     """One block; ``enc_out`` (B, Se, d) is what a ``dec`` block's
-    cross-attention reads.  Returns (x, cache_entry_or_None)."""
+    cross-attention reads.  Returns (x, cache_entry_or_None).
+
+    Under a rules mesh, attention whose head count does not divide the
+    model axis runs sequence-sharded (``context_parallel_attention``)
+    where the sequence splits over it, as in the reference; the residual
+    stream is placed as ("batch", "seq", None) after each half."""
     base = kind.replace("_global", "")
+    mesh = rules.rules_mesh()
+    if mesh is not None and base in ("moe", "enc", "dec"):
+        raise NotImplementedError(
+            f"a {kind!r} block on a device mesh: its placement (the "
+            f"experts axis, the encoder-decoder blocks) is ROADMAP.md list "
+            f"1b item 7's next slice")
     cache: dict | None = {} if collect_cache else None
     if base in _ATTN:
         h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
         q, k, v = layers.attn_qkv(cfg, block.attn, h, positions)
         if cache is not None:
             cache["k"], cache["v"] = k, v
-        attn_out = layers.blockwise_attention(
-            q, k, v, causal=base != "enc", window=_window(cfg, kind),
-            q_block=rc.q_block, kv_block=rc.kv_block,
-            softcap=cfg.attn_logit_softcap, compute_dtype=rc.attn_dtype)
+        kw = dict(causal=base != "enc", window=_window(cfg, kind),
+                  q_block=rc.q_block, kv_block=rc.kv_block,
+                  softcap=cfg.attn_logit_softcap, compute_dtype=rc.attn_dtype)
+        if _context_parallel(cfg, mesh, q):
+            # rows back on every model rank: the residual stream's seq
+            # is not sharded
+            attn_out = rules.constrain(
+                layers.context_parallel_attention(mesh, q, k, v, **kw),
+                ("batch", "seq", None, None))
+        else:
+            attn_out = layers.blockwise_attention(q, k, v, **kw)
         B, S, _ = x.shape
-        attn_out = attn_out.reshape(B, S, -1) @ block.attn["wo"]
+        attn_out = attn_out.reshape(B, S, -1) @ rules.gathered(
+            block.attn["wo"])
         if base == "hybrid":
             # parallel heads: both branches read the same x
             hm = layers.rmsnorm(x, block.norm_m, cfg.norm_eps)
             x = x + attn_out + _mamba_branch(cfg, rc, block.mamba, hm, cache)
         else:
             x = x + attn_out
+        x = rules.constrain(x, ("batch", "seq", None))
         if base == "dec":
             x = x + _cross_attn(cfg, rc, block, x, enc_out)
         x = x + _ffn(cfg, rc, base, block, x)
@@ -214,7 +306,18 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
         x = x + _mamba_branch(cfg, rc, block.mamba, h, cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    return x, cache
+    return rules.constrain(x, ("batch", "seq", None)), cache
+
+
+def _context_parallel(cfg: ModelConfig, mesh, q) -> bool:
+    """The reference's condition for the context-parallel branch: a
+    model axis that the head count does not divide and the sequence
+    does, outside decode."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return False
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    S = q.shape[1]
+    return cfg.num_heads % tp != 0 and S % tp == 0 and S > 1
 
 
 def _run_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
@@ -273,7 +376,55 @@ def _stack(entries: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
 def embed_input(cfg: ModelConfig, model: Model, batch: dict) -> torch.Tensor:
     if "embeds" in batch:                 # stubbed modality frontend
         return batch["embeds"].to(model.embed.dtype)
+    if rules.is_dtensor(model.embed):
+        return _embed_on_mesh(model.embed, batch["tokens"])
     return F.embedding(batch["tokens"], model.embed)
+
+
+def _embed_on_mesh(w, tokens):
+    """The lookup on a mesh, a ``local_map`` body: the table gathered over
+    the data axes (its ``embed`` dim), each ``model`` rank looking up the
+    tokens of its own vocab rows (zeros elsewhere, summed over ``model``
+    by the constraint after it) when the vocab shards."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    tpl = rules.act_placements(mesh, tokens.shape, ("batch", "seq"))
+    wpl = tuple(p if n == "model" else Replicate()
+                for n, p in zip(names, w.placements))
+    mi = names.index("model") if "model" in names else None
+    vocab_split = mi is not None and wpl[mi].is_shard()
+    out = tuple(Partial() if vocab_split and i == mi else p
+                for i, p in enumerate(tpl))
+
+    def body(t, wl):
+        if not vocab_split:
+            return F.embedding(t, wl)
+        rows = wl.shape[0]
+        first = mesh.get_local_rank(mi) * rows
+        mine = (t >= first) & (t < first + rows)
+        e = F.embedding((t - first).clamp(0, rows - 1), wl)
+        return e * mine[..., None].to(e.dtype)
+
+    x = local_map(body, out_placements=list(out), in_placements=(tpl, wpl),
+                  in_grad_placements=(tpl, layers.grad_placements(wpl, tpl)),
+                  device_mesh=mesh, redistribute_inputs=True)(tokens, w)
+    return rules.constrain(x, ("batch", "seq", None))
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """Rope positions (B, S) for the activations x (B, S, ...): 0..S-1 a
+    row, laid out as the tokens on a mesh."""
+    B, S = x.shape[:2]
+    dev = rules.local(x).device
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    if not rules.is_dtensor(x):
+        return pos
+    mesh = x.device_mesh
+    return rules.distribute(pos, mesh, rules.act_placements(
+        mesh, (B, S), ("batch", "seq")))
 
 
 def encode(cfg: ModelConfig, rc: RunConfig, model: Model,
@@ -300,9 +451,7 @@ def backbone(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
     ``batch["enc_out"]``, as ``serve.greedy_decode`` does to run the
     encoder once."""
     x = embed_input(cfg, model, batch)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    positions = _positions(x)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = (batch["enc_out"] if "enc_out" in batch else
@@ -321,20 +470,89 @@ def backbone(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
     return x, caches
 
 
-def lm_head(cfg: ModelConfig, model: Model, h: torch.Tensor) -> torch.Tensor:
+def _head_weight(cfg: ModelConfig, model: Model) -> torch.Tensor:
+    """The LM head's (d, V) weight (the embedding's transpose when tied),
+    as a product reads it (``rules.gathered``)."""
     w = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return h @ w
+    return rules.gathered(w)
 
 
-def _chunk_ce(cfg: ModelConfig, model: Model, hx: torch.Tensor,
-              lx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One chunk's (sum of -log p(label), count of labels >= 0): float32
-    logits, logsumexp minus the gold logit, padding labels (-1) masked."""
-    logits = lm_head(cfg, model, hx).float()
+def lm_head(cfg: ModelConfig, model: Model, h: torch.Tensor) -> torch.Tensor:
+    return h @ _head_weight(cfg, model)
+
+
+def _chunk_ce(w: torch.Tensor, hx: torch.Tensor, lx: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (sum of -log p(label), count of labels >= 0) under the
+    head weight w: float32 logits, logsumexp minus the gold logit, padding
+    labels (-1) masked."""
+    logits = hx @ w
+    if rules.is_dtensor(logits):
+        return _ce_on_mesh(logits, lx)
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, lx.clamp(min=0)[..., None].long())[..., 0]
     valid = (lx >= 0).float()
     return ((logz - gold) * valid).sum(), valid.sum()
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum of every rank's x over ``group``, for a result that every
+    rank then uses alike: each rank's gradient is the result's own."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from repro_torch.parallel import compat
+        return compat.all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _ce_on_mesh(logits, labels):
+    """``_chunk_ce`` on a mesh, a ``local_map`` body on each rank's rows
+    and, where the vocab shards over ``model``, its vocab columns: the
+    row max and the sum of exponentials are reduced over ``model``
+    (max, then sum), and so is the gold logit, found on the rank that
+    holds its column.  The sums come out split over the data axes."""
+    from torch.distributed import ReduceOp
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel import compat
+
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    B, C, V = logits.shape
+    lpl = rules.act_placements(mesh, (B, C, V), ("batch", None, "vocab"))
+    ypl = rules.act_placements(mesh, (B, C), ("batch",))
+    mi = names.index("model") if "model" in names else None
+    vocab_split = mi is not None and lpl[mi].is_shard()
+    group = mesh.get_group(mi) if vocab_split else None
+    out = tuple(Partial() if p.is_shard() else Replicate() for p in ypl)
+
+    def body(l, y):
+        l = l.float()
+        cols = l.shape[-1]
+        first = mesh.get_local_rank(mi) * cols if vocab_split else 0
+        m = l.amax(-1).detach()
+        if vocab_split:
+            m = compat.all_reduce(m, group, ReduceOp.MAX)
+        se = torch.exp(l - m[..., None]).sum(-1)
+        mine = (y >= first) & (y < first + cols)
+        gold = l.gather(-1, (y - first).clamp(0, cols - 1)[..., None]
+                        .long())[..., 0] * mine
+        if vocab_split:
+            se = _SumOverGroup.apply(se, group)
+            gold = _SumOverGroup.apply(gold, group)
+        valid = (y >= 0).float()
+        return ((m + torch.log(se) - gold) * valid).sum(), valid.sum()
+
+    return local_map(body, out_placements=(out, out),
+                     in_placements=(lpl, ypl), in_grad_placements=(lpl, ypl),
+                     device_mesh=mesh, redistribute_inputs=True)(logits,
+                                                                 labels)
 
 
 def chunked_loss(cfg: ModelConfig, rc: RunConfig, model: Model,
@@ -343,23 +561,24 @@ def chunked_loss(cfg: ModelConfig, rc: RunConfig, model: Model,
     exist at once.  S is padded to a multiple of ``min(rc.loss_chunk, S)``
     with label -1; each chunk runs under ``torch.utils.checkpoint`` when
     gradients are on (its logits recomputed in the backward), as the
-    reference checkpoints ``chunk_ce``.  Mean over the valid labels."""
+    reference checkpoints ``chunk_ce``.  Mean over the valid labels.  On a
+    mesh the head weight is gathered once for all the chunks."""
     B, S, _ = h.shape
     chunk = min(rc.loss_chunk, S)
     nch = -(-S // chunk)
     if nch * chunk != S:
         h = F.pad(h, (0, 0, 0, nch * chunk - S))
         labels = F.pad(labels, (0, nch * chunk - S), value=-1)
+    w = _head_weight(cfg, model)
     tot = h.new_zeros((), dtype=torch.float32)
     cnt = h.new_zeros((), dtype=torch.float32)
     for c in range(nch):
         hx, lx = h[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:
                                                          (c + 1) * chunk]
         if torch.is_grad_enabled():
-            l, n = checkpoint(_chunk_ce, cfg, model, hx, lx,
-                              use_reentrant=False)
+            l, n = checkpoint(_chunk_ce, w, hx, lx, use_reentrant=False)
         else:
-            l, n = _chunk_ce(cfg, model, hx, lx)
+            l, n = _chunk_ce(w, hx, lx)
         tot, cnt = tot + l, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -8,6 +8,12 @@ update is computed in float32 and cast back to the parameter's dtype, as
 in the reference.  ``apply_updates`` writes the new parameters and state
 in place under ``torch.no_grad()`` (the reference returns new trees) and
 returns the same dicts, so a full-width model holds no second copy.
+
+On a device mesh the leaves are ``DTensor``s: the moments are laid out
+as their parameters, each gradient is brought to its parameter's layout
+before the update (a reduce-scatter or an all-reduce of what the backward
+left split over ranks), and the global norm is the norm of the whole
+tree, every rank's blocks counted once.
 """
 from __future__ import annotations
 
@@ -15,6 +21,9 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel import rules
 
 Tree = dict[str, torch.Tensor]
 
@@ -47,10 +56,11 @@ def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_state(cfg: OptimizerConfig, params: Tree) -> dict:
     """{"step": int32 0, "mu"/"nu" (AdamW) or "mom" (SGD): float32 zeros
-    per parameter, on its device}."""
+    per parameter, on its device and, on a mesh, in its layout}."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    dev = next(iter(params.values())).device
+        return torch.zeros_like(p, dtype=torch.float32)
+    first = next(iter(params.values()))
+    dev = rules.local(first).device
     state: dict = {"step": torch.zeros((), dtype=torch.int32, device=dev)}
     names = ("mu", "nu") if cfg.name == "adamw" else ("mom",)
     for name in names:
@@ -58,10 +68,37 @@ def init_state(cfg: OptimizerConfig, params: Tree) -> dict:
     return state
 
 
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient g in its parameter's layout (a no-op off a mesh)."""
+    if rules.is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 squares, leaves in order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree.values()))
+    """sqrt of the sum of every leaf's float32 squares, leaves in order.
+    On a mesh each rank sums its own blocks' squares, each divided by the
+    number of ranks that hold a copy of that block, and one all-reduce a
+    mesh dim adds the ranks' sums: a plain tensor, the same on every
+    rank."""
+    leaves = list(tree.values())
+    if not leaves or not rules.is_dtensor(leaves[0]):
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                              for g in leaves))
+    mesh = leaves[0].device_mesh
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves[0].to_local().device)
+    for g in leaves:
+        if any(p.is_partial() for p in g.placements):
+            raise ValueError("global_norm of a partial sum: redistribute "
+                             "it to its parameter's layout first")
+        copies = math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                           if p.is_replicate())
+        local = g.to_local().to(torch.float32)
+        total = total + torch.sum(torch.square(local)) / copies
+    for i in range(mesh.ndim):
+        dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -88,8 +125,8 @@ def apply_updates(cfg: OptimizerConfig, params: Tree, grads: Tree,
     parameter with no gradient (``None``) takes a zero gradient, as the
     reference's ``value_and_grad`` gives one.
     """
-    grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
-             for k, p in params.items()}
+    grads = {k: torch.zeros_like(p) if grads.get(k) is None else
+             _as_param(grads[k], p) for k, p in params.items()}
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state["step"] + 1

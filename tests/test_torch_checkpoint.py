@@ -73,11 +73,32 @@ def test_checkpoint_layout_is_the_references(tmp_path):
 
 
 def test_restore_places_leaves_on_a_device_and_refuses_shardings(tmp_path):
+    """``restore`` puts leaves on a device, and those ``shardings`` names
+    on a mesh as DTensors (a one-rank world here; tests/
+    test_torch_sharding.py restores onto 4 ranks' meshes).  The name is
+    the refusal's, which the port's DTensor placement has replaced."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import mesh as tmesh
+
     mgr = CheckpointManager(str(tmp_path), async_write=False)
-    mgr.save(2, {"params": {"w": torch.ones(4, 4)}})
+    w = torch.arange(16.0).reshape(4, 4)
+    mgr.save(2, {"params": {"w": w, "b": torch.ones(4)}})
     out = mgr.restore(device="cpu")
     assert out["params"]["w"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="list 1b item 7"):
-        mgr.restore(shardings={"params": {"w": object()}})
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = tmesh.compat_make_mesh((1, 1), ("data", "model"))
+        got = mgr.restore(shardings={"params": {
+            "w": (mesh, (Shard(0), Replicate()))}})
+        t = got["params"]["w"]
+        assert isinstance(t, DTensor) and tuple(t.placements) == (
+            Shard(0), Replicate())
+        assert torch.equal(t.full_tensor(), w)
+        assert type(got["params"]["b"]) is torch.Tensor
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(AssertionError):
         CheckpointManager(str(tmp_path / "empty")).restore()

@@ -17,6 +17,8 @@ once; the tests read what its ranks returned.
     ranks, and the launcher's backend rule.
 """
 import dataclasses
+import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -246,7 +248,9 @@ def test_ambient_mesh_raises_without_a_mesh():
 
 @pytest.mark.parametrize("world,cards,device,want", [
     (8, 0, "cpu", "gloo"),
-    (8, 1, "cuda", "gloo"),      # ranks share the one card
+    # ranks share the one card: gloo for host tensors, the host-staged
+    # backend for CUDA ones (the case keeps its id)
+    pytest.param(8, 1, "cuda", "cpu:gloo,cuda:staged", id="8-1-cuda-gloo"),
     (1, 1, "cuda", "nccl"),
     (4, 4, "cuda", "nccl"),
     (4, 4, "cpu", "gloo"),
@@ -254,3 +258,46 @@ def test_ambient_mesh_raises_without_a_mesh():
 def test_backend_rule(monkeypatch, world, cards, device, want):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     assert tmesh.backend_for(world, device) == want
+
+
+def test_plain_tensor_path_never_imports_dtensor():
+    """The shard backend's path on plain tensors (the mesh, ``shard_map``,
+    the gather, ``rules.is_dtensor``, the optimizer's norm) never imports
+    ``torch.distributed.tensor``: that import takes seconds a process where
+    ranks share the host's cores, and it had made each rank's first round
+    the slowest.  Checked in a fresh one-rank process."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as tmesh
+        from repro_torch.optim import optimizers
+        from repro_torch.parallel import compat, rules
+
+        store = os.path.join(tempfile.mkdtemp(), "store")
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+        m = tmesh.compat_make_mesh((1,), ("workers",))
+        x = torch.arange(6.0).reshape(2, 3)
+        f = compat.shard_map(
+            lambda b: compat.all_gather(b, "workers", tiled=True), m,
+            (("workers", None),), ())
+        assert torch.equal(f(x), x)
+        assert not rules.is_dtensor(x)
+        optimizers.global_norm({"w": x})
+        before = "torch.distributed.tensor" in sys.modules
+        from torch.distributed.tensor import distribute_tensor, Replicate
+        d = distribute_tensor(x, m, [Replicate()])
+        print(before, rules.is_dtensor(d), rules.is_dtensor(x))
+        dist.destroy_process_group()
+    """)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["False", "True", "False"]
