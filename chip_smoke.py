@@ -179,24 +179,36 @@ iterating on a kernel); such a partial run prints no ok line.
             step)
   train_sharded  the LM over a mesh of 4 ranks sharing the card
             (``run_ranks`` over ``backend_for``'s route: gloo for host
-            tensors, the staged backend for CUDA ones), a (data 2, model
-            2) mesh of DTensors placed by the logical-axis rules:
+            tensors, the staged backend for CUDA ones), meshes of DTensors
+            placed by the logical-axis rules: on (data 2, model 2)
             hymba-1.5b (25 heads over model 2: the context-parallel branch)
             and tinyllama-1.1b (heads and vocab over model, embed over
-            data) at full width cut to 2 blocks, bf16 parameters, float32
-            AdamW, block remat, batch 4 x 2048, 3 steps through
+            data) at full width cut to 2 blocks, batch 4 x 2048; on
+            (data 1, model 4) phi3.5-moe-42b-a6.6b at full width cut to 2
+            blocks, batch 4 x 2048 (4 experts a rank, the einsum dispatch
+            at capacity factor 1.25); whisper-tiny at its published config
+            (1500 stub frames from a seed), batch 16 x 448, on (2, 2) and
+            (1, 4) (the context-parallel branch in its 8 self-attentions);
+            bf16 parameters, float32 AdamW, block remat, 3 steps through
             ``train.train_step_fn``: the loss the same on every rank,
-            every parameter's full tensor the same bits on every rank, the
-            branch counted (2 calls a hymba layer a step, none for
-            tinyllama), on each rank exactly 2 ``selective_scan`` launches
-            and 1 ``selective_scan_bwd`` a hybrid layer a step, on its own
-            channels; step ms, the collectives' share of a profiled step
-            and the peak memory by rank; the 2 layers in float32 at batch
-            2 x 256, sharded gradients within 1e-3 of each leaf's largest
-            of a one-process run on the card; hymba's checkpoint saved by
-            the ranks at (2, 2) and restored here with no mesh, bit-equal;
-            ``train.main`` over the 4 ranks (mesh data 4) for 3 steps of
-            tinyllama at 2 layers; no rank process left alive
+            every parameter block the same bits on every rank that holds
+            it, the branch counted (2 calls a layer a step where it is
+            taken, none elsewhere), the share of dropped (token, choice)
+            pairs the same on every rank, and the first forward's
+            routing by layer (dropped share, the first group's per-expert
+            loads and router-logit spreads) the same on every rank and
+            recorded beside that of the same seeded model and batch in one
+            process on rank 0, on each rank exactly 2
+            ``selective_scan`` launches and 1 ``selective_scan_bwd`` a
+            hybrid layer a step, on its own channels, and none for the
+            others; step ms, the collectives' share of a profiled step
+            and the peak memory by rank; each model in float32 at batch
+            2 x 256 (phi3.5-moe at 1 block), sharded gradients within 1e-3
+            of each leaf's largest of a one-process run on the card;
+            hymba's checkpoint saved by the ranks at (2, 2) and restored
+            here with no mesh, bit-equal; ``train.main`` over the 4 ranks
+            (mesh data 4) for 3 steps of tinyllama at 2 layers; no rank
+            process left alive
   consistency_train  hymba at full width, 2 layers (one global, one
             windowed), float32, batch 2 x 256: the loss and every gradient
             leaf on the card against the CPU within 1e-3 of each leaf's
@@ -456,9 +468,17 @@ TRAIN_HEADS = dict(classes=33, iters=2)
 SHARD = dict(N=8, K=2, T=1, m=CASE1["m"], d=CASE1["d"], iters=25)
 # the sharded coded head at tinyllama-1.1b's head width, shard 2 killed
 SHARD_HEAD = dict(d=2048, vocab=32000, N=6, K=4, T=1, batch=4, kill=2)
-# the LM over a mesh of 4 ranks sharing the card (mesh data 2 x model 2):
-# each model at full width cut to its first 2 blocks, bf16 parameters,
-# float32 AdamW, block remat; then the same 2 layers in float32 at batch
+# the LM over a mesh of 4 ranks sharing the card (mesh data 2 x model 2
+# unless a model names its own): each model at full width, bf16
+# parameters, float32 AdamW, block remat, 3 steps; hymba and tinyllama cut
+# to their first 2 blocks at batch 4 x 2048; phi3.5-moe cut to 2 blocks at
+# batch 4 x 2048 on (data 1, model 4), where all its leaves shard over
+# model and no expert weight is gathered (PERF.md section 4); whisper-tiny
+# at its published config (4 enc and 4 dec blocks, 1500 stub frames from a
+# seed) at batch 16 x 448 decoder tokens, its text context, on (2, 2) and
+# on (1, 4), where its 6 heads do not divide the model axis (the
+# context-parallel branch in every block's self-attention).  Then each
+# model's blocks (``check_pattern``'s where given) in float32 at batch
 # 2 x 256, the sharded gradients against a one-process run on the card
 # (GRAD_REL of each leaf's largest |g|), and the train driver over the 4
 # ranks (mesh data 4)
@@ -466,8 +486,15 @@ TRAIN_SHARDED = dict(
     world=4, mesh=(2, 2), batch=4, seq=2048, steps=3, check_batch=2,
     check_seq=256,
     models=(dict(arch="hymba-1.5b", pattern=(("hybrid_global", 1),
-                                             ("hybrid", 1)), cp=True),
-            dict(arch="tinyllama-1.1b", pattern=(("dense", 2),), cp=False)),
+                                             ("hybrid", 1)), cp=True,
+                 checkpoint=True),
+            dict(arch="tinyllama-1.1b", pattern=(("dense", 2),), cp=False),
+            dict(arch="phi3.5-moe-42b-a6.6b", pattern=(("moe", 2),),
+                 check_pattern=(("moe", 1),), mesh=(1, 4), cp=False),
+            dict(arch="whisper-tiny", name="whisper-tiny@2x2", batch=16,
+                 seq=448, cp=False),
+            dict(arch="whisper-tiny", name="whisper-tiny@1x4", mesh=(1, 4),
+                 batch=16, seq=448, cp=True)),
     driver=dict(arch="tinyllama-1.1b", pattern=(("dense", 2),), batch=4,
                 seq=2048, steps=3))
 # the scan's (B, S, d_inner, n) on one rank of train_sharded: batch over
@@ -2729,6 +2756,94 @@ def _collective_share(torch, fn) -> dict:
             "collective_share": coll / wall, "by_op_calls_ms": by_op}
 
 
+def _sharded_model(m: dict):
+    """A train_sharded model's full config, its cut config and its name
+    (its mesh's, where two runs share an arch)."""
+    from repro_torch.configs import registry
+
+    if "pattern" in m:
+        full, cfg = _cut(m["arch"], m["pattern"])
+    else:
+        full = cfg = registry.get_config(m["arch"])
+    return full, cfg, m.get("name", m["arch"])
+
+
+def _frames(torch, cfg, B: int, seed: int):
+    """B stub frame sequences (B, encoder_seq_len, d) from a seed, on the
+    card, float32 (``encode`` casts them to the parameters' dtype)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+def _placed(torch, batch: dict, mesh) -> dict:
+    """The batch's plain tensors placed as ("batch", "seq", None), the
+    reference's input specs (the loader's already are)."""
+    from repro_torch.parallel import rules
+
+    return {k: v if rules.is_dtensor(v) else rules.distribute(
+        v, mesh, rules.act_placements(mesh, v.shape,
+                                      ("batch", "seq", None)[:v.ndim]))
+            for k, v in batch.items()}
+
+
+class _DropCount:
+    """Counts the (token, choice) pairs the einsum dispatch routes and
+    keeps on this rank (``moe.einsum_routing`` wrapped), on the card.  The
+    first ``first`` calls after a reset (one forward's layers) are also
+    kept one by one: their dropped share, C, and the first group's
+    per-expert loads (pairs routed to each expert, before the capacity)
+    and router-logit spreads (the std over experts of each expert's mean
+    logit over the group's tokens, against the mean over experts of each
+    expert's std over the tokens)."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe, self.real = torch, moe, moe.einsum_routing
+        self.pairs = 0
+        self.kept = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.first, self.calls = 0, []
+
+    def __call__(self, cfg, logits, C):
+        out = self.real(cfg, logits, C)
+        _, onehot, _, keep = out
+        kept = (keep & (onehot > 0)).any(-1).sum()
+        self.pairs += onehot[..., 0].numel()
+        self.kept += kept
+        if len(self.calls) < self.first:
+            lg = logits[0].detach().float()                   # (g, E)
+            self.calls.append({
+                "pairs": onehot[..., 0].numel(), "kept": kept.clone(),
+                "C": C, "load": onehot[0].sum((0, 1)).clone(),
+                "between": lg.mean(0).std(), "within": lg.std(0).mean()})
+        return out
+
+    def reset(self, first: int = 0):
+        self.pairs = 0
+        self.kept.zero_()
+        self.first, self.calls = first, []
+
+    def share_dropped(self):
+        return 1.0 - int(self.kept) / self.pairs if self.pairs else None
+
+    def first_calls(self) -> list[dict]:
+        return [{"dropped_share": 1.0 - int(c["kept"]) / c["pairs"],
+                 "C": c["C"], "group0_load": c["load"].long().tolist(),
+                 "group0_logit_spread_between_experts": float(c["between"]),
+                 "group0_logit_spread_within_expert": float(c["within"])}
+                for c in self.calls]
+
+
+def _block_sha(torch, params: dict, mesh) -> dict:
+    """Each leaf's local block hash on this rank, with the coordinates of
+    the block (this rank's on each mesh dim the leaf shards over): ranks
+    of equal coordinates hold the same block, and must hold it bit for
+    bit."""
+    return {k: [[mesh.get_local_rank(i) if pl.is_shard() else None
+                 for i, pl in enumerate(p.placements)],
+                _tensor_sha(torch, p.to_local())]
+            for k, p in params.items()}
+
+
 def sharded_rank(rank: int, world: int, job: dict) -> dict:
     """One rank of the train_sharded phase (see ``phase_train_sharded``)."""
     import torch
@@ -2739,13 +2854,13 @@ def sharded_rank(rank: int, world: int, job: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train
-    from repro_torch.models import layers
+    from repro_torch.models import layers, moe
     from repro_torch.models import model as M
     from repro_torch.optim import optimizers as opt
     from repro_torch.parallel import rules
 
     spec = TRAIN_SHARDED
-    mesh = mesh_lib.compat_make_mesh(spec["mesh"], ("data", "model"))
+    meshes: dict = {}
     cp_calls = [0]
     real_cp = layers.context_parallel_attention
 
@@ -2754,13 +2869,21 @@ def sharded_rank(rank: int, world: int, job: dict) -> dict:
         return real_cp(*a, **kw)
 
     layers.context_parallel_attention = counted_cp
+    drops = _DropCount(torch, moe)
+    moe.einsum_routing = drops
     out = {"rank": rank, "backend": dist.get_backend(),
-           "device": str(torch.cuda.current_device()),
-           "mesh_device_type": mesh.device_type, "models": {}}
-    B, S, steps = spec["batch"], spec["seq"], spec["steps"]
+           "device": str(torch.cuda.current_device()), "models": {}}
+    steps = spec["steps"]
     for m in spec["models"]:
         t_part = time.perf_counter()
-        _, cfg = _cut(m["arch"], m["pattern"])
+        shape = tuple(m.get("mesh", spec["mesh"]))
+        if shape not in meshes:
+            meshes[shape] = mesh_lib.compat_make_mesh(shape,
+                                                      ("data", "model"))
+        mesh = meshes[shape]
+        out["mesh_device_type"] = mesh.device_type
+        B, S = m.get("batch", spec["batch"]), m.get("seq", spec["seq"])
+        _, cfg, name = _sharded_model(m)
         rc = train.run_config(S, B)
         ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=10)
         torch.cuda.reset_peak_memory_stats()
@@ -2772,6 +2895,10 @@ def sharded_rank(rank: int, world: int, job: dict) -> dict:
         step = train.train_step_fn(cfg, rc, ocfg, model)
         with LMBatchLoader("cuda", B, S, cfg.vocab_size, mesh=mesh) as ld:
             batches = [next(ld) for _ in range(steps)]
+        if cfg.is_encoder_decoder:
+            for i, b in enumerate(batches):
+                b["enc_embeds"] = _frames(torch, cfg, B, 20 + i)
+        batches = [_placed(torch, b, mesh) for b in batches]
         box = {"opt": state}
         part_s = {"state": time.perf_counter() - t_part}
         t_part = time.perf_counter()
@@ -2784,6 +2911,7 @@ def sharded_rank(rank: int, world: int, job: dict) -> dict:
         losses, step_ms, prof = [], [], {}
         ops.reset_launches()
         cp_calls[0] = 0
+        drops.reset(first=cfg.num_layers)
         for i, batch in enumerate(batches):
             t0 = time.perf_counter()
             if i < steps - 1:
@@ -2796,28 +2924,52 @@ def sharded_rank(rank: int, world: int, job: dict) -> dict:
         part_s["steps"] = time.perf_counter() - t_part
         t_part = time.perf_counter()
         launches, cps = dict(ops.LAUNCHES), cp_calls[0]
-        info = {"losses": losses, "step_ms": step_ms, "launches": launches,
+        info = {"mesh": list(shape), "batch": B, "seq": S,
+                "losses": losses, "step_ms": step_ms, "launches": launches,
                 "cp_calls": cps, "profiled_step": prof,
+                "dropped_share": drops.share_dropped(),
+                "first_forward": drops.first_calls(),
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "local_batch": list(batches[0]["tokens"].to_local().shape),
                 "placements": {k: [repr(x) for x in p.placements]
                                for k, p in list(params.items())[:6]},
-                "param_sha": {k: _tensor_sha(torch, p.full_tensor())
-                              for k, p in params.items()}}
-        if m["cp"]:
+                "block_sha": _block_sha(torch, params, mesh)}
+        if m.get("checkpoint"):
+            info["param_sha"] = {k: _tensor_sha(torch, p.full_tensor())
+                                 for k, p in params.items()}
             ckpt = CheckpointManager(job["ckpt_dir"])
             ckpt.save(steps, {"params": params})
             info["checkpoint_step"] = steps
+        tokens0 = (batches[0]["tokens"].full_tensor() if cfg.num_experts
+                   else None)
         del model, params, box, state, step, batches
         gc.collect()
         torch.cuda.empty_cache()
+        if tokens0 is not None and rank == 0:
+            # the same seeded model and first batch in one process: its
+            # first forward's routing beside the mesh's
+            one = M.Model(cfg, dtype=getattr(torch, rc.param_dtype),
+                          device="cuda", seed=0)
+            drops.reset(first=cfg.num_layers)
+            with torch.no_grad():
+                M.backbone(cfg, rc, one, {"tokens": tokens0})
+            info["one_process_first_forward"] = drops.first_calls()
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()
+        del tokens0
         part_s["hash_and_checkpoint"] = time.perf_counter() - t_part
         t_part = time.perf_counter()
-        info["grads"] = _sharded_grads(torch, cfg, mesh, rank)
+        check = (_cut(m["arch"], m["check_pattern"])[1]
+                 if "check_pattern" in m else cfg)
+        info["grads"] = _sharded_grads(torch, check, mesh, rank)
+        gc.collect()
+        torch.cuda.empty_cache()
         part_s["grads"] = time.perf_counter() - t_part
         info["part_s"] = part_s
-        out["models"][m["arch"]] = info
+        out["models"][name] = info
     layers.context_parallel_attention = real_cp
+    moe.einsum_routing = drops.real
     # the train driver over the same ranks: its own mesh, data = world
     d = spec["driver"]
     _, cfg = _cut(d["arch"], d["pattern"])
@@ -2835,9 +2987,10 @@ def sharded_rank(rank: int, world: int, job: dict) -> dict:
 
 
 def _sharded_grads(torch, cfg, mesh, rank: int) -> dict:
-    """``cfg`` in float32 at TRAIN_SHARDED's check batch: the loss's
-    gradients on the mesh against a one-process, unsharded run on the card
-    (rank 0 computes it), each leaf's largest error over its largest |g|."""
+    """``cfg`` in float32 at TRAIN_SHARDED's check batch (and frames): the
+    loss's gradients on the mesh against a one-process, unsharded run on
+    the card (rank 0 computes it), each leaf's largest error over its
+    largest |g|, gathered one leaf at a time."""
     from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.parallel import rules
@@ -2849,6 +3002,8 @@ def _sharded_grads(torch, cfg, mesh, rank: int) -> dict:
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
                          device="cuda")
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = _frames(torch, cfg, B, 11)
     want = loss1 = None
     if rank == 0:
         one = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
@@ -2857,47 +3012,73 @@ def _sharded_grads(torch, cfg, mesh, rank: int) -> dict:
         loss.backward()
         loss1 = float(loss)
         want = {k: p.grad for k, p in one.named_parameters()}
-        del one
+        del one, loss
     model = M.Model(cfg, dtype=torch.float32, device="cuda", seed=0)
     model.requires_grad_(True)
     M.place_on_mesh(cfg, model, mesh)
-    bpl = rules.placements(mesh, rules.spec_for(mesh, (B, S), ("batch",)))
-    dbatch = {k: rules.distribute(v, mesh, bpl) for k, v in batch.items()}
     with rules.use_rules_mesh(mesh):
-        loss = M.loss_fn(cfg, rc, model, dbatch)
+        loss = M.loss_fn(cfg, rc, model, _placed(torch, batch, mesh))
         loss.backward()
     lossm = float(loss.full_tensor())
-    got = {k: p.grad.redistribute(mesh, p.placements).full_tensor()
-           for k, p in model.named_parameters()}
+    rel = {}
+    for k, p in model.named_parameters():
+        got = p.grad.redistribute(mesh, p.placements).full_tensor()
+        p.grad = None
+        if rank == 0:
+            w = want.pop(k)
+            rel[k] = float((got - w).abs().max()) / max(float(w.abs().max()),
+                                                        1e-30)
+        del got
     if rank != 0:
         return {"loss": lossm}
-    rel = {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()),
-                                                      1e-30)
-           for k, w in want.items()}
     worst = max(rel, key=rel.get)
     return {"loss": lossm, "loss_one_process": loss1,
             "loss_rel_err": abs(lossm - loss1) / abs(loss1),
-            "leaves": len(rel), "max_rel_err": rel[worst],
-            "worst_leaf": worst, "tolerance_rel": GRAD_REL}
+            "layers": cfg.num_layers, "leaves": len(rel),
+            "max_rel_err": rel[worst], "worst_leaf": worst,
+            "tolerance_rel": GRAD_REL}
+
+
+def _replicas_differ(per: list[dict]) -> list[str]:
+    """The leaves whose blocks differ between ranks that hold the same
+    block (``_block_sha``'s coordinates)."""
+    bad = []
+    for k in per[0]["block_sha"]:
+        seen: dict = {}
+        for r in per:
+            coords, digest = r["block_sha"][k]
+            if seen.setdefault(tuple(coords), digest) != digest:
+                bad.append(k)
+                break
+    return bad
 
 
 def phase_train_sharded(torch, out_dir: Path) -> dict:
     """The LM over a mesh of 4 ranks sharing the card (TRAIN_SHARDED):
-    ``launch/mesh.py: run_ranks`` over ``backend_for``'s route, a (2, 2)
-    mesh of DTensors.  For hymba-1.5b (the context-parallel branch: 25
-    heads over model 2) and tinyllama-1.1b at full width, 2 blocks: 3 steps
-    of ``train.train_step_fn`` on the loader's mesh batches, the loss the
-    same on every rank and every parameter's full tensor the same bits on
-    every rank; the branch counted (hymba's 2 layers a step, none for
-    tinyllama); on each rank exactly 2 ``selective_scan`` launches (the
-    forward and block remat's recompute) and 1 ``selective_scan_bwd`` a
-    hybrid layer a step, on its own channels; step ms, the collectives'
-    share of one profiled step and the peak memory, by rank.  Then the 2
-    layers in float32: the sharded gradients within GRAD_REL of each leaf's
-    largest of one unsharded process on the card.  hymba's checkpoint,
-    saved by the ranks at (2, 2), restored here with no mesh on the card
-    bit-equal.  ``train.main`` over the 4 ranks (mesh data 4) for 3 steps
-    of tinyllama at 2 layers.  No rank process is left alive."""
+    ``launch/mesh.py: run_ranks`` over ``backend_for``'s route, each
+    model on its mesh of DTensors.  For hymba-1.5b (the context-parallel
+    branch: 25 heads over model 2) and tinyllama-1.1b at full width, 2
+    blocks, phi3.5-moe at full width, 2 blocks on (1, 4), and whisper-tiny
+    at its published config on (2, 2) and (1, 4): 3 steps of
+    ``train.train_step_fn`` on the loader's mesh batches (whisper's with
+    stub frames placed as the tokens), the loss the same on every rank and
+    every parameter block the same bits on every rank that holds it; the
+    branch counted (each self-attention layer twice a step where it is
+    taken, none elsewhere); the share of dropped (token, choice) pairs the
+    same on every rank of an MoE run, and its first forward's routing by
+    layer (``_DropCount.first_calls``) the same on every rank, beside the
+    same seeded model's on the same batch in one process (rank 0); on
+    each rank exactly 2
+    ``selective_scan`` launches (the forward and block remat's recompute)
+    and 1 ``selective_scan_bwd`` a hybrid layer a step, on its own
+    channels, and none for the other models; step ms, the collectives'
+    share of one profiled step and the peak memory, by rank.  Then each
+    model in float32 (phi3.5-moe at 1 block): the sharded gradients within
+    GRAD_REL of each leaf's largest of one unsharded process on the card.
+    hymba's checkpoint, saved by the ranks at (2, 2), restored here with
+    no mesh on the card bit-equal.  ``train.main`` over the 4 ranks (mesh
+    data 4) for 3 steps of tinyllama at 2 layers.  No rank process is left
+    alive."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import mesh as mesh_lib
 
@@ -2920,20 +3101,22 @@ def phase_train_sharded(torch, out_dir: Path) -> dict:
         failures.append(f"backend {run.backend}, rule says {rule}")
     info: dict = {"phase": "train_sharded", "device": nvidia_smi(),
                   "backend": run.backend, "backend_rule": rule,
-                  "startup_s": run.startup_s, "mesh": spec["mesh"],
+                  "startup_s": run.startup_s,
                   "mesh_device_type": run.results[0]["mesh_device_type"],
                   "models": {}, "children_left": left}
     for m in spec["models"]:
-        arch = m["arch"]
-        full, cfg = _cut(arch, m["pattern"])
-        per = [r["models"][arch] for r in run.results]
+        full, cfg, name = _sharded_model(m)
+        per = [r["models"][name] for r in run.results]
         ssm = _ssm_layers(cfg)
         want = {"modmatmul": 0, "coded_grad": 0,
                 "selective_scan": 2 * ssm * spec["steps"],
                 "selective_scan_bwd": ssm * spec["steps"]}
-        attn_layers = cfg.num_layers if m["cp"] else 0
+        attn_layers = (cfg.num_layers + cfg.num_encoder_layers
+                       if m["cp"] else 0)
         g = per[0]["grads"]
         model_info = {
+            "arch": m["arch"], "mesh": per[0]["mesh"],
+            "batch": per[0]["batch"], "seq": per[0]["seq"],
             "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
             "losses": per[0]["losses"],
             "step_ms_by_rank": [r["step_ms"] for r in per],
@@ -2943,28 +3126,41 @@ def phase_train_sharded(torch, out_dir: Path) -> dict:
             "peak_gb_by_rank": [r["peak_gb"] for r in per],
             "launches_by_rank": [r["launches"] for r in per],
             "cp_calls_by_rank": [r["cp_calls"] for r in per],
+            "dropped_share_by_rank": [r["dropped_share"] for r in per],
+            "first_forward_rank0": per[0]["first_forward"],
+            "one_process_first_forward": per[0].get(
+                "one_process_first_forward"),
             "local_batch": per[0]["local_batch"],
             "part_s_rank0": per[0]["part_s"],
             "placements_sample": per[0]["placements"], "grads": g}
-        info["models"][arch] = model_info
+        info["models"][name] = model_info
         if any(r["losses"] != per[0]["losses"] for r in per):
-            failures.append(f"{arch}: losses differ between ranks")
+            failures.append(f"{name}: losses differ between ranks")
         if not all(math.isfinite(x) for x in per[0]["losses"]):
-            failures.append(f"{arch}: losses {per[0]['losses']}")
-        if any(r["param_sha"] != per[0]["param_sha"] for r in per):
-            failures.append(f"{arch}: full parameters differ between ranks")
+            failures.append(f"{name}: losses {per[0]['losses']}")
+        bad = _replicas_differ(per)
+        if bad:
+            failures.append(f"{name}: blocks differ between ranks that hold "
+                            f"them: {bad[:4]}")
+        if len({r["dropped_share"] for r in per}) != 1 or (
+                cfg.num_experts and per[0]["dropped_share"] is None):
+            failures.append(f"{name}: dropped shares "
+                            f"{model_info['dropped_share_by_rank']}")
+        if any(r["first_forward"] != per[0]["first_forward"] for r in per):
+            failures.append(f"{name}: the first forward's routing differs "
+                            f"between ranks")
         for r in per:
             if r["launches"] != want:
-                failures.append(f"{arch}: launches {r['launches']}, "
+                failures.append(f"{name}: launches {r['launches']}, "
                                 f"expected {want}")
             if r["cp_calls"] != attn_layers * spec["steps"] * 2:
-                failures.append(f"{arch}: context-parallel calls "
+                failures.append(f"{name}: context-parallel calls "
                                 f"{r['cp_calls']}, expected "
                                 f"{attn_layers * spec['steps'] * 2}")
         if not (g["max_rel_err"] <= GRAD_REL
                 and g["loss_rel_err"] <= GRAD_REL):
-            failures.append(f"{arch}: sharded gradients {g}")
-        if m["cp"]:
+            failures.append(f"{name}: sharded gradients {g}")
+        if m.get("checkpoint"):
             restored = CheckpointManager(job["ckpt_dir"]).restore(
                 device="cuda")
             got = {k: _tensor_sha(torch, t)
@@ -2974,9 +3170,10 @@ def phase_train_sharded(torch, out_dir: Path) -> dict:
                 == per[0]["checkpoint_step"]
                 and all(t.is_cuda for t in restored["params"].values()))
             if not model_info["checkpoint_restored_bit_equal"]:
-                failures.append(f"{arch}: checkpoint restored differs")
+                failures.append(f"{name}: checkpoint restored differs")
             del restored
-        emit({"phase": "train_sharded", "arch": arch, "device": info["device"],
+        emit({"phase": "train_sharded", "model": name,
+              "device": info["device"],
               **{k: v for k, v in model_info.items()
                  if k != "profiled_step_by_rank"},
               "profiled_step_rank0": per[0]["profiled_step"]})

@@ -17,9 +17,12 @@ environment) the driver builds the reference's local mesh over it, data =
 world and model = 1 (``compat_make_mesh``), places the parameters and the
 optimizer state on it as ``DTensor``s (``build_sharded_state``), feeds
 each rank its rows of the global batch, restores onto the mesh and runs
-every step under ``parallel.rules.use_rules_mesh``.  Rank 0 prints and
-writes ``--json-out``.  ``--production-mesh`` exits 2: the 256- and
-512-chip meshes belong to the dry run (ROADMAP.md queue 1 item 12).
+every step under ``parallel.rules.use_rules_mesh``.  Every tokens-only
+arch trains there, the MoE archs among them (their experts laid out over
+``model``, which is 1 here, and dispatched in ``models/moe.py``'s mesh
+body).  Rank 0 prints and writes ``--json-out``.  ``--production-mesh``
+exits 2: the 256- and 512-chip meshes belong to the dry run (ROADMAP.md
+queue 1 item 12).
 
 The last line of standard output is one JSON object: the steps run, the
 tokens a second over the steps after the first (the first compiles and

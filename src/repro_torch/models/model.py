@@ -33,10 +33,12 @@ out by the logical-axis rules, ``param_specs``) the same forwards run on
 ``DTensor``s under ``parallel.rules.use_rules_mesh``: the activations are
 placed where the reference places them (``constrain``), attention whose
 head count does not divide the model axis takes the reference's
-context-parallel branch, and the embedding lookup and the loss's softmax
-over a vocab sharded over ``model`` are ``local_map`` bodies.  The
-dense, hybrid and mamba kinds are placed; a ``moe``, ``enc`` or ``dec``
-block under a rules mesh raises (ROADMAP.md list 1b item 7).
+context-parallel branch, and the embedding lookup, the loss's softmax
+over a vocab sharded over ``model`` and the MoE layer (``moe.py``:
+``_moe_on_mesh``) are ``local_map`` bodies.  Every kind is placed: the
+encoder's frames as the tokens are, and a ``dec`` block's cross-attention
+with its heads over ``model`` where they divide it (never sequence-sharded,
+as in the reference).
 """
 from __future__ import annotations
 
@@ -266,11 +268,6 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
     stream is placed as ("batch", "seq", None) after each half."""
     base = kind.replace("_global", "")
     mesh = rules.rules_mesh()
-    if mesh is not None and base in ("moe", "enc", "dec"):
-        raise NotImplementedError(
-            f"a {kind!r} block on a device mesh: its placement (the "
-            f"experts axis, the encoder-decoder blocks) is ROADMAP.md list "
-            f"1b item 7's next slice")
     cache: dict | None = {} if collect_cache else None
     if base in _ATTN:
         h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
@@ -299,7 +296,8 @@ def block_forward(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
             x = x + attn_out
         x = rules.constrain(x, ("batch", "seq", None))
         if base == "dec":
-            x = x + _cross_attn(cfg, rc, block, x, enc_out)
+            x = rules.constrain(x + _cross_attn(cfg, rc, block, x, enc_out),
+                                ("batch", "seq", None))
         x = x + _ffn(cfg, rc, base, block, x)
     elif base == "mamba":
         h = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
@@ -337,10 +335,15 @@ def _run_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
 def _cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention's k and v (B, Se, KH, hd) from the encoder output:
-    no rope and no bias, recomputed at every call (not cached)."""
+    no rope and no bias, recomputed at every call (not cached).  On a mesh
+    placed as ``layers.attn_qkv`` places them, by their heads."""
     B, Se, _ = enc_out.shape
-    shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
-    return (enc_out @ p["wk"]).reshape(shape), (enc_out @ p["wv"]).reshape(shape)
+    kh = cfg.num_kv_heads
+    shape = (B, Se, kh, cfg.head_dim)
+    k, v = (rules.constrain(enc_out @ rules.gathered(p[n]),
+                            ("batch", "seq", f"heads[{kh}]"))
+            for n in ("wk", "wv"))
+    return k.reshape(shape), v.reshape(shape)
 
 
 def _cross_attn(cfg: ModelConfig, rc: RunConfig, block: Block,
@@ -348,15 +351,20 @@ def _cross_attn(cfg: ModelConfig, rc: RunConfig, block: Block,
     """A ``dec`` block's cross-attention on norm_x(x): q from the decoder,
     k and v from ``enc_out``, non-causal, with no rope, bias or softcap,
     at the default float32 compute dtype whatever ``rc.attn_dtype`` says
-    (as in the reference)."""
+    (as in the reference).  On a mesh each rank attends with its batch rows
+    and its heads (``layers.blockwise_attention``'s ``DTensor`` path, the
+    S query rows against all Se frames), never sequence-sharded."""
     B, S, _ = x.shape
+    h = cfg.num_heads
     p = block.xattn
     hx = layers.rmsnorm(x, block.norm_x, cfg.norm_eps)
-    q = (hx @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = rules.constrain(hx @ rules.gathered(p["wq"]),
+                        ("batch", "seq", f"heads[{h}]"))
+    q = q.reshape(B, S, h, cfg.head_dim)
     k, v = _cross_kv(cfg, p, enc_out)
     xo = layers.blockwise_attention(q, k, v, causal=False,
                                     q_block=rc.q_block, kv_block=rc.kv_block)
-    return xo.reshape(B, S, -1) @ p["wo"]
+    return xo.reshape(B, S, -1) @ rules.gathered(p["wo"])
 
 
 def _ffn(cfg: ModelConfig, rc: RunConfig, base: str, block: Block,
@@ -432,14 +440,16 @@ def encode(cfg: ModelConfig, rc: RunConfig, model: Model,
     """The encoder half of an encoder-decoder model: the stub frame
     embeddings (B, Se, d), cast to the parameter dtype, through the ``enc``
     blocks (rope positions over the frames) and ``enc_norm``.  Returns
-    enc_out (B, Se, d), what every ``dec`` block reads."""
-    e = enc_embeds.to(model.embed.dtype)
-    B, Se = e.shape[:2]
-    positions = torch.arange(Se, dtype=torch.int32,
-                             device=e.device).expand(B, Se)
+    enc_out (B, Se, d), what every ``dec`` block reads.  On a mesh the
+    frames come in placed as ("batch", "seq", None), the reference's input
+    spec, and so do their positions and enc_out."""
+    e = rules.constrain(enc_embeds.to(model.embed.dtype),
+                        ("batch", "seq", None))
+    positions = _positions(e)
     for block in model.enc:
         e, _ = _run_block(cfg, rc, "enc", block, e, positions)
-    return layers.rmsnorm(e, model.enc_norm, cfg.norm_eps)
+    return rules.constrain(layers.rmsnorm(e, model.enc_norm, cfg.norm_eps),
+                           ("batch", "seq", None))
 
 
 def backbone(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,

@@ -408,7 +408,7 @@ def test_context_parallel_branch_condition():
 
 
 # ---------------------------------------------------------------------------
-# loader, checkpoint, driver, refusals
+# loader, checkpoint, driver
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("batch", [4, 3])
@@ -458,20 +458,3 @@ def test_train_driver_over_ranks_tracks_one_process(group, tmp_path, capsys,
         assert abs(a - b) <= STEP_LOSS_RTOL * abs(b), (sharded["losses"],
                                                        one["losses"])
     assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
-
-
-def test_moe_block_under_a_rules_mesh_raises(group):
-    for r in group[0].results:
-        assert "list 1b item 7" in r["refusal"]["error"]
-
-
-@pytest.mark.parametrize("kind", ["enc", "dec", "moe"])
-def test_unplaced_kinds_raise_under_a_rules_mesh(kind):
-    arch = "whisper-tiny" if kind in ("enc", "dec") else "phi3.5-moe-42b-a6.6b"
-    cfg = treg.reduced_config(treg.get_config(arch))
-    block = TM.Block(cfg, kind, TM._Init(torch.float32, "cpu", 0))
-    x = torch.zeros(1, 4, cfg.d_model)
-    with trules.use_rules_mesh(DuckMesh({"data": 1, "model": 1})):
-        with pytest.raises(NotImplementedError, match="list 1b item 7"):
-            TM.block_forward(cfg, RC, kind, block, x, torch.zeros(1, 4))
-    assert trules.rules_mesh() is None

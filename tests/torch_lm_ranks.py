@@ -226,23 +226,6 @@ def _driver_case(job: dict) -> dict:
         return {"rc": ttrain.main(argv)}
 
 
-def _refusal_case(meshes) -> dict:
-    """A moe block under a rules mesh."""
-    cfg = registry.reduced_config(registry.get_config("phi3.5-moe-42b-a6.6b"))
-    model = TM.Model(cfg, dtype=torch.float32, device="cpu", seed=0)
-    mesh = meshes["2x2"]
-    TM.place_on_mesh(cfg, model, mesh)
-    tokens = rules.distribute(torch.zeros((2, 8), dtype=torch.int64), mesh,
-                              rules.placements(mesh, ("data",)))
-    try:
-        with rules.use_rules_mesh(mesh):
-            TM.backbone(cfg, ttrain.run_config(8, 2), model,
-                        {"tokens": tokens})
-    except NotImplementedError as e:
-        return {"error": str(e)}
-    return {"error": None}
-
-
 def lm_rank(rank: int, world: int, job: dict) -> dict:
     """Every case of ``test_torch_sharding.py`` on this rank."""
     meshes = {name: tmesh.compat_make_mesh(shape, ("data", "model"))
@@ -254,7 +237,6 @@ def lm_rank(rank: int, world: int, job: dict) -> dict:
            "cp": _cp_case(meshes, job["cp"]),
            "train": _train_case(meshes, job["train"]),
            "loader": _loader_case(meshes, job["loader"]),
-           "checkpoint": _checkpoint_case(meshes, job["checkpoint"]),
-           "refusal": _refusal_case(meshes)}
+           "checkpoint": _checkpoint_case(meshes, job["checkpoint"])}
     out["driver"] = _driver_case(job["driver"])
     return out
