@@ -186,9 +186,10 @@ iterating on a kernel); such a partial run prints no ok line.
             data) at full width cut to 2 blocks, batch 4 x 2048; on
             (data 1, model 4) phi3.5-moe-42b-a6.6b at full width cut to 2
             blocks, batch 4 x 2048 (4 experts a rank, the einsum dispatch
-            at capacity factor 1.25); whisper-tiny at its published config
-            (1500 stub frames from a seed), batch 16 x 448, on (2, 2) and
-            (1, 4) (the context-parallel branch in its 8 self-attentions);
+            at capacity factor 1.25); whisper-tiny at full width cut to
+            2 encoder and 2 decoder blocks (1500 stub frames from a seed),
+            batch 16 x 448, on (2, 2) and (1, 4) (the context-parallel
+            branch in its 4 self-attentions);
             bf16 parameters, float32 AdamW, block remat, 3 steps through
             ``train.train_step_fn``: the loss the same on every rank,
             every parameter block the same bits on every rank that holds
@@ -209,6 +210,27 @@ iterating on a kernel); such a partial run prints no ok line.
             here with no mesh, bit-equal; ``train.main`` over the 4 ranks
             (mesh data 4) for 3 steps of tinyllama at 2 layers; no rank
             process left alive
+  serve_sharded  prefill and decode over a mesh of 4 ranks sharing the
+            card (the staged route again): tinyllama-1.1b, hymba-1.5b
+            (the context-parallel prefill; one global block, one
+            1024-slot ring) and falcon-mamba-7b on (data 2, model 2),
+            phi3.5-moe-42b-a6.6b on (1, 4), each at full width cut to 2
+            blocks, batch 4 x prompt 2048, and whisper-tiny at its
+            published config (batch 16 x 4 tokens, 1500 stub frames) on
+            (1, 4); bf16, 16 greedy tokens (falcon-mamba 8) through
+            ``serve.greedy_decode`` on a model placed by
+            ``model.place_on_mesh``, its prompt and frames placed by
+            ``registry.input_specs``: the tokens equal on every rank, every
+            cache leaf's block placed as ``input_specs`` says after the
+            prefill and every step (the cache's sequence over model),
+            exactly one ``selective_scan`` launch a mamba or hybrid layer
+            on every rank, none elsewhere; prefill s, decode tokens/s, the
+            collectives' share of one profiled decode step by op and the
+            peak memory by rank; then in float32 at batch 2, prompt 256
+            (whisper 4), 4 teacher-forced steps (phi3.5-moe at 1 block),
+            each call's gathered logits within 1e-3 of one process (rank
+            0); the scan kernel held to its plain version at falcon-mamba's
+            rank blocks in the kernels phase; no rank process left alive
   consistency_train  hymba at full width, 2 layers (one global, one
             windowed), float32, batch 2 x 256: the loss and every gradient
             leaf on the card against the CPU within 1e-3 of each leaf's
@@ -474,10 +496,11 @@ SHARD_HEAD = dict(d=2048, vocab=32000, N=6, K=4, T=1, batch=4, kill=2)
 # to their first 2 blocks at batch 4 x 2048; phi3.5-moe cut to 2 blocks at
 # batch 4 x 2048 on (data 1, model 4), where all its leaves shard over
 # model and no expert weight is gathered (PERF.md section 4); whisper-tiny
-# at its published config (4 enc and 4 dec blocks, 1500 stub frames from a
-# seed) at batch 16 x 448 decoder tokens, its text context, on (2, 2) and
-# on (1, 4), where its 6 heads do not divide the model axis (the
-# context-parallel branch in every block's self-attention).  Then each
+# at full width cut to 2 of its 4 encoder and 2 of its 4 decoder blocks
+# (cut for time; 1500 stub frames from a seed) at batch 16 x 448 decoder
+# tokens, its text context, on (2, 2) and on (1, 4), where its 6 heads do
+# not divide the model axis (the context-parallel branch in every block's
+# self-attention).  Then each
 # model's blocks (``check_pattern``'s where given) in float32 at batch
 # 2 x 256, the sharded gradients against a one-process run on the card
 # (GRAD_REL of each leaf's largest |g|), and the train driver over the 4
@@ -492,9 +515,11 @@ TRAIN_SHARDED = dict(
             dict(arch="phi3.5-moe-42b-a6.6b", pattern=(("moe", 2),),
                  check_pattern=(("moe", 1),), mesh=(1, 4), cp=False),
             dict(arch="whisper-tiny", name="whisper-tiny@2x2", batch=16,
-                 seq=448, cp=False),
+                 seq=448, pattern=(("dec", 2),), encoder_layers=2,
+                 cp=False),
             dict(arch="whisper-tiny", name="whisper-tiny@1x4", mesh=(1, 4),
-                 batch=16, seq=448, cp=True)),
+                 batch=16, seq=448, pattern=(("dec", 2),), encoder_layers=2,
+                 cp=True)),
     driver=dict(arch="tinyllama-1.1b", pattern=(("dense", 2),), batch=4,
                 seq=2048, steps=3))
 # the scan's (B, S, d_inner, n) on one rank of train_sharded: batch over
@@ -505,12 +530,43 @@ SHARDED_RANK_SCAN = (TRAIN_SHARDED["batch"] // TRAIN_SHARDED["mesh"][0],
 SHARDED_RANK_CHECK_SCAN = (
     TRAIN_SHARDED["check_batch"] // TRAIN_SHARDED["mesh"][0],
     TRAIN_SHARDED["check_seq"], 3200 // TRAIN_SHARDED["mesh"][1], 16)
+# prefill and decode over a mesh of 4 ranks sharing the card: each model at
+# full width, bf16, cut to 2 blocks (whisper-tiny at its published 4 + 4),
+# batch 4 x prompt 2048 (whisper 16 x 4 tokens and 1500 stub frames), 16
+# greedy tokens, so a cache of 2064 slots (whisper 20) that splits over a
+# model axis of 2 and 4 (the sequence-sharded layout); falcon-mamba, which
+# has no k/v cache and whose steps on (2, 2) are its weights' gathers over
+# data (PERF.md section 5), decodes 8 (cut for time); then in float32 at
+# batch 2, prompt 256 (whisper 4), 4 teacher-forced steps (phi3.5-moe at 1
+# block), the gathered logits against one process on rank 0
+SERVE_SHARDED = dict(
+    world=4, batch=4, prompt=2048, gen=16, check_batch=2, check_prompt=256,
+    check_gen=4,
+    models=(dict(arch="tinyllama-1.1b", pattern=(("dense", 2),),
+                 mesh=(2, 2)),
+            dict(arch="hymba-1.5b", pattern=(("hybrid_global", 1),
+                                             ("hybrid", 1)), mesh=(2, 2)),
+            dict(arch="falcon-mamba-7b", pattern=(("mamba", 2),),
+                 mesh=(2, 2), gen=8),
+            dict(arch="phi3.5-moe-42b-a6.6b", pattern=(("moe", 2),),
+                 check_pattern=(("moe", 1),), mesh=(1, 4)),
+            dict(arch="whisper-tiny", mesh=(1, 4), batch=16, prompt=4,
+                 check_prompt=4)))
+# the scan's (B, S, d_inner, n) on one rank of serve_sharded's falcon-mamba
+# (batch over data 2, its d_inner 8192 over model 2), served and checked;
+# hymba's blocks there are train_sharded's (SHARDED_RANK_SCAN and
+# SHARDED_RANK_CHECK_SCAN)
+SERVE_SHARDED_RANK_SCAN = (SERVE_SHARDED["batch"] // 2,
+                           SERVE_SHARDED["prompt"], 8192 // 2, 16)
+SERVE_SHARDED_RANK_CHECK_SCAN = (SERVE_SHARDED["check_batch"] // 2,
+                                 SERVE_SHARDED["check_prompt"], 8192 // 2, 16)
 PHASES = ("kernels", "train", "train_c33", "shard", "teacher", "serve", "profile",
           "consistency", "coded_head", "serve_dense", "serve_hybrid",
           "serve_swa", "serve_wide", "consistency_dense", "profile_dense",
           "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
           "serve_whisper", "consistency_whisper", "train_lm",
-          "train_lm_ab16", "train_sharded", "consistency_train", "cluster",
+          "train_lm_ab16", "train_sharded", "serve_sharded",
+          "consistency_train", "cluster",
           "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
@@ -938,6 +994,12 @@ def phase_kernels_scan(torch, checks: Checks) -> list[dict]:
         # model 2), at its training and its float32 check shapes
         ("hymba_rank_train_x_dt_bf16", SHARDED_RANK_SCAN, bf16, 0.0, bf16),
         ("hymba_rank_check_f32", SHARDED_RANK_CHECK_SCAN, f32, 0.0, f32),
+        # one rank's block of falcon-mamba in serve_sharded, served (bf16)
+        # and in its float32 check
+        ("falcon_rank_serve_x_dt_bf16", SERVE_SHARDED_RANK_SCAN, bf16, 0.0,
+         bf16),
+        ("falcon_rank_check_f32", SERVE_SHARDED_RANK_CHECK_SCAN, f32, 0.0,
+         f32),
     ]
     for case, shape, x_dtype, h0_scale, dt_dtype in cases:
         args = scan_inputs(torch, gen, *shape, x_dtype, h0_scale, dt_dtype)
@@ -2757,14 +2819,17 @@ def _collective_share(torch, fn) -> dict:
 
 
 def _sharded_model(m: dict):
-    """A train_sharded model's full config, its cut config and its name
-    (its mesh's, where two runs share an arch)."""
+    """A train_sharded model's full config, its cut config (its encoder
+    too, where ``encoder_layers`` says) and its name (its mesh's, where
+    two runs share an arch)."""
     from repro_torch.configs import registry
 
     if "pattern" in m:
         full, cfg = _cut(m["arch"], m["pattern"])
     else:
         full = cfg = registry.get_config(m["arch"])
+    if "encoder_layers" in m:
+        cfg = dataclasses.replace(cfg, num_encoder_layers=m["encoder_layers"])
     return full, cfg, m.get("name", m["arch"])
 
 
@@ -3059,7 +3124,7 @@ def phase_train_sharded(torch, out_dir: Path) -> dict:
     model on its mesh of DTensors.  For hymba-1.5b (the context-parallel
     branch: 25 heads over model 2) and tinyllama-1.1b at full width, 2
     blocks, phi3.5-moe at full width, 2 blocks on (1, 4), and whisper-tiny
-    at its published config on (2, 2) and (1, 4): 3 steps of
+    at full width, 2 + 2 blocks, on (2, 2) and (1, 4): 3 steps of
     ``train.train_step_fn`` on the loader's mesh batches (whisper's with
     stub frames placed as the tokens), the loss the same on every rank and
     every parameter block the same bits on every rank that holds it; the
@@ -3117,7 +3182,9 @@ def phase_train_sharded(torch, out_dir: Path) -> dict:
         model_info = {
             "arch": m["arch"], "mesh": per[0]["mesh"],
             "batch": per[0]["batch"], "seq": per[0]["seq"],
-            "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+            "reduced": {"num_layers": [full.num_layers, cfg.num_layers],
+                        "num_encoder_layers": [full.num_encoder_layers,
+                                               cfg.num_encoder_layers]},
             "losses": per[0]["losses"],
             "step_ms_by_rank": [r["step_ms"] for r in per],
             "collective_share_by_rank": [r["profiled_step"]["collective_share"]
@@ -3191,6 +3258,349 @@ def phase_train_sharded(torch, out_dir: Path) -> dict:
     # hymba's run, the slice's main path on each rank
     info["launches"] = info["models"][spec["models"][0]["arch"]][
         "launches_by_rank"][0]
+    return info
+
+
+class _CacheWatch:
+    """Wraps ``model.prefill`` and ``model.decode_step`` while it is
+    entered: after each call, every cache leaf's block on this rank is
+    held to the placements and block shape of its ``input_specs`` leaf
+    (``specs``, the decode cell of the run's cache length), and the last
+    cache and the step's batch are kept (for one more, profiled step)."""
+
+    def __init__(self, M, specs: dict, mesh):
+        self.M, self.specs, self.mesh = M, specs, mesh
+        self.calls, self.bad, self.last = 0, [], None
+
+    def _check(self, cache):
+        self.calls += 1
+        for seg, leaves in cache.items():
+            if seg == "index":
+                continue
+            for name, t in leaves.items():
+                want = self.specs[seg][name]
+                got = (tuple(t.placements), tuple(t.to_local().shape))
+                if got != (want.placements, _block_shape(want, self.mesh)):
+                    self.bad.append(f"call {self.calls} {seg}.{name}: "
+                                    f"{got} against {want}")
+
+    def __enter__(self):
+        M = self.M
+        self.real = (M.prefill, M.decode_step)
+        real_prefill, real_step = self.real
+
+        def prefill(*a, **kw):
+            out = real_prefill(*a, **kw)
+            self._check(out[1])
+            return out
+
+        def decode_step(cfg, rc, model, cache, batch, **kw):
+            out = real_step(cfg, rc, model, cache, batch, **kw)
+            self._check(out[1])
+            self.last = (cache, batch)
+            return out
+
+        M.prefill, M.decode_step = prefill, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self.M.prefill, self.M.decode_step = self.real
+
+
+def _block_shape(leaf, mesh) -> tuple:
+    """The block of ``leaf`` (an ``InputSpec``) one rank holds."""
+    shape = list(leaf.shape)
+    for i, pl in enumerate(leaf.placements):
+        if pl.is_shard():
+            shape[pl.dim] //= mesh.size(i)
+    return tuple(shape)
+
+
+def _serve_sharded_model(m: dict):
+    """A serve_sharded model's cut config (whisper-tiny whole), its check
+    config (``check_pattern``'s where given) and its depth cut."""
+    from repro_torch.configs import registry
+
+    full = registry.get_config(m["arch"])
+    cfg = _cut(m["arch"], m["pattern"])[1] if "pattern" in m else full
+    check = (_cut(m["arch"], m["check_pattern"])[1] if "check_pattern" in m
+             else cfg)
+    return full, cfg, check
+
+
+def _sharded_serve_rc(cfg, S: int):
+    """serve's run configuration for a prompt of S tokens; whisper's
+    ``RunConfig()`` (512 and 1024 attention blocks), as serve_whisper's:
+    a 4-token prompt's blocks would tile the 1500-frame encoder in 4s."""
+    from repro_torch.configs.base import RunConfig
+
+    return RunConfig() if cfg.is_encoder_decoder else _serve_rc(S)
+
+
+def serve_sharded_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of the serve_sharded phase (see ``phase_serve_sharded``),
+    on ``job["device"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+
+    spec = SERVE_SHARDED
+    dev = job["device"]
+    cuda = dev == "cuda"
+    meshes: dict = {}
+    out = {"rank": rank, "backend": dist.get_backend(), "models": {}}
+    for m in spec["models"]:
+        shape = tuple(m["mesh"])
+        if shape not in meshes:
+            meshes[shape] = mesh_lib.compat_make_mesh(shape,
+                                                      ("data", "model"))
+        mesh = meshes[shape]
+        out["mesh_device_type"] = mesh.device_type
+        full, cfg, check = _serve_sharded_model(m)
+        B, S = m.get("batch", spec["batch"]), m.get("prompt", spec["prompt"])
+        n = m.get("gen", spec["gen"])
+        rc = _sharded_serve_rc(cfg, S)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = M.Model(cfg, dtype=torch.bfloat16, device=dev, seed=0)
+        M.place_on_mesh(cfg, model, mesh)
+        pre = registry.input_specs(cfg, ShapeConfig("p", S, B, "prefill"),
+                                   mesh, rc)
+        dec = registry.input_specs(cfg, ShapeConfig("d", S + n, B, "decode"),
+                                   mesh, rc)
+        prompt = rules.distribute(serve.make_prompt(
+            cfg, B, S, 0, torch.device(dev)), mesh, pre["tokens"].placements)
+        frames = None
+        if cfg.is_encoder_decoder:
+            frames = rules.distribute(serve.make_frames(
+                cfg, B, 0, torch.device(dev)), mesh,
+                pre["enc_embeds"].placements)
+        if cuda:
+            torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        stats: dict = {}
+        ops.reset_launches()
+        with _CacheWatch(M, dec["cache"], mesh) as watch, \
+                torch.inference_mode():
+            toks = serve.greedy_decode(cfg, rc, model, prompt, n,
+                                       stats=stats, enc_embeds=frames)
+        launches = dict(ops.LAUNCHES)
+        cache, batch = watch.last
+
+        def one_step():
+            with rules.use_rules_mesh(mesh), torch.inference_mode():
+                M.decode_step(cfg, rc, model, cache, batch)
+
+        prof = _collective_share(torch, one_step)
+        info = {"mesh": list(shape), "batch": B, "prompt": S, "gen": n,
+                "build_s": build_s, "stats": stats,
+                "decode_tok_s": B * n / stats["decode_s"],
+                "launches": launches, "profiled_step": prof,
+                "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else None),
+                "tokens": rules.full(toks).cpu().tolist(),
+                "local_prompt": list(prompt.to_local().shape),
+                "cache_calls_checked": watch.calls,
+                "cache_bad": watch.bad[:4],
+                "cache_placements": {
+                    f"{seg}.{k}": [repr(p) for p in v.placements]
+                    for seg, leaves in dec["cache"].items()
+                    if seg != "index" for k, v in leaves.items()},
+                "reduced": {"num_layers": [full.num_layers,
+                                           cfg.num_layers]}}
+        del model, cache, batch, watch, prompt, frames, toks
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        info["check"] = _serve_sharded_check(torch, check, mesh, rank, m,
+                                             dev)
+        info["check_s"] = time.perf_counter() - t0
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        out["models"][m["arch"]] = info
+    return out
+
+
+def _serve_sharded_check(torch, cfg, mesh, rank: int, m: dict,
+                         dev: str) -> dict:
+    """``cfg`` in float32 at SERVE_SHARDED's check batch and prompt: the
+    prefill and ``check_gen`` decode steps teacher-forced on random tokens
+    (and frames) on the mesh, each call's gathered logits against the same
+    seeded model in one process on the card (rank 0), max abs error by
+    call; the scan's launches in the mesh's prefill; every cache leaf's
+    block against ``input_specs`` after each call."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules
+
+    spec = SERVE_SHARDED
+    B = spec["check_batch"]
+    S, n = m.get("check_prompt", spec["check_prompt"]), spec["check_gen"]
+    rc = _sharded_serve_rc(cfg, S)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + n), generator=gen,
+                         dtype=torch.int32, device=dev)
+    frames = (torch.randn((B, cfg.encoder_seq_len, cfg.d_model),
+                          generator=gen, device=dev)
+              if cfg.is_encoder_decoder else None)
+    pre = registry.input_specs(cfg, ShapeConfig("p", S, B, "prefill"), mesh,
+                               rc)
+    dec = registry.input_specs(cfg, ShapeConfig("d", S + n, B, "decode"),
+                               mesh, rc)
+
+    def run(model, place):
+        """The prefill and n steps; each call's logits, whole."""
+        out = []
+        enc = {}
+        if frames is not None:
+            enc["enc_out"] = M.encode(cfg, rc, model,
+                                      place(frames, pre["enc_embeds"]))
+        lg, cache = M.prefill(cfg, rc, model,
+                              {"tokens": place(toks[:, :S], pre["tokens"]),
+                               **enc}, cache_len=S + n)
+        out.append(rules.full(lg).float())
+        scans = ops.LAUNCHES["selective_scan"]
+        for t in range(n):
+            lg, cache = M.decode_step(
+                cfg, rc, model, cache,
+                {"tokens": place(toks[:, S + t: S + t + 1], dec["tokens"]),
+                 **enc})
+            out.append(rules.full(lg).float())
+        return out, scans
+
+    model = M.Model(cfg, dtype=torch.float32, device=dev, seed=0)
+    M.place_on_mesh(cfg, model, mesh)
+    ops.reset_launches()
+    with _CacheWatch(M, dec["cache"], mesh) as watch, \
+            rules.use_rules_mesh(mesh), torch.inference_mode():
+        got, scans = run(model, lambda t, leaf: rules.distribute(
+            t, mesh, leaf.placements))
+    info = {"layers": cfg.num_layers, "batch": B, "prompt": S, "gen": n,
+            "scan_launches_prefill": scans,
+            "cache_calls_checked": watch.calls, "cache_bad": watch.bad[:4]}
+    del model
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        one = M.Model(cfg, dtype=torch.float32, device=dev, seed=0)
+        with torch.inference_mode():
+            want, _ = run(one, lambda t, leaf: t)
+        info["max_abs_err"] = [float((a - b).abs().max())
+                               for a, b in zip(got, want)]
+        info["tolerance"] = MODEL_ATOL
+        del one
+    return info
+
+
+def phase_serve_sharded(torch) -> dict:
+    """Prefill and decode over a mesh of 4 ranks sharing the card
+    (SERVE_SHARDED): ``launch/mesh.py: run_ranks`` over ``backend_for``'s
+    route, each model placed by ``model.place_on_mesh`` and its prompt
+    (and frames) by ``registry.input_specs``, through
+    ``serve.greedy_decode``: tinyllama-1.1b, hymba-1.5b (25 heads over model
+    2: the context-parallel prefill; one global block and one 1024-slot
+    ring) and falcon-mamba-7b on (2, 2), phi3.5-moe on (1, 4), each at full
+    width cut to 2 blocks, and whisper-tiny at its published config on
+    (1, 4).  The greedy tokens equal on every rank; every cache leaf's
+    block placed by ``input_specs`` after the prefill and every step;
+    exactly one ``selective_scan`` launch a mamba or hybrid layer a
+    prefill on every rank, none elsewhere; in float32 at the check shape,
+    the gathered logits of the prefill and each step within MODEL_ATOL of
+    one process's (rank 0).  Prefill seconds, decode tokens/s, the
+    collectives' share of one profiled decode step by op and the peak
+    memory, by rank.  No rank process is left alive."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    spec = SERVE_SHARDED
+    rule = mesh_lib.backend_for(spec["world"], "cuda")
+    run = mesh_lib.run_ranks(serve_sharded_rank, spec["world"],
+                             ({"device": "cuda"},), device="cuda",
+                             timeout=600)
+    failures = []
+    left = [p.pid for p in torch.multiprocessing.active_children()]
+    if left:
+        failures.append(f"rank processes still alive: {left}")
+    if run.backend != rule:
+        failures.append(f"backend {run.backend}, rule says {rule}")
+    info: dict = {"phase": "serve_sharded", "device": nvidia_smi(),
+                  "backend": run.backend, "backend_rule": rule,
+                  "startup_s": run.startup_s,
+                  "mesh_device_type": run.results[0]["mesh_device_type"],
+                  "models": {}, "children_left": left}
+    for m in spec["models"]:
+        name = m["arch"]
+        _, cfg, check = _serve_sharded_model(m)
+        per = [r["models"][name] for r in run.results]
+        want = {"modmatmul": 0, "coded_grad": 0,
+                "selective_scan": _ssm_layers(cfg), "selective_scan_bwd": 0}
+        c0 = per[0]["check"]
+        model_info = {
+            "arch": name, "mesh": per[0]["mesh"], "batch": per[0]["batch"],
+            "prompt": per[0]["prompt"], "gen": per[0]["gen"],
+            "reduced": per[0]["reduced"],
+            "prefill_s_by_rank": [r["stats"]["prefill_s"] for r in per],
+            "encode_s_by_rank": [r["stats"].get("encode_s") for r in per],
+            "decode_s_by_rank": [r["stats"]["decode_s"] for r in per],
+            "decode_tok_s_by_rank": [r["decode_tok_s"] for r in per],
+            "collective_share_by_rank": [
+                r["profiled_step"]["collective_share"] for r in per],
+            "profiled_step_rank0": per[0]["profiled_step"],
+            "peak_gb_by_rank": [r["peak_gb"] for r in per],
+            "launches_by_rank": [r["launches"] for r in per],
+            "local_prompt": per[0]["local_prompt"],
+            "cache_placements": per[0]["cache_placements"],
+            "cache_calls_checked": per[0]["cache_calls_checked"],
+            "build_s_rank0": per[0]["build_s"],
+            "check_s_rank0": per[0]["check_s"],
+            "tokens_row0": per[0]["tokens"][0], "check": c0}
+        info["models"][name] = model_info
+        if any(r["tokens"] != per[0]["tokens"] for r in per):
+            failures.append(f"{name}: greedy tokens differ between ranks")
+        toks = per[0]["tokens"]
+        if not (len(toks) == per[0]["batch"]
+                and all(len(t) == per[0]["gen"] for t in toks)
+                and all(0 <= x < cfg.vocab_size for t in toks for x in t)):
+            failures.append(f"{name}: tokens out of shape or range")
+        if not all(r["stats"]["logits_finite"] for r in per):
+            failures.append(f"{name}: non-finite logits")
+        for rank, r in enumerate(per):
+            if r["launches"] != want:
+                failures.append(f"{name}: rank {rank} launches "
+                                f"{r['launches']}, expected {want}")
+            if r["check"]["scan_launches_prefill"] != _ssm_layers(check):
+                failures.append(f"{name}: check prefill scan launches "
+                                f"{r['check']['scan_launches_prefill']}")
+            if r["cache_bad"] or r["check"]["cache_bad"]:
+                failures.append(f"{name}: cache placement "
+                                f"{r['cache_bad'] or r['check']['cache_bad']}")
+            if r["cache_calls_checked"] != r["gen"] + 1 or (
+                    r["check"]["cache_calls_checked"]
+                    != spec["check_gen"] + 1):
+                failures.append(f"{name}: cache checked after "
+                                f"{r['cache_calls_checked']} calls")
+        if not all(e <= MODEL_ATOL for e in c0["max_abs_err"]):
+            failures.append(f"{name}: float32 logits against one process "
+                            f"{c0['max_abs_err']}")
+        emit({"phase": "serve_sharded", "model": name,
+              "device": info["device"], **model_info})
+    emit({k: v for k, v in info.items() if k != "models"})
+    if failures:
+        raise AssertionError("serve_sharded: " + "; ".join(failures))
+    # falcon-mamba's run, the scan kernel's launches on this path (rank 0)
+    info["launches"] = info["models"]["falcon-mamba-7b"]["launches_by_rank"][0]
     return info
 
 
@@ -4560,8 +4970,8 @@ def main(argv: list[str] | None = None) -> int:
 
     ran: dict[str, dict] = {}
     timings: list[dict] = []
-    # the staged collective backend (the ranks of shard and train_sharded)
-    # compiles while the kernels phases run
+    # the staged collective backend (the ranks of shard, train_sharded and
+    # serve_sharded) compiles while the kernels phases run
     wait_staged = (lambda: _join_staged(staged_build, staged_s))
     if "kernels" in phases:
         timings += run_phase("kernels", phase_kernels, torch, checks)
@@ -4605,6 +5015,7 @@ def main(argv: list[str] | None = None) -> int:
             ("train_lm", phase_train_lm, (torch, out_dir)),
             ("train_lm_ab16", phase_train_lm_ab16, (torch,)),
             ("train_sharded", phase_train_sharded, (torch, out_dir)),
+            ("serve_sharded", phase_serve_sharded, (torch,)),
             ("consistency_train", phase_consistency_train, (torch,)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
@@ -4617,7 +5028,7 @@ def main(argv: list[str] | None = None) -> int:
             ("alcc_socket", phase_alcc_socket, (torch, out_dir)),
             ("alcc_mlp", phase_alcc_mlp, (torch, out_dir))):
         if name in phases:
-            if name in ("shard", "train_sharded"):
+            if name in ("shard", "train_sharded", "serve_sharded"):
                 wait_staged()
             if name == "mpc_socket":
                 args_ = (*args_, ran.get("socket"))
@@ -4686,7 +5097,8 @@ def main(argv: list[str] | None = None) -> int:
                                  ("alcc_mlp", "alcc_mlp"),
                                  ("consistency_train", "consistency_train"),
                                  ("train_lm_ab16", "train_lm_ab16"),
-                                 ("train_sharded_per_rank", "train_sharded"))
+                                 ("train_sharded_per_rank", "train_sharded"),
+                                 ("serve_sharded_per_rank", "serve_sharded"))
                     if v in ran}})
             if "consistency_train" in ran:
                 kernels[-1]["launches_by_path"]["consistency_train_ab16"] = (

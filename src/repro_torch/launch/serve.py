@@ -31,6 +31,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import coded_linear as CL
 from repro_torch.models import model as M
+from repro_torch.parallel import rules
 
 
 def _sync(dev: torch.device) -> None:
@@ -45,12 +46,24 @@ def greedy_decode(cfg, rc, model, prompt, steps, coded=None, survivors=None,
 
     An encoder-decoder model takes its frame embeddings ``enc_embeds``
     (B, Se, d): the encoder runs once, and the prefill and every decode
-    step read its output.  With a ``stats`` dict, the device is
+    step read its output.  On a mesh (a model placed by
+    ``model.place_on_mesh``, the prompt and frames placed as
+    ``registry.input_specs`` says) the cache stays placed throughout,
+    and each step's token is the argmax of the gathered last-position
+    logits, the same on every rank; the tokens come back placed as the
+    prompt.  With a ``stats`` dict, the device is
     synchronised after the encoder, after the prefill and at the end, and
     ``encode_s`` (encoder-decoder models), ``prefill_s`` (the decoder's
     prefill) and ``decode_s`` (host clock) are recorded, with
     ``logits_finite``: whether every step's logits were finite.
     """
+    if rules.is_dtensor(prompt):
+        if coded is not None:
+            raise ValueError("the coded head is not served on a mesh")
+        if rules.rules_mesh() is None:
+            with rules.use_rules_mesh(prompt.device_mesh):
+                return greedy_decode(cfg, rc, model, prompt, steps,
+                                     stats=stats, enc_embeds=enc_embeds)
     B, S = prompt.shape
     enc: dict = {}
     t0 = time.perf_counter()
@@ -66,6 +79,7 @@ def greedy_decode(cfg, rc, model, prompt, steps, coded=None, survivors=None,
         _sync(prompt.device)
         t1 = time.perf_counter()
         stats["prefill_s"] = t1 - t0
+    logits = rules.full(logits)
     finite = torch.isfinite(logits).all()
     outs = []
     for _ in range(steps):
@@ -80,15 +94,26 @@ def greedy_decode(cfg, rc, model, prompt, steps, coded=None, survivors=None,
             tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         outs.append(tok)
         logits, cache, h = M.decode_step(cfg, rc, model, cache,
-                                         {"tokens": tok, **enc},
+                                         {"tokens": _like(tok, prompt),
+                                          **enc},
                                          return_hidden=True)
+        logits = rules.full(logits)
         finite &= torch.isfinite(logits).all()
-    toks = torch.cat(outs, dim=1)
+    toks = _like(torch.cat(outs, dim=1), prompt)
     if stats is not None:
         _sync(prompt.device)
         stats["decode_s"] = time.perf_counter() - t1
         stats["logits_finite"] = bool(finite)
     return toks
+
+
+def _like(tok: torch.Tensor, prompt: torch.Tensor) -> torch.Tensor:
+    """Tokens (B, n) laid out as the prompt: on a mesh its batch
+    placement, the tokens' ``input_specs`` spec (batch over the data axes
+    where it divides, the rest whole)."""
+    if not rules.is_dtensor(prompt):
+        return tok
+    return rules.distribute(tok, prompt.device_mesh, prompt.placements)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -21,6 +21,13 @@ heads replicate takes the kv heads of its own query heads.
 ``context_parallel_attention`` is the reference's sequence-sharded
 attention for head counts that do not divide the model axis: each
 ``model`` rank owns S/tp query rows and gathers k and v once.
+
+Decode on a mesh (``cached_decode_attention``) follows the cache's
+placement (``models/model.py: CACHE_LOGICAL``): where its sequence
+shards over ``model`` each rank writes the new token's slot if it owns it
+and scores its own slots, and the ranks combine one float32 split
+softmax over ``model``; otherwise every rank attends by heads as
+``decode_attention`` does on ``DTensor``s (``_heads_on_mesh``).
 """
 from __future__ import annotations
 
@@ -190,10 +197,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rank attends with its own batch rows and heads (``_heads_on_mesh``).
     """
     if rules.is_dtensor(q):
-        return _heads_on_mesh(q, k, v, causal=causal, window=window,
-                              q_block=q_block, kv_block=kv_block,
-                              softcap=softcap, compute_dtype=compute_dtype,
-                              row_offset=row_offset)
+        return _heads_on_mesh(
+            lambda ql, kl, vl: blockwise_attention(
+                ql, kl, vl, causal=causal, window=window, q_block=q_block,
+                kv_block=kv_block, softcap=softcap,
+                compute_dtype=compute_dtype, row_offset=row_offset),
+            q, k, v)
     in_dt = torch.bfloat16 if compute_dtype == "bf16" else torch.float32
     B, S, H, D = q.shape
     _, Sk, KH, _ = k.shape
@@ -269,8 +278,9 @@ def _on_heads(placement) -> bool:
     return placement.is_shard() and placement.dim == 2
 
 
-def _heads_on_mesh(q, k, v, **kw):
-    """``blockwise_attention`` on ``DTensor``s under ``local_map``: batch
+def _heads_on_mesh(attend, q, k, v):
+    """``attend(q, k, v)`` (``blockwise_attention`` or ``decode_attention``
+    on plain tensors) on ``DTensor``s under ``local_map``: batch
     over the data axes and heads over ``model`` where they divide (the
     rules' placements of ``heads[H]`` and ``heads[KH]``).  Where the query
     heads shard and the kv heads do not, each rank takes the kv heads of
@@ -300,7 +310,7 @@ def _heads_on_mesh(q, k, v, **kw):
             idx = (torch.arange(first, first + hl, device=ql.device)
                    // (H // KH))
             kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
-        return blockwise_attention(ql, kl, vl, **kw)
+        return attend(ql, kl, vl)
 
     return local_map(body, out_placements=list(qpl),
                      in_placements=(qpl, kvpl, kvpl),
@@ -358,8 +368,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, 1, H, D); k/v_cache: (B, Smax, KH, D); cache_len: the number of
     valid cache positions including the current token.  Scaled in float32,
-    with no rounding of q (unlike the prefill).
+    with no rounding of q (unlike the prefill).  On ``DTensor``s each rank
+    attends with its batch rows and heads (``_heads_on_mesh``).
     """
+    if rules.is_dtensor(q):
+        return _heads_on_mesh(lambda ql, kl, vl: decode_attention(
+            ql, kl, vl, cache_len, window=window), q, k_cache, v_cache)
     B, _, H, D = q.shape
     _, Smax, KH, _ = k_cache.shape
     G = H // KH
@@ -373,6 +387,89 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def cached_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, slot: int, cache_len: int
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """One decode step's attention: the new token's k, v (B, 1, KH, D)
+    written at ``slot`` of copies of the caches (B, size, KH, D), then q
+    (B, 1, H, D) attends to their first ``cache_len`` slots
+    (``decode_attention``).  Returns (out, k_cache', v_cache'); the given
+    caches are left unmodified.  On ``DTensor``s: ``_cached_on_mesh``."""
+    if rules.is_dtensor(k_cache):
+        return _cached_on_mesh(q, k, v, k_cache, v_cache, slot, cache_len)
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    k_cache[:, slot] = k[:, 0]
+    v_cache[:, slot] = v[:, 0]
+    return (decode_attention(q, k_cache, v_cache, cache_len), k_cache,
+            v_cache)
+
+
+def _cached_on_mesh(q, k, v, k_cache, v_cache, slot: int, cache_len: int):
+    """``cached_decode_attention`` on ``DTensor``s, one ``local_map`` body
+    laid out as the caches are (batch over the data axes; over ``model``
+    their sequence, their kv heads, or nothing).
+
+    Sequence-sharded: q, k and v are whole over ``model``; the rank that
+    owns ``slot`` writes it and the others pass their blocks through.
+    Each rank scores its own slots, masked by their global positions
+    against ``cache_len``, and the ranks combine one float32 softmax over
+    ``model``: the row max by an all-reduce, then the sums of exp(s - max)
+    and of its v-weighted slots by one all-reduce.  A rank whose slots all
+    lie past ``cache_len`` adds zeros (exp(-inf - max) = 0; the max is
+    finite, since slot 0 is always filled).  Otherwise every rank writes
+    the slot and attends with its heads (the caches' kv heads and their
+    query heads), or with all of them where the kv heads replicate."""
+    from torch.distributed import ReduceOp
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel import compat
+
+    mesh = k_cache.device_mesh
+    names = mesh.mesh_dim_names
+    mi = names.index("model") if "model" in names else None
+    cpl = tuple(k_cache.placements)
+    seq_split = mi is not None and cpl[mi].is_shard() and cpl[mi].dim == 1
+    # q (B, 1, H, D) and k, v (B, 1, KH, D) laid out as the caches, but
+    # whole along the sequence
+    qpl = tuple(Replicate() if p.is_shard() and p.dim == 1 else p
+                for p in cpl)
+    group = mesh.get_group(mi) if seq_split and mesh.size(mi) > 1 else None
+
+    def body(ql, kl, vl, kc, vc):
+        n = kc.shape[1]
+        first = mesh.get_local_rank(mi) * n if seq_split else 0
+        if first <= slot < first + n:
+            kc, vc = kc.clone(), vc.clone()
+            kc[:, slot - first] = kl[:, 0]
+            vc[:, slot - first] = vl[:, 0]
+        if not seq_split:
+            return decode_attention(ql, kc, vc, cache_len), kc, vc
+        B, _, H, D = ql.shape
+        KH = kc.shape[2]
+        qg = ql.reshape(B, KH, H // KH, D).float() * (D ** -0.5)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, kc.float())
+        pos = first + torch.arange(n, device=ql.device)
+        s = s.masked_fill(~(pos < cache_len), -torch.inf)
+        m = s.amax(-1)
+        if group is not None:
+            m = compat.all_reduce(m, group, ReduceOp.MAX)
+        p = torch.exp(s - m[..., None])
+        ol = torch.cat([torch.einsum("bhgk,bkhd->bhgd", p, vc.float()),
+                        p.sum(-1)[..., None]], -1)
+        if group is not None:
+            ol = compat.all_reduce(ol, group)
+        out = ol[..., :D] / ol[..., D:]
+        return out.reshape(B, 1, H, D).to(ql.dtype), kc, vc
+
+    return local_map(body, out_placements=(qpl, cpl, cpl),
+                     in_placements=(qpl, qpl, qpl, cpl, cpl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,11 @@ backward kernel run unchanged on the rank's channels; the projections
 between them are ``DTensor`` matmuls.
 
 Decode is the exact single-step recurrence with (conv window, ssm state)
-carried in the cache, in plain PyTorch as in the reference.
+carried in the cache, in plain PyTorch as in the reference.  On a mesh the
+conv window and the recurrence are ``local_map`` bodies on the rank's
+channels, the conv cache (B, cw-1, di) and the state (B, di, n) placed
+with ``inner`` over ``model``, and the projections between them are the
+prefill's ``DTensor`` products (``_ssm_params``).
 """
 from __future__ import annotations
 
@@ -177,24 +181,74 @@ def mamba_forward(cfg: ModelConfig, rc: RunConfig, p: Params, x: torch.Tensor
     return (y * layers.silu(z)) @ p["out_proj"]
 
 
+def _conv_step(x_in: torch.Tensor, conv: torch.Tensor, conv_w: torch.Tensor,
+               conv_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The conv window (B, cw-1, di) and one new input (B, 1, di) ->
+    (the post-conv activation (B, 1, di), the window shifted by one)."""
+    conv_buf = torch.cat([conv.to(x_in.dtype), x_in], dim=1)   # (B, cw, di)
+    xc = torch.einsum("bwi,wi->bi", conv_buf, conv_w)[:, None]
+    return layers.silu(xc + conv_b.to(xc.dtype)), conv_buf[:, 1:]
+
+
+def _step(xc, dt, Bm, Cm, a_log, d, h0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step of the recurrence from the state h0 (B, di, n): (y (B, 1,
+    di) float32, the new state)."""
+    dt, Bm, Cm = dt.float(), Bm.float(), Cm.float()
+    a, b = _discretize({"A_log": a_log}, dt, Bm, xc)   # (B, 1, di, n)
+    h = a[:, 0] * h0 + b[:, 0]                         # (B, di, n)
+    y = torch.einsum("bin,bn->bi", h, Cm[:, 0])[:, None]
+    return y + d.float() * xc.float(), h
+
+
 def mamba_decode_core(cfg: ModelConfig, p: Params, x_in: torch.Tensor,
                       cache: Mapping[str, torch.Tensor]
                       ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Single-token recurrence on the pre-conv branch input.
 
     x_in: (B, 1, di); cache: conv (B, cw-1, di), ssm (B, di, n).
-    Returns (y (B, 1, di), new cache).  O(1) in context length.
+    Returns (y (B, 1, di), new cache).  O(1) in context length.  On
+    ``DTensor``s: ``_decode_core_on_mesh``.
     """
-    conv_buf = torch.cat([cache["conv"].to(x_in.dtype), x_in],
-                         dim=1)                             # (B, cw, di)
-    xc = torch.einsum("bwi,wi->bi", conv_buf, p["conv_w"])[:, None]
-    xc = layers.silu(xc + p["conv_b"].to(xc.dtype))
-    dt, Bm, Cm = (t.float() for t in _ssm_params(p, xc))   # (B, 1, ...)
-    a, b = _discretize(p, dt, Bm, xc)            # (B, 1, di, n)
-    h = a[:, 0] * cache["ssm"] + b[:, 0]         # (B, di, n)
-    y = torch.einsum("bin,bn->bi", h, Cm[:, 0])[:, None]
-    y = y + p["D"].float() * xc.float()
-    return y.to(x_in.dtype), {"conv": conv_buf[:, 1:], "ssm": h}
+    if rules.is_dtensor(x_in):
+        return _decode_core_on_mesh(cfg, p, x_in, cache)
+    xc, conv = _conv_step(x_in, cache["conv"], p["conv_w"], p["conv_b"])
+    dt, Bm, Cm = _ssm_params(p, xc)
+    y, h = _step(xc, dt, Bm, Cm, p["A_log"], p["D"], cache["ssm"])
+    return y.to(x_in.dtype), {"conv": conv, "ssm": h}
+
+
+def _decode_core_on_mesh(cfg: ModelConfig, p: Params, x_in, cache):
+    """``mamba_decode_core`` on ``DTensor``s: ``inner`` over ``model`` and
+    batch over the data axes.  The conv step and the recurrence run on the
+    rank's channels; x_proj's product sums over them and is reduced once
+    over ``model`` (``_ssm_params``' constraint)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x_in.device_mesh
+    B, _, di = x_in.shape
+    n = cfg.ssm_state
+
+    def pl(shape, logical):
+        return rules.act_placements(mesh, shape, logical)
+
+    xpl = pl((B, 1, di), ("batch", None, "inner"))
+    cpl = pl(tuple(cache["conv"].shape), ("batch", None, "inner"))
+    hpl = pl((B, di, n), ("batch", "inner", None))
+    xc, conv = local_map(
+        _conv_step, out_placements=(xpl, cpl),
+        in_placements=(xpl, cpl, pl((cfg.conv_width, di), (None, "inner")),
+                       pl((di,), ("inner",))),
+        device_mesh=mesh, redistribute_inputs=True)(
+        x_in, cache["conv"], p["conv_w"], p["conv_b"])
+    dt, Bm, Cm = _ssm_params(p, xc)
+    bcpl = pl((B, 1, n), ("batch", None, None))
+    y, h = local_map(
+        _step, out_placements=(xpl, hpl),
+        in_placements=(xpl, xpl, bcpl, bcpl, pl((di, n), ("inner", None)),
+                       pl((di,), ("inner",)), hpl),
+        device_mesh=mesh, redistribute_inputs=True)(
+        xc, dt, Bm, Cm, p["A_log"], p["D"], cache["ssm"])
+    return y.to(x_in.dtype), {"conv": conv, "ssm": h}
 
 
 def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,

@@ -39,6 +39,17 @@ over a vocab sharded over ``model`` and the MoE layer (``moe.py``:
 encoder's frames as the tokens are, and a ``dec`` block's cross-attention
 with its heads over ``model`` where they divide it (never sequence-sharded,
 as in the reference).
+
+Serving runs on a mesh too.  ``init_cache(..., mesh=)`` places every
+cache leaf as ``configs/registry.input_specs`` does (``CACHE_LOGICAL``:
+the k/v sequence over ``model`` where it divides, else the kv heads; the
+mamba conv window and state by ``inner``; batch over the data axes).
+``prefill`` copies each rank's own slots out of the backbone's k and v,
+``decode_step`` writes the new token's slot on the rank that holds it and
+combines attention over ``model`` (``layers.cached_decode_attention``),
+and the mamba step, the MoE layer and the cross-attention step run on
+their ``DTensor`` paths; the cache stays placed from prefill to the last
+step.
 """
 from __future__ import annotations
 
@@ -57,6 +68,14 @@ from repro_torch.parallel import rules
 
 _ATTN = ("dense", "moe", "hybrid", "enc", "dec")  # kinds with self-attention
 _SSM = ("mamba", "hybrid")                        # kinds with a mamba mixer
+# the decode cache's logical axes (the reference's ``input_specs``): k and
+# v (count, B, size, KH, hd), conv (count, B, cw-1, di), ssm (count, B, di, n)
+CACHE_LOGICAL = {
+    "k": (None, "batch", "kv_seq", "kv_heads", None),
+    "v": (None, "batch", "kv_seq", "kv_heads", None),
+    "conv": (None, "batch", None, "inner"),
+    "ssm": (None, "batch", "inner", None),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +250,17 @@ def _window(cfg: ModelConfig, kind: str) -> int | None:
 
 def _conv_tail(x_in: torch.Tensor, cw: int) -> torch.Tensor:
     """The last cw-1 pre-conv inputs (zeros before the sequence start), as
-    a copy, so the cache does not keep the whole projection alive."""
+    a copy, so the cache does not keep the whole projection alive.  On a
+    mesh each rank takes its own channels (the conv cache's placement)."""
+    if rules.is_dtensor(x_in):
+        from torch.distributed.tensor.experimental import local_map
+
+        xpl = rules.act_placements(x_in.device_mesh, x_in.shape,
+                                   ("batch", None, "inner"))
+        return local_map(lambda xl: _conv_tail(xl, cw),
+                         out_placements=list(xpl), in_placements=(xpl,),
+                         device_mesh=x_in.device_mesh,
+                         redistribute_inputs=True)(x_in)
     S = x_in.shape[1]
     if S < cw - 1:
         x_in = F.pad(x_in, (0, 0, cw - 1 - S, 0))
@@ -347,13 +376,17 @@ def _cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor
 
 
 def _cross_attn(cfg: ModelConfig, rc: RunConfig, block: Block,
-                x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, enc_out: torch.Tensor,
+                step: bool = False) -> torch.Tensor:
     """A ``dec`` block's cross-attention on norm_x(x): q from the decoder,
     k and v from ``enc_out``, non-causal, with no rope, bias or softcap,
     at the default float32 compute dtype whatever ``rc.attn_dtype`` says
-    (as in the reference).  On a mesh each rank attends with its batch rows
-    and its heads (``layers.blockwise_attention``'s ``DTensor`` path, the
-    S query rows against all Se frames), never sequence-sharded."""
+    (as in the reference).  ``step``: one decode token, k and v recomputed
+    from ``enc_out`` every step, as in the reference, and single-position
+    attention over all Se frames (``layers.decode_attention``).  On a mesh
+    each rank attends with its batch rows and its heads (the attention's
+    ``DTensor`` path, the query rows against all Se frames), never
+    sequence-sharded."""
     B, S, _ = x.shape
     h = cfg.num_heads
     p = block.xattn
@@ -362,8 +395,12 @@ def _cross_attn(cfg: ModelConfig, rc: RunConfig, block: Block,
                         ("batch", "seq", f"heads[{h}]"))
     q = q.reshape(B, S, h, cfg.head_dim)
     k, v = _cross_kv(cfg, p, enc_out)
-    xo = layers.blockwise_attention(q, k, v, causal=False,
-                                    q_block=rc.q_block, kv_block=rc.kv_block)
+    if step:
+        xo = layers.decode_attention(q, k, v, enc_out.shape[1])
+    else:
+        xo = layers.blockwise_attention(q, k, v, causal=False,
+                                        q_block=rc.q_block,
+                                        kv_block=rc.kv_block)
     return xo.reshape(B, S, -1) @ rules.gathered(p["wo"])
 
 
@@ -376,9 +413,39 @@ def _ffn(cfg: ModelConfig, rc: RunConfig, base: str, block: Block,
     return layers.mlp_forward(cfg, block.mlp, h2)
 
 
+def _shifted(placements: tuple, by: int) -> tuple:
+    from torch.distributed.tensor import Shard
+
+    return tuple(Shard(p.dim + by) if p.is_shard() else p
+                 for p in placements)
+
+
 def _stack(entries: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
-    """Per-layer cache entries -> one (count, ...) tensor per name."""
-    return {k: torch.stack([e[k] for e in entries]) for k in entries[0]}
+    """Per-layer cache entries -> one (count, ...) tensor per name.  Each
+    name's ``DTensor``s (one placement for all the layers) stack on their
+    ranks' blocks: the layer dim is whole on every rank."""
+    out = {}
+    for k in entries[0]:
+        ts = [e[k] for e in entries]
+        if not rules.is_dtensor(ts[0]):
+            out[k] = torch.stack(ts)
+            continue
+        from torch.distributed.tensor import DTensor
+
+        out[k] = DTensor.from_local(
+            torch.stack([t.to_local() for t in ts]), ts[0].device_mesh,
+            _shifted(ts[0].placements, 1), run_check=False)
+    return out
+
+
+def _layer(t: torch.Tensor, li: int) -> torch.Tensor:
+    """Layer ``li`` of a stacked cache leaf (``_stack``'s inverse)."""
+    if not rules.is_dtensor(t):
+        return t[li]
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t.to_local()[li], t.device_mesh,
+                              _shifted(t.placements, -1), run_check=False)
 
 
 def embed_input(cfg: ModelConfig, model: Model, batch: dict) -> torch.Tensor:
@@ -612,59 +679,122 @@ def prefill(cfg: ModelConfig, rc: RunConfig, model: Model, batch: dict,
     """
     h, caches = backbone(cfg, rc, model, batch, collect_cache=True)
     S = h.shape[1]
-    logits = lm_head(cfg, model, h[:, -1:])
-    cache = init_cache(cfg, rc, h.shape[0], cache_len, dtype=h.dtype,
-                       device=h.device)
-    for si in range(len(cfg.block_pattern)):
-        src, dst = caches[f"seg{si}"], cache[f"seg{si}"]
-        if "k" in dst:
-            size = dst["k"].shape[2]
+    last = _last_position(h)
+    logits = lm_head(cfg, model, last)
+    cache: dict[str, Any] = {"index": S}
+    for si, (kind, _) in enumerate(cfg.block_pattern):
+        src, dst = caches[f"seg{si}"], {}
+        if "k" in src:
+            size = _cache_size(cfg, kind, cache_len)
             for name in ("k", "v"):
-                if S >= size:
-                    # ring alignment: token t lives at slot t % size
-                    dst[name] = torch.roll(src[name][:, :, S - size:],
-                                           S % size, dims=2)
-                else:
-                    dst[name][:, :, :S] = src[name]
-        if "ssm" in dst:
+                dst[name] = _cache_slots(src[name], S, size, name)
+        if "ssm" in src:
             dst["ssm"] = src["ssm"].float()
             dst["conv"] = src["conv"]
-    cache["index"] = S
+        cache[f"seg{si}"] = dst
     if return_hidden:
-        return logits, cache, h[:, -1:]
+        return logits, cache, last
     return logits, cache
+
+
+def _last_position(h: torch.Tensor) -> torch.Tensor:
+    """h[:, -1:] (B, 1, D); on a mesh from each rank's rows (the residual
+    stream's sequence is whole on every rank)."""
+    if not rules.is_dtensor(h):
+        return h[:, -1:]
+    from torch.distributed.tensor import DTensor
+
+    if any(p.is_shard() and p.dim == 1 for p in h.placements):
+        raise ValueError(f"the sequence of h is sharded ({h.placements})")
+    return DTensor.from_local(h.to_local()[:, -1:], h.device_mesh,
+                              h.placements, run_check=False)
+
+
+def _cache_slots(src: torch.Tensor, S: int, size: int, name: str
+                 ) -> torch.Tensor:
+    """The decode cache's ``size`` slots of one k or v leaf from the
+    prefill's (count, B, S, KH, hd): slot j holds token j for j < S (zeros
+    after), and in a ring (S >= size) the token t with t = j mod size,
+    S - size <= t < S.  On a mesh a ``local_map`` body gives each rank its
+    own slots, placed by ``CACHE_LOGICAL`` (the source gathered along
+    whatever the cache does not shard)."""
+    def slots(t: torch.Tensor, first: int, n: int) -> torch.Tensor:
+        j = first + torch.arange(n, device=t.device)
+        if S >= size:
+            return t.index_select(2, S - size + (j - S) % size)
+        got = t.index_select(2, j.clamp(max=S - 1))
+        return torch.where((j < S)[:, None, None], got, got.new_zeros(()))
+
+    if not rules.is_dtensor(src):
+        return slots(src, 0, size)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = src.device_mesh
+    shape = (*src.shape[:2], size, *src.shape[3:])
+    dpl = rules.act_placements(mesh, shape, CACHE_LOGICAL[name])
+    spl = tuple(Replicate() if p.is_shard() and p.dim == 2 else p
+                for p in dpl)
+    seq = [i for i, p in enumerate(dpl) if p.is_shard() and p.dim == 2]
+
+    def body(t):
+        n = size
+        first = 0
+        for i in seq:
+            n //= mesh.size(i)
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        return slots(t, first * n, n)
+
+    return local_map(body, out_placements=list(dpl), in_placements=(spl,),
+                     device_mesh=mesh, redistribute_inputs=True)(src)
 
 
 # ---------------------------------------------------------------------------
 # decode path
 # ---------------------------------------------------------------------------
 
+def _cache_size(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    """A segment's k/v slots: the window for sliding-window attention (a
+    ring buffer), ``max_len`` for full attention."""
+    window = _window(cfg, kind)
+    return min(max_len, window) if window else max_len
+
+
 def init_cache(cfg: ModelConfig, rc: RunConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str | None = None) -> dict[str, Any]:
+               device: torch.device | str | None = None,
+               mesh=None) -> dict[str, Any]:
     """Decode cache: attention segments get k/v (count, B, size, KH, hd) in
     ``dtype``, with size the window for sliding-window segments (a ring
     buffer) and ``max_len`` for full attention; mamba state is O(1): conv
     (count, B, cw-1, di) in ``dtype`` and ssm (count, B, di, n) float32.
-    ``index`` is the number of tokens seen.  On the card unless ``device``
-    says otherwise (``device.resolve``)."""
+    ``index`` is the number of tokens seen (a Python int).  On the card
+    unless ``device`` says otherwise (``device.resolve``; ``meta`` gives
+    the shapes alone).  On ``mesh`` every leaf is a ``DTensor`` placed by
+    ``CACHE_LOGICAL`` (``configs/registry.input_specs``' placements),
+    each rank allocating its own block."""
     device = _device.resolve(device)
     cache: dict[str, Any] = {"index": 0}
     kh, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(shape, dt, name):
+        if mesh is None:
+            return torch.zeros(shape, dtype=dt, device=device)
+        return rules.zeros(shape, dt, mesh, rules.act_placements(
+            mesh, shape, CACHE_LOGICAL[name]), device)
+
     for si, (kind, count) in enumerate(cfg.block_pattern):
         base = kind.replace("_global", "")
         seg: dict[str, torch.Tensor] = {}
         if base in _ATTN:
-            window = _window(cfg, kind)
-            size = min(max_len, window) if window else max_len
+            size = _cache_size(cfg, kind, max_len)
             for name in ("k", "v"):
-                seg[name] = torch.zeros((count, batch, size, kh, hd),
-                                        dtype=dtype, device=device)
+                seg[name] = zeros((count, batch, size, kh, hd), dtype, name)
         if base in _SSM:
-            seg["conv"] = torch.zeros((count, batch, cfg.conv_width - 1,
-                                       cfg.d_inner), dtype=dtype, device=device)
-            seg["ssm"] = torch.zeros((count, batch, cfg.d_inner, cfg.ssm_state),
-                                     dtype=torch.float32, device=device)
+            seg["conv"] = zeros((count, batch, cfg.conv_width - 1,
+                                 cfg.d_inner), dtype, "conv")
+            seg["ssm"] = zeros((count, batch, cfg.d_inner, cfg.ssm_state),
+                               torch.float32, "ssm")
         cache[f"seg{si}"] = seg
     return cache
 
@@ -674,16 +804,32 @@ def _decode_attn(cfg: ModelConfig, p, x: torch.Tensor,
                  window: int | None, positions: torch.Tensor):
     """One layer's cached attention at decode time (a ring buffer for a
     sliding window: the buffer is the window, so the attention itself is
-    called without one).  The given k/v are left unmodified."""
+    called without one).  The given k/v are left unmodified.  On a mesh
+    the output comes back by its query heads, as ``wo``'s rows are."""
     B = x.shape[0]
     q, k, v = layers.attn_qkv(cfg, p, x, positions)
-    kc, vc = cache_layer["k"].clone(), cache_layer["v"].clone()
-    size = kc.shape[1]
+    size = cache_layer["k"].shape[1]
     slot = index % size if window else index
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
-    out = layers.decode_attention(q, kc, vc, min(index + 1, size), window=None)
-    return out.reshape(B, 1, -1) @ p["wo"], {"k": kc, "v": vc}
+    out, kc, vc = layers.cached_decode_attention(
+        q, k, v, cache_layer["k"], cache_layer["v"], slot,
+        min(index + 1, size))
+    out = rules.constrain(out, ("batch", "seq", f"heads[{cfg.num_heads}]",
+                                None))
+    return (out.reshape(B, 1, -1) @ rules.gathered(p["wo"]),
+            {"k": kc, "v": vc})
+
+
+def _decode_positions(x: torch.Tensor, index: int) -> torch.Tensor:
+    """Rope positions (B, 1) of the token at ``index``, laid out as the
+    tokens on a mesh."""
+    B = x.shape[0]
+    pos = torch.full((B, 1), index, dtype=torch.int32,
+                     device=rules.local(x).device)
+    if not rules.is_dtensor(x):
+        return pos
+    mesh = x.device_mesh
+    return rules.distribute(pos, mesh, rules.act_placements(
+        mesh, (B, 1), ("batch", "seq")))
 
 
 def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
@@ -692,13 +838,12 @@ def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
     """One block's single-token step at position ``index``; a ``dec``
     block's cross-attention reads ``enc_out`` (B, Se, d), its k and v
     recomputed from it.  Returns (x, new cache entry); ``cache_layer`` is
-    left unmodified."""
+    left unmodified.  Under a rules mesh the residual stream is placed
+    as ("batch", "seq", None) after each half, as in ``block_forward``."""
     base = kind.replace("_global", "")
     new_cache: dict[str, torch.Tensor] = {}
     if base in _ATTN:
-        B = x.shape[0]
-        positions = torch.full((B, 1), index, dtype=torch.int32,
-                               device=x.device)
+        positions = _decode_positions(x, index)
         hnorm = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
         attn_out, kv = _decode_attn(cfg, block.attn, hnorm, cache_layer,
                                     index, _window(cfg, kind), positions)
@@ -709,41 +854,33 @@ def decode_block(cfg: ModelConfig, rc: RunConfig, kind: str, block: Block,
                                            new_cache)
         else:
             x = x + attn_out
+        x = rules.constrain(x, ("batch", "seq", None))
         if base == "dec":
-            x = x + _cross_attn_step(cfg, block, x, enc_out)
+            x = rules.constrain(
+                x + _cross_attn(cfg, rc, block, x, enc_out, step=True),
+                ("batch", "seq", None))
         x = x + _ffn(cfg, rc, base, block, x)
     elif base == "mamba":
         hnorm = layers.rmsnorm(x, block.norm1, cfg.norm_eps)
         x = x + _mamba_step(cfg, block.mamba, hnorm, cache_layer, new_cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    return x, new_cache
-
-
-def _cross_attn_step(cfg: ModelConfig, block: Block, x: torch.Tensor,
-                     enc_out: torch.Tensor) -> torch.Tensor:
-    """A ``dec`` block's cross-attention for one token: k and v recomputed
-    from ``enc_out`` every step, as in the reference, then single-position
-    attention over all Se frames."""
-    B = x.shape[0]
-    p = block.xattn
-    hx = layers.rmsnorm(x, block.norm_x, cfg.norm_eps)
-    q = (hx @ p["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-    k, v = _cross_kv(cfg, p, enc_out)
-    xo = layers.decode_attention(q, k, v, enc_out.shape[1])
-    return xo.reshape(B, 1, -1) @ p["wo"]
+    return rules.constrain(x, ("batch", "seq", None)), new_cache
 
 
 def _mamba_step(cfg: ModelConfig, p, h: torch.Tensor,
                 cache_layer: dict[str, torch.Tensor],
                 new_cache: dict[str, torch.Tensor]) -> torch.Tensor:
     """The mamba mixer's single-token step on the normed input h; puts the
-    new conv window and state into ``new_cache``."""
-    x_in, z = (h @ p["in_proj"]).chunk(2, dim=-1)
+    new conv window and state into ``new_cache``.  On a mesh the
+    projection is gathered before the split, as in ``_mamba_branch``."""
+    xz = rules.constrain(h @ rules.gathered(p["in_proj"]),
+                         ("batch", "seq", None))
+    x_in, z = xz.chunk(2, dim=-1)
     ym, mcache = mamba.mamba_decode_core(
         cfg, p, x_in, {"conv": cache_layer["conv"], "ssm": cache_layer["ssm"]})
     new_cache.update(mcache)
-    return (ym * layers.silu(z)) @ p["out_proj"]
+    return (ym * layers.silu(z)) @ rules.gathered(p["out_proj"])
 
 
 def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
@@ -755,7 +892,10 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
     (B, 1, D), mirroring ``prefill``.  The given cache is not modified:
     the new one is built whole, so a step copies every layer's cache
     (each attention layer's k/v twice: the slot write's copy, then the
-    stack).
+    stack).  On a mesh (a placed model, the tokens and ``enc_out`` placed
+    as ``registry.input_specs`` says, under ``rules.use_rules_mesh``) the
+    cache keeps its placement, and a sequence-sharded layer copies only
+    the slot owner's block for the write.
     """
     x = embed_input(cfg, model, batch)
     index = cache["index"]
@@ -767,7 +907,8 @@ def decode_step(cfg: ModelConfig, rc: RunConfig, model: Model, cache: dict,
         entries = []
         for li, block in enumerate(seg):
             x, nc = decode_block(cfg, rc, kind, block, x,
-                                 {k: v[li] for k, v in seg_cache.items()},
+                                 {k: _layer(v, li)
+                                  for k, v in seg_cache.items()},
                                  index, enc_out)
             entries.append(nc)
         new_cache[f"seg{si}"] = _stack(entries)

@@ -61,7 +61,9 @@ class _Axes:
         self.shape = dict(zip(self.axis_names, mesh.mesh.shape))
 
 
-def _named(mesh):
+def named(mesh):
+    """``mesh`` as the policy reads it: ``axis_names`` and a ``shape``
+    dict (a ``DeviceMesh`` wrapped, any other mesh itself)."""
     return _Axes(mesh) if hasattr(mesh, "mesh_dim_names") else mesh
 
 
@@ -72,7 +74,7 @@ def _axes_size(mesh, axes: tuple[str, ...]) -> int:
 def spec_for(mesh, shape: tuple[int, ...], logical: tuple[str | None, ...],
              seq_parallel: bool = False) -> tuple:
     """The spec of one array, applying divisible-or-replicate."""
-    mesh = _named(mesh)
+    mesh = named(mesh)
     rules = logical_rules(mesh, seq_parallel)
     used: set[str] = set()
     parts: list = []
@@ -105,7 +107,7 @@ def shard_dims(mesh, spec: tuple) -> tuple[int | None, ...]:
     its axis and so splits over it, or None where no dim names it.  Two
     axes on one dim split it in mesh-dim order, as a ``NamedSharding``
     splits it major to minor."""
-    names = _named(mesh).axis_names
+    names = named(mesh).axis_names
     out: list[int | None] = [None] * len(names)
     for d, entry in enumerate(spec):
         for axis in (() if entry is None else
@@ -244,6 +246,27 @@ def _block(full, mesh, dims: tuple[int | None, ...]):
             b = x.shape[d] // n
             x = x.narrow(d, r * b, b)
     return x
+
+
+def zeros(shape: tuple[int, ...], dtype, mesh, placements: tuple,
+          device=None):
+    """A ``DTensor`` of zeros of global ``shape`` on ``mesh`` laid out as
+    ``placements``: each rank allocates its own block only (on the mesh's
+    device type unless ``device`` says otherwise)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            n = mesh.size(i)
+            if local[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split into {n} blocks")
+            local[p.dim] //= n
+    dev = mesh.device_type if device is None else device
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=dev),
+                              mesh, placements, run_check=False)
 
 
 def distribute(full, mesh, placements: tuple):
