@@ -238,6 +238,18 @@ iterating on a kernel); such a partial run prints no ok line.
             the bf16 a/b mode: every leaf within 2^-7 of its largest |g|
             and within a quarter of the float32 mode's RMS distance, with
             the CPU gradient's own spread under one ulp of float32 noise
+  dryrun    the production dry run (``repro_torch.launch.dryrun``), three
+            cells on the 16x16 mesh of a fake world of 256 ranks, each in
+            its own process, all three at once: tinyllama-1.1b train_4k,
+            falcon-mamba-7b prefill_32k (the scan through its op's fake)
+            and hymba-1.5b decode_32k, each ``ok`` with its roofline
+            terms; meanwhile the cross-check: one train step of hymba-1.5b
+            at full width cut to 4 layers, batch 4 x 2048 (train_lm's),
+            counted by ``launch/hlo_analysis.py`` on the card and on
+            ``abstract_params`` (meta): flops and scan ops equal, the scan
+            ops as many as ``kernels.LAUNCHES`` counts on the card, bytes
+            within 1%, the op counts beside each other, and MemTracker's
+            peak on meta within 0.5-1.5x of ``torch.cuda.max_memory_allocated``
   cluster   ``repro_torch.launch.cpml_cluster`` in process on the card:
             Case 1 for 25 rounds under lognormal latencies with ``--pipeline
             off`` and ``full``, and N=8, K=2, T=1 at Case 1's m and d for
@@ -566,7 +578,7 @@ PHASES = ("kernels", "train", "train_c33", "shard", "teacher", "serve", "profile
           "serve_moe", "serve_arctic", "consistency_moe", "profile_moe",
           "serve_whisper", "consistency_whisper", "train_lm",
           "train_lm_ab16", "train_sharded", "serve_sharded",
-          "consistency_train", "cluster",
+          "consistency_train", "dryrun", "cluster",
           "socket", "mpc",
           "mpc_socket", "resilient", "predict", "predict_socket", "alcc",
           "alcc_socket", "alcc_mlp")
@@ -3604,6 +3616,167 @@ def phase_serve_sharded(torch) -> dict:
     return info
 
 
+# the dryrun phase's cells, each through the CLI in its own process, on
+# the 16x16 mesh: a train, a prefill (a mamba arch: the scan's fake) and a
+# decode cell; their traces take 3-40 s each on one host core
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"),
+                ("falcon-mamba-7b", "prefill_32k"),
+                ("hymba-1.5b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 300
+# the cross-check's bytes on the card against meta, and MemTracker's peak
+# on meta against the card's allocator peak
+DRYRUN_BYTES_REL = 0.01
+DRYRUN_PEAK_RANGE = (0.5, 1.5)
+
+
+def dryrun_cross_check(torch) -> dict:
+    """One train step of train_lm's hymba (``TRAIN_LM[0]``: full width, 4
+    layers, batch 4 x 2048, ``train.train_step_fn``), counted by
+    ``hlo_analysis.Counter`` on the card (seed 0, the loader's tokens) and
+    on ``abstract_params`` (meta, zeros for tokens), with MemTracker on
+    the meta run.  Holds flops and the scan ops equal, the scan ops to the
+    card's kernel launches, bytes within ``DRYRUN_BYTES_REL`` and the
+    predicted peak within ``DRYRUN_PEAK_RANGE`` of the card's."""
+    from repro_torch.data.loader import LMBatchLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis, train
+    from repro_torch.launch.dryrun import LocalMemTracker
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt
+
+    spec = TRAIN_LM[0]
+    _, cfg = _cut(spec["arch"], spec["pattern"])
+    B, S = spec["batch"], spec["seq"]
+    rc = train.run_config(S, B)
+    ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=10)
+    runs = {}
+    for dev in ("cuda", "meta"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = (M.Model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+                 if dev == "cuda" else M.abstract_params(cfg))
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        state = opt.init_state(ocfg, params)
+        if dev == "cuda":
+            with LMBatchLoader("cuda", B, S, cfg.vocab_size) as loader:
+                batch = next(loader)
+        else:
+            batch = {k: torch.zeros((B, S), dtype=torch.int64, device="meta")
+                     for k in ("tokens", "labels")}
+        step = train.train_step_fn(cfg, rc, ocfg, model)
+        counter = hlo_analysis.Counter()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            with counter:
+                step(params, state, batch)
+            torch.cuda.synchronize()
+            run = {"launches": dict(ops.LAUNCHES),
+                   "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        else:
+            tracker = LocalMemTracker()
+            tracker.track_external(model, *state["mu"].values(),
+                                   *state["nu"].values(), state["step"],
+                                   *batch.values())
+            with tracker, counter:
+                step(params, state, batch)
+            run = {"peak_bytes": sum(
+                snap["Total"] for snap in
+                tracker.get_tracker_snapshot("peak").values())}
+        run.update(seconds=time.perf_counter() - t0, **counter.summary())
+        runs[dev] = run
+        del model, params, state, batch, step, counter
+    card, meta = runs["cuda"], runs["meta"]
+    scan_ops = {dev: {k: r["op_counts"].get(f"repro_torch.{k}", 0)
+                      for k in ("selective_scan", "selective_scan_bwd")}
+                for dev, r in runs.items()}
+    names = set(card["op_counts"]) | set(meta["op_counts"])
+    counts = {k: (card["op_counts"].get(k, 0), meta["op_counts"].get(k, 0))
+              for k in names}
+    differ = {k: v for k, v in counts.items() if v[0] != v[1]}
+    info = {
+        "arch": cfg.name, "layers": cfg.num_layers, "batch": B, "seq": S,
+        "flops": {"cuda": card["flops"], "meta": meta["flops"]},
+        "bytes": {"cuda": card["bytes"], "meta": meta["bytes"]},
+        "bytes_rel_diff": abs(card["bytes"] - meta["bytes"]) / card["bytes"],
+        "scan_ops": scan_ops, "launches": card["launches"],
+        "ops_dispatched": {dev: sum(r["op_counts"].values())
+                           for dev, r in runs.items()},
+        "op_counts_cuda_meta": dict(sorted(
+            counts.items(), key=lambda kv: -kv[1][0])[:25]),
+        "op_counts_differ": differ,
+        "memtracker_peak_meta_bytes": meta["peak_bytes"],
+        "max_memory_allocated_bytes": card["peak_bytes"],
+        "peak_ratio": meta["peak_bytes"] / card["peak_bytes"],
+        "seconds": {dev: r["seconds"] for dev, r in runs.items()}}
+    emit({"phase": "dryrun", "cross_check": info})
+    if card["flops"] != meta["flops"] or scan_ops["cuda"] != scan_ops["meta"]:
+        raise AssertionError(f"dryrun cross-check: flops {info['flops']}, "
+                             f"scan ops {scan_ops}")
+    want = {k: card["launches"][k] for k in scan_ops["cuda"]}
+    if scan_ops["cuda"] != want or not all(want.values()):
+        raise AssertionError(f"dryrun cross-check: scan ops {scan_ops['cuda']}"
+                             f" against launches {card['launches']}")
+    if info["bytes_rel_diff"] > DRYRUN_BYTES_REL:
+        raise AssertionError(f"dryrun cross-check: bytes {info['bytes']} "
+                             f"differ by {info['bytes_rel_diff']:.4f}; "
+                             f"ops {differ}")
+    lo, hi = DRYRUN_PEAK_RANGE
+    if not lo <= info["peak_ratio"] <= hi:
+        raise AssertionError(f"dryrun cross-check: MemTracker's peak "
+                             f"{meta['peak_bytes']} against the card's "
+                             f"{card['peak_bytes']}")
+    return info
+
+
+def phase_dryrun(torch, out_dir: Path) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each of ``DRYRUN_CELLS``
+    in its own process, all at once, each ending ``ok``; the cross-check
+    (``dryrun_cross_check``) runs here meanwhile."""
+    out = out_dir / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    procs = []
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            log = open(out / f"{arch}__{shape}.log", "w")
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape, "--out", str(out)]
+            procs.append((arch, shape, argv, log, subprocess.Popen(
+                argv, env=env, cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT)))
+        info = {"phase": "dryrun", "cross_check": dryrun_cross_check(torch),
+                "cells": {}}
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        for arch, shape, argv, log, p in procs:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            cell = json.loads((out / f"dryrun_{arch}__{shape}__16x16.json")
+                              .read_text())
+            keep = {k: cell.get(k) for k in (
+                "status", "chips", "roofline_terms_s", "dominant",
+                "step_time_bound_s", "useful_ratio", "memory", "fits",
+                "hlo_flops_per_device", "collective_bytes_per_device",
+                "ops_dispatched", "trace_s", "analyze_s", "error")}
+            info["cells"][f"{arch}__{shape}"] = keep
+            emit({"phase": "dryrun", "arch": arch, "shape": shape,
+                  "exit": rc, **keep})
+            if rc != 0 or cell["status"] != "ok":
+                raise AssertionError(f"dryrun {' '.join(argv[2:])} exited "
+                                     f"{rc}: {cell.get('error')}")
+    finally:
+        for *_, log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            log.close()
+    info["launches"] = info["cross_check"]["launches"]
+    return info
+
+
 def phase_consistency_train(torch) -> dict:
     """hymba at full width cut to 2 layers, float32, batch 2 x 256 tokens:
     ``loss_fn`` and its gradients on the card (the scan kernels; launches
@@ -5017,6 +5190,7 @@ def main(argv: list[str] | None = None) -> int:
             ("train_sharded", phase_train_sharded, (torch, out_dir)),
             ("serve_sharded", phase_serve_sharded, (torch,)),
             ("consistency_train", phase_consistency_train, (torch,)),
+            ("dryrun", phase_dryrun, (torch, out_dir)),
             ("cluster", phase_cluster, (torch, out_dir)),
             ("socket", phase_socket, (torch, out_dir)),
             ("mpc", phase_mpc, (torch, out_dir)),
@@ -5098,7 +5272,8 @@ def main(argv: list[str] | None = None) -> int:
                                  ("consistency_train", "consistency_train"),
                                  ("train_lm_ab16", "train_lm_ab16"),
                                  ("train_sharded_per_rank", "train_sharded"),
-                                 ("serve_sharded_per_rank", "serve_sharded"))
+                                 ("serve_sharded_per_rank", "serve_sharded"),
+                                 ("dryrun_cross_check", "dryrun"))
                     if v in ran}})
             if "consistency_train" in ran:
                 kernels[-1]["launches_by_path"]["consistency_train_ab16"] = (

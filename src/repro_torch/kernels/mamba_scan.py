@@ -9,6 +9,17 @@ scan (``RunConfig.ssm_dtype``).  ``selective_scan_bwd`` is the port's own,
 in both modes: the reference trains through its plain jnp scan.  Both take
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
 versions.
+
+Each is also a dispatcher op, ``torch.ops.repro_torch.selective_scan`` and
+``torch.ops.repro_torch.selective_scan_bwd`` (``scan_op``, ``scan_bwd_op``,
+each with a fake), so that the scan is one op to whatever watches the
+dispatcher (``launch/hlo_analysis.py``, ``torch.utils.flop_counter``).
+The dispatcher picks by the tensors' device: CUDA tensors run the
+wrapper, which launches the kernel as above; meta and fake tensors run
+the op's fake, which only gives the outputs' shapes and dtypes (the dry
+run, ``launch/dryrun.py``); a CPU tensor has no kernel there
+(``kernels/ops.py`` never sends one).  Each op has a flop formula
+(``register_flop_formula``).
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ import dataclasses
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import kernels
 from repro_torch.kernels import build
@@ -364,14 +376,111 @@ def run_bwd(plan_chunk: int | None, x: torch.Tensor, dt: torch.Tensor,
             buf["da_part"].sum((0, 1))[:, :n], buf["dd_part"].sum((0, 1)), dh0)
 
 
+# ---------------------------------------------------------------------------
+# dispatcher ops
+# ---------------------------------------------------------------------------
+
+# Defined with ``torch.library.define`` and ``impl``: ``custom_op`` runs a
+# kernel through ``torch._disable_dynamo``, whose first call imports
+# ``torch._dynamo``, seconds in every process that runs the scan.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("selective_scan(Tensor x, Tensor dt, Tensor bm, Tensor cm, "
+            "Tensor a_log, Tensor d, Tensor h0, str ssm_dtype, int chunk) "
+            "-> (Tensor, Tensor)")
+_LIB.define("selective_scan_bwd(Tensor x, Tensor dt, Tensor bm, Tensor cm, "
+            "Tensor a_log, Tensor d, Tensor h0, Tensor dy, Tensor dh_last, "
+            "str ssm_dtype, int chunk) -> (Tensor, Tensor, Tensor, Tensor, "
+            "Tensor, Tensor, Tensor)")
+
+
+@torch.library.impl("repro_torch::selective_scan", "cuda", lib=_LIB)
+def _scan_cuda(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk):
+    """``selective_scan`` as the op ``repro_torch::selective_scan``: (y
+    (B, S, di), h_last (B, di, n)), both float32, the kernel launched.
+    Its flops: ``scan_flops``."""
+    return selective_scan(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)
+
+
+@torch.library.register_fake("repro_torch::selective_scan", lib=_LIB)
+def _scan_fake(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk):
+    B, S, di = x.shape
+    n = bm.shape[-1]
+    return (x.new_empty((B, S, di), dtype=torch.float32),
+            x.new_empty((B, di, n), dtype=torch.float32))
+
+
+@torch.library.impl("repro_torch::selective_scan_bwd", "cuda", lib=_LIB)
+def _scan_bwd_cuda(x, dt, bm, cm, a_log, d, h0, dy, dh_last, ssm_dtype,
+                   chunk):
+    """``selective_scan_bwd`` as the op ``repro_torch::selective_scan_bwd``:
+    (dx, ddt, dbm, dcm, da_log, dd, dh0), dx and ddt in x's read dtype
+    (``operands``), the rest float32, the kernels launched.  dbm and dcm
+    are copied out of the kernel's one (B, S, 2, n) fold, since an op's
+    outputs do not alias each other.  Its flops: ``scan_bwd_flops``."""
+    g = selective_scan_bwd(x, dt, bm, cm, a_log, d, h0, dy, dh_last,
+                           ssm_dtype, chunk)
+    return (g[0], g[1], g[2].clone(), g[3].clone(), *g[4:])
+
+
+@torch.library.register_fake("repro_torch::selective_scan_bwd", lib=_LIB)
+def _scan_bwd_fake(x, dt, bm, cm, a_log, d, h0, dy, dh_last, ssm_dtype,
+                   chunk):
+    xdt = (torch.bfloat16 if x.dtype == dt.dtype == torch.bfloat16
+           else torch.float32)
+    B, S, di = x.shape
+    n = bm.shape[-1]
+
+    def f32(*shape):
+        return x.new_empty(shape, dtype=torch.float32)
+
+    return (x.new_empty((B, S, di), dtype=xdt),
+            x.new_empty((B, S, di), dtype=xdt), f32(B, S, n), f32(B, S, n),
+            f32(di, n), f32(di), f32(B, di, n))
+
+
+# the ops as callables: CUDA tensors launch the kernels, meta and fake
+# tensors reach the fakes
+scan_op = torch.ops.repro_torch.selective_scan.default
+scan_bwd_op = torch.ops.repro_torch.selective_scan_bwd.default
+
+
+def scan_flops(B: int, S: int, di: int, n: int) -> int:
+    """The forward op's flops: the recurrence h <- exp(dt a) h + dt b x and
+    the readout y <- y + c h are one multiply-add each a (b, s, i, j), the
+    skip y <- y + d x one a (b, s, i); 2 flops a multiply-add, so
+    2 (2 B S di n + B S di)."""
+    return 2 * (2 * B * S * di * n + B * S * di)
+
+
+def scan_bwd_flops(B: int, S: int, di: int, n: int) -> int:
+    """The backward op's flops: the forward's state again, the adjoint
+    g <- exp(dt a) g + c dy, and the sums into db, dc and da, one
+    multiply-add each a (b, s, i, j); dx and dd one each a (b, s, i); so
+    2 (5 B S di n + 2 B S di)."""
+    return 2 * (5 * B * S * di * n + 2 * B * S * di)
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan)
+def _scan_flop_formula(x_shape, dt_shape, bm_shape, *args, out_shape=None,
+                       **kwargs) -> int:
+    return scan_flops(*x_shape, bm_shape[-1])
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan_bwd)
+def _scan_bwd_flop_formula(x_shape, dt_shape, bm_shape, *args,
+                           out_shape=None, **kwargs) -> int:
+    return scan_bwd_flops(*x_shape, bm_shape[-1])
+
+
 class SelectiveScanFn(torch.autograd.Function):
-    """``selective_scan`` with its gradient, ``selective_scan_bwd``, on CUDA
-    tensors, in either mode (``kernels/ops.py`` sends CPU tensors to the
-    plain versions).  The gradients come back in their inputs' dtypes:
-    the kernel writes bfloat16 dx and ddt when x and dt are both bfloat16
-    (the model's path), and the rest are cast from float32.  Under
-    ``torch.utils.checkpoint`` the forward runs twice a step and its saved
-    inputs go with each run's context.
+    """``scan_op`` with its gradient, ``scan_bwd_op``, in either mode
+    (``kernels/ops.py`` sends CPU tensors to the plain versions).  On CUDA
+    tensors the two ops launch the kernels; on meta or fake tensors they
+    reach their fakes and nothing else.  The gradients come back in their
+    inputs' dtypes: the kernel writes bfloat16 dx and ddt when x and dt
+    are both bfloat16 (the model's path), and the rest are cast from
+    float32.  Under ``torch.utils.checkpoint`` the forward runs twice a
+    step and its saved inputs go with each run's context.
 
     ``apply(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)`` ->
     (y, h_last).
@@ -382,10 +491,10 @@ class SelectiveScanFn(torch.autograd.Function):
         check_mode(ssm_dtype, chunk)
         ctx.mode = (ssm_dtype, chunk)
         ctx.save_for_backward(x, dt, bm, cm, a_log, d, h0)
-        return selective_scan(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)
+        return scan_op(x, dt, bm, cm, a_log, d, h0, ssm_dtype, chunk)
 
     @staticmethod
     def backward(ctx, dy, dh_last):
         ins = ctx.saved_tensors
-        grads = selective_scan_bwd(*ins, dy, dh_last, *ctx.mode)
+        grads = scan_bwd_op(*ins, dy, dh_last, *ctx.mode)
         return (*(g.to(t.dtype) for g, t in zip(grads, ins)), None, None)

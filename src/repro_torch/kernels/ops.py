@@ -1,8 +1,10 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
 A CPU tensor runs the plain PyTorch version (``ref.py``); a CUDA tensor
-launches the kernel or raises.  There is no fallback from a CUDA tensor to
-the plain version and no switch that turns the kernels off.
+launches the kernel or raises.  The scan goes through its dispatcher ops
+(``mamba_scan.scan_op``), on whose meta or fake tensors only the fake runs.
+There is no fallback from a CUDA tensor to the plain version and no switch
+that turns the kernels off.
 """
 from __future__ import annotations
 
@@ -52,11 +54,15 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     bf16 and combined in chunks of ``chunk`` steps (``RunConfig``'s
     ``ssm_dtype`` and ``scan_chunk``).
 
-    On CUDA tensors that need a gradient ``SelectiveScanFn`` pairs the
-    kernel with its backward kernel.  On CPU tensors autograd
-    differentiates the plain float32 scan; in the bf16 a/b mode
-    ``PlainAB16ScanFn`` pairs the plain forward with the plain backward,
-    the function the backward kernel computes (float32 cotangents)."""
+    CPU tensors take the plain version: autograd differentiates the plain
+    float32 scan, and in the bf16 a/b mode ``PlainAB16ScanFn`` pairs the
+    plain forward with the plain backward, the function the backward
+    kernel computes (float32 cotangents).  Any other tensor goes to the
+    dispatcher op ``mamba_scan.scan_op`` (through ``SelectiveScanFn``,
+    which pairs it with ``scan_bwd_op``, where a gradient is needed), and
+    the dispatcher picks by device: a CUDA tensor launches the kernel, or
+    the wrapper raises; a meta or fake tensor reaches the op's fake, which
+    gives the outputs' shapes and dtypes and launches nothing."""
     _ms.check_mode(ssm_dtype, chunk)
     ins = (x, dt, bm, cm, a_log, d, h0)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
@@ -66,7 +72,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         return ref.selective_scan_ref(*ins, ssm_dtype, chunk)
     if grad:
         return _ms.SelectiveScanFn.apply(*ins, ssm_dtype, chunk)
-    return _ms.selective_scan(*ins, ssm_dtype, chunk)
+    return _ms.scan_op(*ins, ssm_dtype, chunk)
 
 
 class PlainAB16ScanFn(torch.autograd.Function):

@@ -14,8 +14,10 @@ live (``parallel/rules.py``).  The reference forces N host devices in one
 process; the port starts N processes instead, with ``run_ranks``.
 ``backend_for`` is the collectives' route: NCCL where every rank has its
 own card, the host-staged backend (``parallel/staged.py``) where ranks
-share one, gloo on the CPU.  ``make_production_mesh`` (the reference's
-256- and 512-chip meshes) refuses: ROADMAP.md queue 1 item 12.
+share one, gloo on the CPU.  ``make_production_mesh`` builds the
+reference's 256- and 512-chip meshes over a world of that many ranks:
+``torchrun`` over NCCL on as many cards, or the dry run's fake world
+(``launch/dryrun.py: fake_world``), where nothing is sent or allocated.
 """
 from __future__ import annotations
 
@@ -86,10 +88,23 @@ def compat_make_mesh(shape, axes):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
+PRODUCTION_CHIPS = {False: 256, True: 512}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the 256- and 512-chip production meshes exist only in the dry run's "
-        "simulated world (ROADMAP.md queue 1 item 12), not ported yet")
+    """The reference's production mesh over the initialised world: (16, 16)
+    named (data, model), 256 ranks; with ``multi_pod`` (2, 16, 16) named
+    (pod, data, model), 512 ranks, the ``pod`` axis carrying data
+    parallelism only.  Raises ``ValueError`` on a world of another size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    want = PRODUCTION_CHIPS[multi_pod]
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != want:
+        raise ValueError(f"the {'x'.join(map(str, shape))} production mesh "
+                         f"needs a world of {want} ranks; this one has "
+                         f"{'none' if world is None else world}")
+    return compat_make_mesh(shape, axes)
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,12 @@ each rank its rows of the global batch, restores onto the mesh and runs
 every step under ``parallel.rules.use_rules_mesh``.  Every tokens-only
 arch trains there, the MoE archs among them (their experts laid out over
 ``model``, which is 1 here, and dispatched in ``models/moe.py``'s mesh
-body).  Rank 0 prints and writes ``--json-out``.  ``--production-mesh``
-exits 2: the 256- and 512-chip meshes belong to the dry run (ROADMAP.md
-queue 1 item 12).
+body).  Rank 0 prints and writes ``--json-out``.  With
+``--production-mesh`` the mesh is the reference's production one,
+``make_production_mesh()`` (16, 16) over a world of 256 ranks (``torchrun``
+over NCCL, a card a rank); on any other world, or with none, the driver
+exits 2.  It starts no fake world: the dry run (``launch/dryrun.py``)
+counts a production step without cards.
 
 The last line of standard output is one JSON object: the steps run, the
 tokens a second over the steps after the first (the first compiles and
@@ -154,7 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config of the same family")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the dry run's meshes, not ported: exits 2")
+                    help="the 16x16 production mesh; needs a world of 256 "
+                         "ranks (torchrun), else exits 2")
     ap.add_argument("--checkpoint-dir", default=str(CHECKPOINT_DIR),
                     help="default: build/train_ckpt in this checkout")
     ap.add_argument("--checkpoint-every", type=int, default=0)
@@ -171,11 +175,6 @@ def main(argv: list[str] | None = None, config_override=None) -> int:
     cfg = config_override or registry.get_config(args.arch)
     if args.reduced:
         cfg = registry.reduced_config(cfg)
-    if args.production_mesh:
-        print("error: --production-mesh: the 256- and 512-chip meshes exist "
-              "only in the dry run's simulated world, not ported yet: "
-              "ROADMAP.md queue 1 item 12", file=sys.stderr)
-        return 2
     if cfg.is_encoder_decoder:
         print(f"error: {cfg.name} needs frame embeddings (batch['enc_embeds'])"
               ", which this driver's loader does not make: like the "
@@ -188,10 +187,17 @@ def main(argv: list[str] | None = None, config_override=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     with _world(dev) as world:
-        return _train(args, cfg, dev, world)
+        mesh = None
+        if args.production_mesh:
+            try:
+                mesh = mesh_lib.make_production_mesh()
+            except ValueError as e:
+                print(f"error: --production-mesh: {e}", file=sys.stderr)
+                return 2
+        return _train(args, cfg, dev, world, mesh)
 
 
-def _train(args, cfg, dev: torch.device, world) -> int:
+def _train(args, cfg, dev: torch.device, world, mesh=None) -> int:
     rc = run_config(args.seq, args.batch)
     ocfg = opt.OptimizerConfig(learning_rate=args.lr,
                                warmup_steps=max(2, args.steps // 10),
@@ -199,8 +205,11 @@ def _train(args, cfg, dev: torch.device, world) -> int:
     if world is None:
         mesh, lead, shape = None, True, mesh_lib.make_local_mesh().shape
     else:
-        mesh = mesh_lib.compat_make_mesh((world[1], 1), ("data", "model"))
-        lead, shape = world[0] == 0, {"data": world[1], "model": 1}
+        if mesh is None:
+            mesh = mesh_lib.compat_make_mesh((world[1], 1),
+                                             ("data", "model"))
+        lead = world[0] == 0
+        shape = dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))
 
     def say(*a, **kw):
         if lead:

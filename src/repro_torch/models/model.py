@@ -206,6 +206,15 @@ def param_leaves(cfg: ModelConfig) -> dict[str, ParamSpec]:
     return out
 
 
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16
+                    ) -> Model:
+    """The model on the meta device: every parameter's shape and dtype, and
+    nothing allocated (the reference's ``abstract_params``, whose stacked
+    layer dim is one parameter a layer here, as ``param_leaves`` names
+    them).  ``place_on_mesh`` lays it out on a mesh, still unallocated."""
+    return Model(cfg, dtype, device="meta", seed=None)
+
+
 def param_specs(cfg: ModelConfig, mesh, seq_parallel: bool = False
                 ) -> dict[str, tuple]:
     """Each parameter's spec on ``mesh`` (the reference's ``param_specs``,

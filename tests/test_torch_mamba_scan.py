@@ -419,14 +419,15 @@ def test_ops_ab16_mode_gradient_is_the_plain_backward():
 
 def test_scan_fn_backward_hands_the_kernel_its_mode(monkeypatch):
     """``SelectiveScanFn`` keeps the forward's mode and chunk and passes
-    them to the backward kernel's wrapper (which runs on the card)."""
+    them to the backward kernel's dispatcher op (whose kernel runs on the
+    card)."""
     seen = []
 
     def fake_bwd(*a):
         seen.append(a[9:])
         return tuple(torch.zeros_like(t) for t in a[:7])
 
-    monkeypatch.setattr(tms, "selective_scan_bwd", fake_bwd)
+    monkeypatch.setattr(tms, "scan_bwd_op", fake_bwd)
     ins = tuple(torch.as_tensor(a) for a in make_inputs(3, 1, 5, 4, 2))
     dy, dh = (torch.as_tensor(t) for t in cotangents(3, 1, 5, 4, 2))
     for mode in (("bf16", 7), ("f32", 0)):
@@ -434,3 +435,44 @@ def test_scan_fn_backward_hands_the_kernel_its_mode(monkeypatch):
         grads = tms.SelectiveScanFn.backward(ctx, dy, dh)
         assert grads[7:] == (None, None) and len(grads) == 9
     assert seen == [("bf16", 7), ("f32", 0)]
+
+
+@pytest.mark.parametrize("mode", [("f32", 0), ("bf16", 7)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_meta_tensors_reach_the_ops_fakes_alone(xdt, mode):
+    """On meta tensors ``ops.selective_scan`` and its gradient go through
+    the dispatcher ops ``repro_torch::selective_scan`` and ``_bwd`` to
+    their fakes: the plain version's shapes and dtypes on the same inputs
+    (the gradients in their inputs' dtypes), no launch, and each op's flop
+    formula (``scan_flops``, ``scan_bwd_flops``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    B, S, di, n = 2, 9, 6, 3
+    cpu = [torch.as_tensor(a) for a in make_inputs(5, B, S, di, n, 0.7)]
+    cpu[0], cpu[1] = cpu[0].to(xdt), cpu[1].to(xdt)
+    want = ref.selective_scan_ref(*cpu, *mode)
+    meta = [t.to("meta").requires_grad_(True) for t in cpu]
+    ops.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        y, h = ops.selective_scan(*meta, *mode)
+        (y.sum() + h.sum()).backward()
+    for got, w in zip((y, h), want):
+        assert got.is_meta and got.shape == w.shape and got.dtype == w.dtype
+    for t in meta:
+        assert t.grad.is_meta and t.grad.shape == t.shape
+        assert t.grad.dtype == t.dtype
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    counts = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    assert counts == {"repro_torch.selective_scan":
+                      tms.scan_flops(B, S, di, n),
+                      "repro_torch.selective_scan_bwd":
+                      tms.scan_bwd_flops(B, S, di, n)}
+    assert tms.scan_flops(B, S, di, n) == 2 * (2 * B * S * di * n + B * S * di)
+
+
+def test_the_scan_ops_have_no_cpu_kernel():
+    """A CPU tensor never reaches the ops (``ops.selective_scan`` sends it
+    to the plain version); given one, the dispatcher refuses."""
+    ins = [torch.as_tensor(a) for a in make_inputs(1, 1, 4, 2, 2)]
+    with pytest.raises(NotImplementedError, match="CPU"):
+        tms.scan_op(*ins, "f32", 0)

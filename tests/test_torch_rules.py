@@ -102,17 +102,20 @@ def test_local_mesh_over_the_devices_torch_sees():
     assert int(np.prod(list(tmesh.make_local_mesh().shape.values()))) == n
 
 
-# both meshes now name the dry run's item alone (the first case keeps its
-# id, which named the placement item the port has since done)
+# the production meshes are built now, over a world of 256 or 512 ranks
+# (tests/test_torch_dryrun.py builds them in fake worlds); outside one each
+# refuses, naming the world it needs (the cases keep their ids, which
+# named the queue items of the refusals they used to be)
 @pytest.mark.parametrize("call,item", [
-    pytest.param(lambda: tmesh.make_production_mesh(), "queue 1 item 12",
+    pytest.param(lambda: tmesh.make_production_mesh(), "256 ranks",
                  id="<lambda>-list 1b item 7"),
-    (lambda: tmesh.make_production_mesh(multi_pod=True), "queue 1 item 12"),
+    pytest.param(lambda: tmesh.make_production_mesh(multi_pod=True),
+                 "512 ranks", id="<lambda>-queue 1 item 12"),
 ])
 def test_multi_card_meshes_refuse_naming_their_items(call, item):
-    with pytest.raises(NotImplementedError, match=item) as e:
+    with pytest.raises(ValueError, match=item) as e:
         call()
-    assert "list 1b item 7" not in str(e.value)
+    assert "this one has none" in str(e.value)
 
 
 def test_compat_make_mesh_needs_a_world():

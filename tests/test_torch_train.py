@@ -307,10 +307,10 @@ def test_train_driver_hybrid_through_the_scan(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,message", [
     (["--arch", "whisper-tiny", "--device", "cpu"], "frame embeddings"),
-    # the production meshes belong to the dry run now (the case keeps its
-    # id, which named the placement item the port has since done)
-    pytest.param(["--production-mesh", "--device", "cpu"], "queue 1 item 12",
-                 id="argv1-list 1b item 7"),
+    # the production mesh needs a world of 256 ranks (the case keeps its
+    # id, which named the queue item of the refusal it used to be)
+    pytest.param(["--production-mesh", "--device", "cpu"],
+                 "needs a world of 256 ranks", id="argv1-list 1b item 7"),
 ])
 def test_train_driver_refusals_exit_2(argv, message, capsys):
     assert ttrain.main(["--reduced", *argv]) == 2
